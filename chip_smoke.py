@@ -12,7 +12,16 @@ Phases, each of which raises (exit != 0) when it fails:
      ``tests/golden/masks`` (equal instance count, <= 3 px per frame);
   e. the flagship model (512^2, random weights from a seed) through
      ``run_inference`` in float32 and bfloat16, fused cell off and on, with
-     each kernel's launch count over (d) + (e).
+     each kernel's launch count over (d) + (e);
+  f. K2 (the gate backward) against its plain version at the flagship
+     training shapes (B = 5, 256^2 crops), with K2's time;
+  g. the flagship trained through ``cli/train2d.main`` (B = 5, T = 7, 256^2
+     crops of a synthetic 512^2 sequence) in float32 and bfloat16: a few
+     steps, one validation, one checkpoint, then the port's ``inference2d``
+     from the trained run dir; K1, K2 and K3 must launch and no plain version
+     run, and every parameter must get a nonzero gradient;
+  h. one f32 flagship training step (loss and grads) with the kernels
+     against the same step with the plain versions patched in.
 The last two lines are a JSON kernel summary and the device JSON.
 """
 
@@ -26,6 +35,8 @@ import subprocess
 import sys
 import tempfile
 import time
+
+import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(HERE, "tests", "golden")
@@ -182,6 +193,201 @@ def phase_kernels(torch):
     return out
 
 
+def phase_k2(torch):
+    """(f): K2 against its plain version at the flagship training shapes
+    (rows = 5 x H x W of each level); returns its summary."""
+    from lstm_unet_tpu_torch.ops.kernels import lstm_gates
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(3)
+    tol = {torch.float32: (1e-6, 1e-6),        # same f32 formulas, same rounding
+           torch.bfloat16: (1e-6, 2.0 ** -7)}  # one bf16 ulp of output rounding
+    errs, timing = [], None
+    for hw, feat in ((256, 128), (128, 256), (64, 256), (32, 512)):
+        rows = 5 * hw * hw
+        for gdt, sdt in ((torch.float32, torch.float32),
+                         (torch.bfloat16, torch.bfloat16),
+                         (torch.bfloat16, torch.float32)):
+            z = torch.randn(rows, 4 * feat, device=dev, generator=g) * 3
+            z[:64] = 2.5  # hard_sigmoid's band edges, exactly
+            z[64:128] = -2.5
+            gates = z.to(gdt)
+            c, dc_out, dh = (torch.randn(rows, feat, device=dev, generator=g).to(sdt)
+                             for _ in range(3))
+            for act in ("sigmoid", "hard_sigmoid"):
+                got = lstm_gates.lstm_gate_update_bwd(gates, c, dc_out, dh, act)
+                want = lstm_gates.lstm_gate_update_bwd_plain(gates, c, dc_out, dh, act)
+                e = max(check_close(f"K2 rows={rows} F={feat} {gdt}/{sdt} {act} dgates",
+                                    got[:1], want[:1], *tol[gdt]),
+                        check_close(f"K2 rows={rows} F={feat} {gdt}/{sdt} {act} dc",
+                                    got[1:], want[1:], *tol[sdt]))
+                if act == "hard_sigmoid" and bool(got[0][:128, :feat].any()):
+                    raise AssertionError("K2: hard_sigmoid derivative at z = +-2.5 is not 0")
+                errs.append(e)
+                log(f"K2 lstm_gate_update_bwd rows={rows} F={feat} gates "
+                    f"{str(gdt)[6:]} state {str(sdt)[6:]} {act}: max_abs_err={e:.3g}")
+            if timing is None:  # level 0, f32: the largest shape of training
+                timing = (time_ms(lambda: lstm_gates.lstm_gate_update_bwd(
+                              gates, c, dc_out, dh)),
+                          time_ms(lambda: lstm_gates.lstm_gate_update_bwd_plain(
+                              gates, c, dc_out, dh)))
+                gb = rows * feat * 12 * 4 / 1e9  # reads 7F, writes 5F f32 per row
+                log(f"K2 time @B5x256^2 F=128 float32: kernel {timing[0]:.4f} ms "
+                    f"({gb / timing[0]:.2f} TB/s), plain {timing[1]:.4f} ms")
+    return dict(max_abs_err=max(errs), ms=timing[0], plain_ms=timing[1])
+
+
+def train_args(root, save_root, dtype, steps):
+    return ["--device", "cuda", "--root_data_dir", root,
+            "--train_sequence_list", "Synth-N2DH-SIM:01",
+            "--val_sequence_list", "Synth-N2DH-SIM:01",
+            "--crop_size", "256", "256", "--batch_size", "5", "--unroll_len", "7",
+            "--dtype", dtype, "--num_iterations", str(steps),
+            "--print_to_console_interval", "1", "--validation_interval", str(steps),
+            "--save_checkpoint_iteration", str(10 ** 9),
+            "--root_save_dir", save_root, "--experiment_name", f"flagship_{dtype}"]
+
+
+def phase_train(torch, work, card, launched):
+    """(g): flagship training through the CLI, then inference from its run
+    dir; adds each main-path run's launch counts to ``launched``."""
+    import lstm_unet_tpu_torch.engine.train as engine_train
+    from lstm_unet_tpu_torch.cli.inference2d import main as infer_main
+    from lstm_unet_tpu_torch.cli.train2d import main as train_main
+    from lstm_unet_tpu_torch.io.synthetic import write_ctc_dataset
+    from lstm_unet_tpu_torch.ops import kernels
+
+    root = os.path.join(work, "train_data")
+    seq_dir, _ = write_ctc_dataset(root, num_frames=16, height=512, width=512,
+                                   num_cells=40, seed=0)
+    # every parameter must get a nonzero gradient at least once: watch the
+    # grads the train step computes (flags stay on the device, no sync)
+    seen = {}
+    loss_and_grads = engine_train.loss_and_grads
+
+    def watched(*args, **kw):
+        out = loss_and_grads(*args, **kw)
+        for name, grad in out[3].items():
+            nz = (grad != 0).any()
+            seen[name] = nz if name not in seen else seen[name] | nz
+        return out
+
+    engine_train.loss_and_grads = watched
+    try:
+        for dtype, steps in (("float32", 3), ("bfloat16", 5)):
+            seen.clear()
+            torch.cuda.reset_peak_memory_stats()
+            kernels.reset_counts()
+            trainer = train_main(train_args(root, os.path.join(work, "runs"), dtype, steps))
+            torch.cuda.synchronize()
+            ran = kernels.counts()
+            add_counts(launched, ran)
+            if any(v["plain"] for v in ran.values()):
+                raise AssertionError(f"train {dtype}: plain versions ran on the card: {ran}")
+            for k in ("lstm_gate_update", "lstm_gate_update_bwd", "ccl"):
+                if ran[k]["kernel"] == 0:
+                    raise AssertionError(f"train {dtype}: {k} never launched: {ran}")
+            hist = trainer.history
+            if len(hist) != steps or not all(np.isfinite(h["loss"]) for h in hist):
+                raise AssertionError(f"train {dtype}: losses {[h['loss'] for h in hist]}")
+            params = dict(trainer.model.named_parameters())
+            missing = sorted(n for n in params if n not in seen or not bool(seen[n]))
+            if missing:
+                raise AssertionError(f"train {dtype}: no gradient reached {missing}")
+            vm = trainer.last_val_metrics
+            if not all(np.isfinite(vm[k]) for k in ("loss", "seg", "det")):
+                raise AssertionError(f"train {dtype}: validation {vm}")
+            save_dir = trainer.p.experiment_save_dir
+            if not os.path.exists(os.path.join(save_dir, str(steps), "params.npz")):
+                raise AssertionError(f"train {dtype}: no checkpoint in {save_dir}")
+            steady = hist[1:]
+            fps = sum(h["frames"] for h in steady) / sum(h["seconds"] for h in steady)
+            log(f"train flagship B5 T7 256^2 {dtype}: {steps} steps, losses "
+                f"{[round(h['loss'], 5) for h in hist]}, gnorm {hist[-1]['grad_norm']:.4g}; "
+                f"step 1 {hist[0]['seconds']:.3f} s; steady {fps:.3f} frames/s "
+                f"({len(steady)} steps, first excluded) [{card}]; peak memory "
+                f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; val loss "
+                f"{vm['loss']:.4f} seg {vm['seg']:.4f} det {vm['det']:.4f}; launches "
+                f"{ {k: v['kernel'] for k, v in ran.items()} }")
+
+            out = os.path.join(work, f"trained_{dtype}_res")
+            kernels.reset_counts()
+            n = infer_main(["--model_path", os.path.dirname(save_dir),
+                            "--sequence_path", seq_dir, "--output_path", out,
+                            "--device", "cuda", "--pre_sequence_frames", "2"])
+            ran = kernels.counts()
+            add_counts(launched, ran)
+            written = len(glob.glob(os.path.join(out, "mask*.tif")))
+            if n != 16 or written != 16 or any(v["plain"] for v in ran.values()):
+                raise AssertionError(f"inference from the {dtype} run: {n} masks "
+                                     f"reported, {written} written, counts {ran}")
+            log(f"inference2d from the trained {dtype} run dir: {n} masks; launches "
+                f"{ {k: v['kernel'] for k, v in ran.items()} }")
+            del trainer
+            torch.cuda.empty_cache()
+    finally:
+        engine_train.loss_and_grads = loss_and_grads
+
+
+def phase_train_vs_plain(torch):
+    """(h): one f32 flagship step's loss and grads with the kernels against
+    the plain versions patched in, same weights, state and batch."""
+    from lstm_unet_tpu_torch.config import default_net_kernel_params
+    from lstm_unet_tpu_torch.engine.optim import global_norm
+    from lstm_unet_tpu_torch.engine.train import loss_and_grads
+    from lstm_unet_tpu_torch.models import ModelConfig, ULSTMnet2D
+    from lstm_unet_tpu_torch.ops import kernels
+    from lstm_unet_tpu_torch.ops.kernels import lstm_gates
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    model = ULSTMnet2D(ModelConfig.make(default_net_kernel_params()), generator=gen,
+                       device="cuda")
+    state = [[(torch.rand(h.shape, device="cuda", generator=gen) - 0.5,
+               torch.randn(c.shape, device="cuda", generator=gen) * 0.5) for (h, c) in lvl]
+             for lvl in model.init_state(5, 256, 256)]
+    img = torch.rand(5, 7, 256, 256, 1, device="cuda", generator=gen)
+    seg = torch.randint(0, 3, (5, 7, 256, 256), device="cuda", generator=gen)
+    valid = torch.ones(5, 7, device="cuda")
+    cw = (0.15, 0.25, 0.6)
+
+    def run():
+        loss, acc, _, grads = loss_and_grads(model, state, img, seg, valid, valid, cw,
+                                             remat=True)
+        return float(loss.detach()), float(global_norm(grads.values())), grads
+
+    kernels.reset_counts()
+    loss_k, gn_k, grads_k = run()
+    used = kernels.counts()
+    fwd, bwd = lstm_gates.fused_lstm_gate_update, lstm_gates.lstm_gate_update_bwd
+    lstm_gates.fused_lstm_gate_update = lstm_gates.lstm_gate_update_plain
+    lstm_gates.lstm_gate_update_bwd = lstm_gates.lstm_gate_update_bwd_plain
+    try:
+        loss_p, gn_p, grads_p = run()
+    finally:
+        lstm_gates.fused_lstm_gate_update, lstm_gates.lstm_gate_update_bwd = fwd, bwd
+    if used["lstm_gate_update_bwd"]["kernel"] == 0 or used["lstm_gate_update"]["plain"]:
+        raise AssertionError(f"kernel step did not run the kernels: {used}")
+    worst = max(float((grads_k[n] - grads_p[n]).abs().max() / grads_p[n].abs().max())
+                for n in grads_p)
+    log(f"flagship f32 step, kernels vs plain: loss {loss_k:.8g} vs {loss_p:.8g}, "
+        f"grad_norm {gn_k:.8g} vs {gn_p:.8g}, worst per-parameter grad diff "
+        f"{worst:.3g} of the parameter's largest grad")
+    # the same gate formulas on both sides; cuDNN's f32 backward convs may
+    # sum in a run-dependent order, carried through 7 frames and 4 levels
+    if abs(loss_k - loss_p) > 1e-5 * abs(loss_p) or abs(gn_k - gn_p) > 1e-4 * gn_p \
+            or worst > 1e-3:
+        raise AssertionError("flagship step with kernels differs from the plain step")
+
+
+def add_counts(total, ran):
+    for k, v in ran.items():
+        total.setdefault(k, {"kernel": 0, "plain": 0})
+        total[k]["kernel"] += v["kernel"]
+        total[k]["plain"] += v["plain"]
+
+
 def flagship_model(torch, dtype, fused):
     from lstm_unet_tpu_torch.config import default_net_kernel_params
     from lstm_unet_tpu_torch.models import ModelConfig, ULSTMnet2D, cast_params_for_inference
@@ -323,23 +529,35 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log("  ptxas:", line.strip())
 
-    # (c) kernels vs plain versions
+    # (c) kernels vs plain versions; (f) K2
     summary = phase_kernels(torch)
     phase_fused_vs_unfused(torch)
+    summary["lstm_gate_update_bwd"] = phase_k2(torch)
 
-    # (d) + (e): the main path, counted
+    # (d) + (e): the inference path, counted; (g): the training path, counted
+    launched = {}
     with tempfile.TemporaryDirectory() as work:
         kernels.reset_counts()
         phase_golden(torch, work)
         phase_flagship(torch, work, smi)
-        launched = kernels.counts()
+        inference = kernels.counts()
+        for k in ("lstm_gate_update", "ccl", "fused_convlstm_level"):
+            if inference[k]["kernel"] == 0:
+                raise AssertionError(f"inference path: {k} never launched: {inference}")
+        if any(v["plain"] for v in inference.values()):
+            raise AssertionError(f"inference path: plain versions ran: {inference}")
+        add_counts(launched, inference)
+        phase_train(torch, work, smi, launched)
+    phase_train_vs_plain(torch)
     for k, v in launched.items():
         if v["kernel"] == 0 or v["plain"] != 0:
-            raise AssertionError(f"main path: {k} launched {v['kernel']} times, "
+            raise AssertionError(f"main paths: {k} launched {v['kernel']} times, "
                                  f"plain version {v['plain']} times")
 
     sources = {"lstm_gate_update": ("lstm_unet_tpu_torch/csrc/lstm_gates.cu",
                                     "lstm_unet_tpu/ops/pallas/lstm_gates.py:77"),
+               "lstm_gate_update_bwd": ("lstm_unet_tpu_torch/csrc/lstm_gates.cu",
+                                        "lstm_unet_tpu/ops/pallas/lstm_gates.py:142"),
                "ccl": ("lstm_unet_tpu_torch/csrc/ccl.cu",
                        "lstm_unet_tpu/ops/pallas/ccl.py:79"),
                "fused_convlstm_level": ("lstm_unet_tpu_torch/csrc/convlstm_cell.cu",

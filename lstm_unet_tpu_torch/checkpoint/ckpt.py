@@ -1,0 +1,101 @@
+"""Training checkpoints in the port's own format.
+
+Counterpart of ``lstm_unet_tpu/checkpoint/ckpt.py`` (orbax there). An
+experiment's save dir holds the architecture file ``model_params.json`` and
+one dir per saved step::
+
+    <save_dir>/model_params.json
+    <save_dir>/<step>/params.npz      the reference's param tree, '/'-joined
+                                      keys, reference layout (HWIO kernels)
+    <save_dir>/<step>/opt_state.npz   'mu/<key>', 'nu/<key>' in the same
+                                      layout, and the optimizer's scalars
+
+so ``params.npz`` is the same file a port model dir holds
+(``checkpoint/convert.py``) and ``inference2d --model_path`` reads a step dir,
+a save dir (latest step) or the run dir above it. A step is written to a
+temporary dir and renamed into place; ``max_to_keep`` prunes the oldest.
+Saves are synchronous: the trainer updates its tensors in place, so the
+host copy has to be complete before the next step.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import shutil
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+
+MODEL_PARAMS_FILE = "model_params.json"
+PARAMS_FILE = "params.npz"
+OPT_STATE_FILE = "opt_state.npz"
+
+
+def resolve_model_dir(directory: str) -> str:
+    """A run dir (``<run>/ckpt/model_params.json``) resolves to its ``ckpt``
+    dir; anything else is returned unchanged."""
+    if not os.path.exists(os.path.join(directory, MODEL_PARAMS_FILE)):
+        sub = os.path.join(directory, "ckpt")
+        if os.path.exists(os.path.join(sub, MODEL_PARAMS_FILE)):
+            return sub
+    return directory
+
+
+def save_model_params(directory: str, arch: Dict[str, Any]) -> None:
+    os.makedirs(directory, exist_ok=True)
+    with open(os.path.join(directory, MODEL_PARAMS_FILE), "w") as f:
+        json.dump(arch, f, indent=2)
+
+
+def saved_steps(directory: str) -> List[int]:
+    """Steps saved under ``directory`` (numeric dirs holding params.npz)."""
+    if not os.path.isdir(directory):
+        return []
+    return sorted(int(d) for d in os.listdir(directory)
+                  if d.isdigit() and os.path.exists(os.path.join(directory, d, PARAMS_FILE)))
+
+
+def _load_npz(path: str) -> Dict[str, np.ndarray]:
+    with np.load(path) as npz:
+        return {k: npz[k] for k in npz.files}
+
+
+class CheckpointManager:
+    """Save and restore ``(params, opt_state, step)`` as flat numpy dicts."""
+
+    def __init__(self, directory: str, max_to_keep: int = 5):
+        self.directory = os.path.abspath(directory)
+        self.max_to_keep = max_to_keep
+        os.makedirs(self.directory, exist_ok=True)
+
+    def save(self, step: int, params: Dict[str, np.ndarray],
+             opt_state: Dict[str, np.ndarray]) -> str:
+        final = os.path.join(self.directory, str(step))
+        tmp = f"{final}.tmp{os.getpid()}"
+        shutil.rmtree(tmp, ignore_errors=True)
+        os.makedirs(tmp)
+        np.savez(os.path.join(tmp, PARAMS_FILE), **params)
+        np.savez(os.path.join(tmp, OPT_STATE_FILE), **opt_state)
+        shutil.rmtree(final, ignore_errors=True)  # a re-save of the same step
+        os.replace(tmp, final)
+        if self.max_to_keep and self.max_to_keep > 0:
+            for old in self.all_steps()[:-self.max_to_keep]:
+                shutil.rmtree(os.path.join(self.directory, str(old)))
+        return final
+
+    def all_steps(self) -> List[int]:
+        return saved_steps(self.directory)
+
+    def latest_step(self) -> Optional[int]:
+        steps = self.all_steps()
+        return steps[-1] if steps else None
+
+    def restore(self, step: Optional[int] = None
+                ) -> Tuple[Dict[str, np.ndarray], Dict[str, np.ndarray], int]:
+        step = step if step is not None else self.latest_step()
+        if step is None:
+            raise FileNotFoundError(f"no checkpoint under {self.directory}")
+        d = os.path.join(self.directory, str(step))
+        return (_load_npz(os.path.join(d, PARAMS_FILE)),
+                _load_npz(os.path.join(d, OPT_STATE_FILE)), step)

@@ -9,7 +9,13 @@ on the 4F axis is the same in both, so only the 4-D kernels are transposed.
 A port model dir holds the reference's ``model_params.json``, read verbatim,
 and ``params.npz``: the reference tree flattened to ``/``-joined keys, arrays
 in the reference layout. ``scripts/export_params_npz.py`` writes it from an
-orbax model dir.
+orbax model dir; the port's trainer writes one ``params.npz`` per saved step
+(``checkpoint/ckpt.py``), which :func:`load_model` reads too.
+
+The optimizer state maps the same way: :func:`opt_state_from_jax` takes
+optax's Adam ``mu``/``nu``/``count`` (inside the clip / apply_if_finite
+chain) to the state of the port's ``engine.optim.ClippedAdam``, so a
+reference run can be carried across mid-training.
 """
 
 from __future__ import annotations
@@ -22,9 +28,7 @@ import numpy as np
 import torch
 
 from ..models import ModelConfig, ULSTMnet2D, cast_params_for_inference
-
-MODEL_PARAMS_FILE = "model_params.json"
-PARAMS_FILE = "params.npz"
+from .ckpt import MODEL_PARAMS_FILE, PARAMS_FILE, resolve_model_dir, saved_steps
 
 
 def flatten_tree(tree: Any, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -86,18 +90,91 @@ def params_to_jax(state_dict: Dict[str, torch.Tensor]) -> Any:
     return _unflatten(flat)
 
 
+_SCALARS = ("count", "notfinite_count", "last_finite", "total_notfinite")
+
+
+def _find_state(tree: Any, attrs) -> Any:
+    """The first node of an optax state tree that has all of ``attrs``."""
+    if all(hasattr(tree, a) for a in attrs):
+        return tree
+    if isinstance(tree, (tuple, list)):
+        for t in tree:
+            found = _find_state(t, attrs)
+            if found is not None:
+                return found
+    return None
+
+
+def opt_state_from_jax(opt_state: Any) -> Dict[str, Any]:
+    """optax state of ``[apply_if_finite](chain([clip_by_global_norm], adam))``
+    (arrays as numpy or jax arrays) -> ``ClippedAdam.state_dict()`` layout on
+    the CPU. Without apply_if_finite the skip counters start at zero."""
+    adam = _find_state(opt_state, ("mu", "nu", "count"))
+    if adam is None:
+        raise ValueError("no Adam state (mu, nu, count) in the optax state")
+    out: Dict[str, Any] = {
+        "mu": params_from_jax(flatten_tree(adam.mu)),
+        "nu": params_from_jax(flatten_tree(adam.nu)),
+        "count": torch.tensor(int(np.asarray(adam.count)), dtype=torch.int32)}
+    fin = _find_state(opt_state, ("notfinite_count", "last_finite", "total_notfinite"))
+    for k in _SCALARS[1:]:
+        v = np.asarray(getattr(fin, k)) if fin is not None else np.asarray(k == "last_finite")
+        out[k] = torch.from_numpy(np.array(v, dtype=bool if k == "last_finite" else np.int32))
+    return out
+
+
+def opt_state_to_npz(state: Dict[str, Any]) -> Dict[str, np.ndarray]:
+    """``ClippedAdam.state_dict()`` -> flat ``opt_state.npz`` arrays: ``mu/<key>``
+    and ``nu/<key>`` in the reference layout, and the scalars."""
+    flat: Dict[str, np.ndarray] = {}
+    for moment in ("mu", "nu"):
+        flat.update(flatten_tree(params_to_jax(state[moment]), moment))
+    flat.update({k: state[k].detach().cpu().numpy() for k in _SCALARS})
+    return flat
+
+
+def opt_state_from_npz(flat: Dict[str, np.ndarray]) -> Dict[str, Any]:
+    """The inverse of :func:`opt_state_to_npz`."""
+    out: Dict[str, Any] = {
+        m: params_from_jax({k[len(m) + 1:]: v for k, v in flat.items()
+                            if k.startswith(m + "/")}) for m in ("mu", "nu")}
+    out.update({k: torch.from_numpy(np.asarray(flat[k])) for k in _SCALARS})
+    return out
+
+
+def resolve_params_path(model_path: str, step: Optional[int] = None) -> str:
+    """The ``params.npz`` of a model dir: the dir's own, or that of its saved
+    step ``step`` (default: the latest) when a trainer wrote it. A run dir
+    resolves to its ``ckpt`` dir."""
+    own = os.path.join(model_path, PARAMS_FILE)
+    steps = saved_steps(model_path)
+    if step:
+        if step not in steps:
+            raise FileNotFoundError(f"no step {step} under {model_path} "
+                                    f"(saved: {steps})")
+        return os.path.join(model_path, str(step), PARAMS_FILE)
+    if os.path.exists(own) or not steps:
+        return own
+    return os.path.join(model_path, str(steps[-1]), PARAMS_FILE)
+
+
 def load_model(model_path: str, device="cpu", dtype: Optional[str] = None,
                state_dtype: Optional[str] = None,
-               fused_cell: Optional[bool] = None) -> ULSTMnet2D:
+               fused_cell: Optional[bool] = None,
+               step: Optional[int] = None) -> ULSTMnet2D:
     """Build the model of a port model dir on ``device``, weights cast to the
-    compute dtype (``dtype`` etc. override ``model_params.json``)."""
+    compute dtype (``dtype`` etc. override ``model_params.json``). The dir
+    may be an experiment save dir or run dir of the port's trainer: then
+    ``step`` (default: the latest) picks the saved step."""
+    model_path = resolve_model_dir(model_path)
     arch_path = os.path.join(model_path, MODEL_PARAMS_FILE)
-    params_path = os.path.join(model_path, PARAMS_FILE)
+    params_path = resolve_params_path(model_path, step)
     for p in (arch_path, params_path):
         if not os.path.exists(p):
             raise FileNotFoundError(
                 f"{p} missing: a port model dir holds {MODEL_PARAMS_FILE} and "
-                f"{PARAMS_FILE} (scripts/export_params_npz.py writes them)")
+                f"{PARAMS_FILE} (scripts/export_params_npz.py writes them), or "
+                f"step dirs with {PARAMS_FILE} (the port's trainer writes them)")
     with open(arch_path) as f:
         cfg_kw = dict(json.load(f)["model_config"])
     if dtype == "int8":

@@ -46,7 +46,8 @@ _UNPORTED_RECIPE = {
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--model_path", type=str, required=True,
-                    help="dir with model_params.json + params.npz")
+                    help="dir with model_params.json + params.npz, or a port "
+                         "training run's dir (its latest saved step)")
     ap.add_argument("--sequence_path", type=str, required=True)
     ap.add_argument("--output_path", type=str, required=True)
     ap.add_argument("--device", type=str, default="cuda",
@@ -76,7 +77,8 @@ def build_parser() -> argparse.ArgumentParser:
                          "seconds; 0 disables")
     ap.add_argument("--recipe", type=str,
                     help="knob recipe JSON; explicit flags win over its keys")
-    ap.add_argument("--ckpt_step", type=int, help="only 0 (the exported step)")
+    ap.add_argument("--ckpt_step", type=int,
+                    help="saved step of a training run's dir (0 = latest)")
     # not ported yet: accepted, then rejected by name in main()
     ap.add_argument("--conv_method", type=str, choices=["conv", "dots", "auto"])
     ap.add_argument("--entry_layouts", action="store_true", default=None)

@@ -1,18 +1,22 @@
-"""Architecture and inference configuration.
+"""Architecture, training and inference configuration.
 
 Counterpart of ``lstm_unet_tpu/config/params.py``: the same knob names and
-defaults (``tests/test_torch_convert.py`` holds them equal), carried here so
-that the port runs where only PyTorch is installed. Only the knobs of the
-streaming-inference slice live in :class:`InferenceParams`; the CLI rejects
-the others by name (``cli/inference2d.py``).
+defaults (``tests/test_torch_convert.py`` and ``tests/test_torch_train.py``
+hold them equal), carried here so that the port runs where only PyTorch is
+installed. :class:`CTCParams` carries every training knob of the reference,
+ported or not; the trainer and ``cli/train2d.py`` reject the unported ones by
+name. Only the knobs of the streaming-inference slice live in
+:class:`InferenceParams`; its CLI rejects the others (``cli/inference2d.py``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
-from dataclasses import dataclass
-from typing import Any, Dict, List, Tuple
+import os
+import time
+from dataclasses import dataclass, field
+from typing import Any, Dict, List, Optional, Tuple
 
 # Per-level list of (kernel_size, filters); one outer entry per U-Net level.
 LevelSpec = List[List[Tuple[int, int]]]
@@ -79,11 +83,125 @@ def tiny_net_kernel_params() -> NetKernelParams:
 
 
 @dataclass
+class ParamsBase:
+    """Experiment naming and dirs, as the reference's ``ParamsBase``:
+    ``<root_save_dir>/<experiment_name>_<timestamp>/{logs,ckpt}``."""
+
+    experiment_name: str = "MyRun"
+    root_save_dir: str = "./runs"
+    dry_run: bool = False          # no file is written
+    experiment_log_dir: Optional[str] = None   # set by resolve_dirs
+    experiment_save_dir: Optional[str] = None
+
+    def resolve_dirs(self, timestamp: Optional[str] = None) -> None:
+        ts = timestamp or time.strftime("%Y-%m-%d_%H%M%S")
+        base = os.path.join(self.root_save_dir, f"{self.experiment_name}_{ts}")
+        self.experiment_log_dir = os.path.join(base, "logs")
+        self.experiment_save_dir = os.path.join(base, "ckpt")
+        if not self.dry_run:
+            os.makedirs(self.experiment_log_dir, exist_ok=True)
+            os.makedirs(self.experiment_save_dir, exist_ok=True)
+
+    def to_json(self) -> str:
+        def enc(o):
+            if isinstance(o, NetKernelParams):
+                return o.to_dict()
+            raise TypeError(type(o))
+
+        return json.dumps(dataclasses.asdict(self), default=enc, indent=2)
+
+    def save_json(self, path: str) -> None:
+        with open(path, "w") as f:
+            f.write(self.to_json())
+
+    def override(self, **kwargs):
+        """Set each knob that is not None (argparse leaves unset flags None)."""
+        for k, v in kwargs.items():
+            if v is None:
+                continue
+            if not hasattr(self, k):
+                raise AttributeError(f"unknown param: {k}")
+            setattr(self, k, v)
+        return self
+
+
+@dataclass
+class CTCParams(ParamsBase):
+    """Training knobs (reference: ``CTCParams``). The trainer raises
+    ``NotImplementedError`` for those of unported features when they are set
+    away from their defaults (``engine/train.py::check_ported``)."""
+
+    # data
+    root_data_dir: str = "./data/CTC"
+    train_sequence_list: List[Tuple[str, str]] = field(
+        default_factory=lambda: [("Fluo-N2DH-SIM+", "01"), ("Fluo-N2DH-SIM+", "02")])
+    val_sequence_list: List[Tuple[str, str]] = field(default_factory=list)
+    data_provider_class: str = "CTCRAMReaderSequence2D"
+    crop_size: Tuple[int, int] = (256, 256)
+    batch_size: int = 5
+    unroll_len: int = 7
+    data_format: str = "NHWC"
+    num_prefetch_threads: int = 1
+    elastic_augmentation: bool = False
+    randomize: bool = True
+    gt_is_full_seg: Optional[bool] = None  # None: _ST and "SIM" datasets full
+
+    # model
+    net_kernel_params: NetKernelParams = field(default_factory=default_net_kernel_params)
+    num_classes: int = 3
+    activation: str = "leaky_relu"
+    recurrent_activation: str = "sigmoid"
+    norm: str = "none"
+    dtype: str = "float32"
+    state_dtype: str = "auto"
+
+    # optimization: optax.apply_if_finite(chain(clip_by_global_norm, adam))
+    learning_rate: float = 1e-5
+    grad_clip_norm: float = 5.0          # 0 disables
+    skip_nonfinite_updates: bool = True
+    adam_mu_dtype: str = "float32"
+    num_iterations: int = 100000
+    class_weights: Tuple[float, float, float] = (0.15, 0.25, 0.6)
+
+    # bookkeeping
+    validation_interval: int = 1000
+    val_seg_min_cell_size: int = 10
+    print_to_console_interval: int = 100
+    save_checkpoint_iteration: int = 5000
+    write_to_tb_interval: int = 500
+    save_checkpoint_max_to_keep: int = 5
+    async_checkpoint: bool = True
+    load_checkpoint: bool = False
+    load_checkpoint_path: str = ""
+    continue_run: bool = False
+    profile: bool = False
+    watchdog_secs: float = 0.0
+
+    # loss-spike rollback guard (0 disables)
+    spike_factor: float = 0.0
+    spike_ema_decay: float = 0.98
+    spike_warmup: int = 50
+    spike_cooldown: int = 100
+    spike_max_rollbacks: int = 5
+
+    # workarounds of the reference's tunnelled TPU client (not ported)
+    rss_relaunch_gb: float = 90.0
+    compact_upload: bool = True
+
+    # parallelism and backward-pass memory
+    mesh_shape: Dict[str, int] = field(default_factory=lambda: {"data": 1})
+    remat: bool = True
+    remat_policy: str = "full"
+    conv_method: str = "conv"
+    entry_layouts: bool = False
+
+
+@dataclass
 class InferenceParams:
     """Knobs of streaming inference (reference: ``CTCInferenceParams``)."""
 
-    model_path: str = ""           # dir with model_params.json + params.npz
-    ckpt_step: int = 0             # only 0: params.npz holds one step
+    model_path: str = ""           # model dir, or a port training run's dir
+    ckpt_step: int = 0             # saved step of a training run (0 = latest)
     sequence_path: str = ""        # dir of t*.tif frames
     output_path: str = "./output"
     filename_format: str = "t*.tif"
@@ -117,12 +235,12 @@ class InferenceParams:
         return self
 
 
-def load_recipe(path: str) -> Dict[str, Any]:
+def load_recipe(path: str, known: Optional[set] = None) -> Dict[str, Any]:
     """Load a knob recipe (``configs/recommended.json`` or the ``"winner"`` of
     a ``scripts/calibrate_recipe.py`` output), as the reference's
     ``load_recipe`` does: lists become tuples, ``fov`` is an alias of
-    ``FOV``, and ``instance_split`` without a ``split_method`` means
-    ``'prob'``."""
+    ``FOV``, ``instance_split`` without a ``split_method`` means ``'prob'``,
+    and with ``known`` only those keys are kept."""
     with open(path) as f:
         d = json.load(f)
     if isinstance(d.get("winner"), dict):
@@ -132,4 +250,6 @@ def load_recipe(path: str) -> Dict[str, Any]:
         d["FOV"] = d.pop("fov")
     if d.get("instance_split") and "split_method" not in d:
         d["split_method"] = "prob"
+    if known is not None:
+        d = {k: v for k, v in d.items() if k in known}
     return d

@@ -239,13 +239,10 @@ def run_inference(ip: InferenceParams, device="cuda",
     with ``save_intermediate``); returns the number of masks written.
     ``model`` replaces loading ``ip.model_path``."""
     device = resolve_device(device)
-    if ip.ckpt_step:
-        raise NotImplementedError(
-            "ckpt_step: a port model dir holds one params.npz; export the step "
-            "you want with scripts/export_params_npz.py --step")
     if model is None:
         model = load_model(ip.model_path, device, dtype=ip.dtype,
-                           state_dtype=ip.state_dtype, fused_cell=ip.fused_cell)
+                           state_dtype=ip.state_dtype, fused_cell=ip.fused_cell,
+                           step=ip.ckpt_step or None)
     engine = StreamingInferenceEngine(model, ip, device)
     reader = CTCInferenceReader(ip.sequence_path, ip.filename_format,
                                 ip.pre_sequence_frames, normalize=False)

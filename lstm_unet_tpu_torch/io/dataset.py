@@ -1,26 +1,267 @@
-"""Frame reader for streaming inference.
+"""CTC sequence readers: the training batch provider and the streaming
+inference frame reader.
 
-Counterpart of ``lstm_unet_tpu/io/dataset.py::CTCInferenceReader``.
+Counterpart of ``lstm_unet_tpu/io/dataset.py`` (``load_ctc_sequence``,
+``CTCRAMReaderSequence2D``, ``CTCInferenceReader``). CTC layout::
+
+    <root>/<dataset>/<seq>/t*.tif
+    <root>/<dataset>/<seq>_GT/SEG/man_seg*.tif   (possibly sparse)
+    <root>/<dataset>/<seq>_ST/SEG/man_seg*.tif   (silver truth, optional)
+
+For the same params and seed the training batches are bit-identical to the
+reference reader's, for any thread count (``tests/test_torch_reader.py``).
 """
 
 from __future__ import annotations
 
 import glob
 import os
+import queue
 import re
-from typing import List, Optional
+import threading
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
-from .preprocess import percentile_normalize_np
+from ..config import CTCParams
+from ..utils import log_print
+from .preprocess import instance_to_three_class, percentile_normalize_np
 from .tiff import read_tiff
 
 _FRAME_RE = re.compile(r"t(\d+)\.tif$")
+_SEG_RE = re.compile(r"man_seg(\d+)\.tif$")
 
 
-def _frame_index(path: str) -> Optional[int]:
-    m = _FRAME_RE.search(os.path.basename(path))
+def _frame_index(path: str, pattern: re.Pattern = _FRAME_RE) -> Optional[int]:
+    m = pattern.search(os.path.basename(path))
     return int(m.group(1)) if m else None
+
+
+class SequenceData:
+    """One CTC sequence in RAM: ``images [T,H,W]`` f32 (percentile-normalized),
+    ``seg [T,H,W]`` uint8 {0,1,2}, ``valid [T]`` (frame annotated),
+    ``full_seg [T]`` (annotation covers every cell) and, when kept, the raw
+    instance GT ``inst [T,H,W]`` int32."""
+
+    def __init__(self, images, seg, valid, full_seg, name, inst=None):
+        self.images = images
+        self.seg = seg
+        self.valid = valid
+        self.full_seg = full_seg
+        self.inst = inst
+        self.name = name
+
+    def __len__(self) -> int:
+        return self.images.shape[0]
+
+
+def load_ctc_sequence(root: str, dataset: str, seq: str,
+                      gt_is_full_seg: Optional[bool] = None,
+                      keep_instances: bool = False) -> SequenceData:
+    """Load one sequence and its SEG annotations. Gold truth (``_GT``) wins
+    over silver truth (``_ST``) for a frame. Silver truth and simulated
+    datasets (name containing "SIM") are fully annotated; gold truth of real
+    datasets may label only some cells (``gt_is_full_seg`` overrides)."""
+    seq_dir = os.path.join(root, dataset, seq)
+    frames = sorted(glob.glob(os.path.join(seq_dir, "t*.tif")))
+    if not frames:
+        raise FileNotFoundError(f"no t*.tif frames under {seq_dir}")
+    imgs = np.stack([percentile_normalize_np(read_tiff(p)) for p in frames])
+    t, h, w = imgs.shape
+    seg = np.zeros((t, h, w), dtype=np.uint8)
+    inst = np.zeros((t, h, w), dtype=np.int32) if keep_instances else None
+    valid = np.zeros((t,), dtype=bool)
+    full = np.zeros((t,), dtype=bool)
+    gt_full = gt_is_full_seg if gt_is_full_seg is not None else ("SIM" in dataset)
+    for gt_kind, kind_full in (("_GT", gt_full), ("_ST", True)):
+        seg_dir = os.path.join(root, dataset, seq + gt_kind, "SEG")
+        for p in sorted(glob.glob(os.path.join(seg_dir, "man_seg*.tif"))):
+            idx = _frame_index(p, _SEG_RE)
+            if idx is None or idx >= t or valid[idx]:
+                continue
+            raw = read_tiff(p)
+            seg[idx] = instance_to_three_class(raw)
+            if inst is not None:
+                inst[idx] = raw.astype(np.int32)
+            valid[idx] = True
+            full[idx] = kind_full
+    return SequenceData(imgs, seg, valid, full, f"{dataset}/{seq}", inst)
+
+
+class CTCRAMReaderSequence2D:
+    """Threaded batches of unrolled windows for truncated-BPTT training.
+
+    Each of the ``batch_size`` lanes walks a randomly chosen sequence in
+    ``unroll_len`` windows, with one crop, flip, rot90 and gain/bias drawn
+    per traversal so the LSTM state stays coherent across windows.
+    ``get_batch()`` returns::
+
+        image [B,T,H,W,1] float32, seg [B,T,H,W] int32 {0,1,2},
+        valid [B,T] float32, full_seg [B,T] float32, is_last [B] float32
+
+    plus ``inst [B,T,H,W]`` int32 with ``return_instances``. A short tail
+    window repeats its last frame, marked invalid; ``is_last`` marks a
+    window that ends its sequence (the trainer resets that lane's state).
+
+    The trainer carries the state of lane i from one batch into the next, so
+    each lane has its own FIFO queue and its own RNG stream,
+    ``default_rng(seed + 9973 * i)``; ``num_threads`` producers share the
+    lanes round-robin. The stream is therefore the same for any thread
+    count. A producer's exception is raised by ``get_batch``; ``stop()``
+    drains the queues, so a restart begins fresh traversals.
+    """
+
+    def __init__(self, params: CTCParams, sequence_list: Optional[Sequence] = None,
+                 num_threads: Optional[int] = None, queue_capacity: int = 16,
+                 seed: int = 0, return_instances: bool = False):
+        if params.elastic_augmentation:
+            raise NotImplementedError(
+                "elastic_augmentation is not ported yet (it needs cv2): "
+                "ROADMAP.md queue 1 item 8b")
+        self.params = params
+        self.crop = tuple(params.crop_size)
+        self.unroll = params.unroll_len
+        self.batch = params.batch_size
+        self.return_instances = return_instances
+        seq_list = (sequence_list if sequence_list is not None
+                    else params.train_sequence_list)
+        self.sequences = [
+            load_ctc_sequence(params.root_data_dir, ds, sq, params.gt_is_full_seg,
+                              keep_instances=return_instances)
+            for ds, sq in seq_list]
+        requested = num_threads if num_threads is not None else params.num_prefetch_threads
+        self.num_threads = max(1, min(requested, self.batch))
+        cap = max(2, queue_capacity // self.batch)
+        self._lane_qs: List[queue.Queue] = [queue.Queue(maxsize=cap)
+                                            for _ in range(self.batch)]
+        self._stop = threading.Event()
+        self._threads: List[threading.Thread] = []
+        self._seed = seed
+        self._err: Optional[BaseException] = None
+        self.randomize = params.randomize
+
+    def _new_traversal(self, rng: np.random.Generator):
+        """A sequence and its augmentation for one traversal; the draws are
+        the reference's, in its order."""
+        rnd = self.randomize
+        s = self.sequences[rng.integers(len(self.sequences))] if rnd else self.sequences[0]
+        t, h, w = s.images.shape
+        ch, cw = min(self.crop[0], h), min(self.crop[1], w)
+        aug = {
+            "y0": int(rng.integers(0, h - ch + 1)) if rnd else 0,
+            "x0": int(rng.integers(0, w - cw + 1)) if rnd else 0,
+            "flip_y": bool(rng.integers(2)) and rnd,
+            "flip_x": bool(rng.integers(2)) and rnd,
+            "rot90": int(rng.integers(4)) if (rnd and ch == cw) else 0,
+            "gain": float(rng.uniform(0.9, 1.1)) if rnd else 1.0,
+            "bias": float(rng.uniform(-0.05, 0.05)) if rnd else 0.0,
+            "start": 0,
+        }
+        return s, aug
+
+    def _window(self, s: SequenceData, aug: Dict, start: int):
+        ch = min(self.crop[0], s.images.shape[1])
+        cw = min(self.crop[1], s.images.shape[2])
+        sl_t = slice(start, start + self.unroll)
+        sl_y = slice(aug["y0"], aug["y0"] + ch)
+        sl_x = slice(aug["x0"], aug["x0"] + cw)
+        img = s.images[sl_t, sl_y, sl_x].copy()
+        seg = s.seg[sl_t, sl_y, sl_x].astype(np.int32)
+        inst = s.inst[sl_t, sl_y, sl_x].copy() if self.return_instances else None
+        valid = s.valid[sl_t].astype(np.float32)
+        full_seg = s.full_seg[sl_t].astype(np.float32)
+        n = img.shape[0]
+        if n < self.unroll:  # tail: repeat the last frame, marked invalid
+            rep = self.unroll - n
+            img = np.concatenate([img, np.repeat(img[-1:], rep, 0)], 0)
+            seg = np.concatenate([seg, np.repeat(seg[-1:], rep, 0)], 0)
+            if inst is not None:
+                inst = np.concatenate([inst, np.repeat(inst[-1:], rep, 0)], 0)
+            valid = np.concatenate([valid, np.zeros(rep, np.float32)], 0)
+            full_seg = np.concatenate([full_seg, np.zeros(rep, np.float32)], 0)
+        labs = [seg] if inst is None else [seg, inst]
+        if aug["flip_y"]:
+            img = img[:, ::-1]
+            labs = [lab[:, ::-1] for lab in labs]
+        if aug["flip_x"]:
+            img = img[:, :, ::-1]
+            labs = [lab[:, :, ::-1] for lab in labs]
+        if aug["rot90"]:
+            img = np.rot90(img, aug["rot90"], axes=(1, 2))
+            labs = [np.rot90(lab, aug["rot90"], axes=(1, 2)) for lab in labs]
+        img = img * aug["gain"] + aug["bias"]  # photometric jitter
+        is_last = float(start + self.unroll >= len(s))
+        inst = labs[1] if inst is not None else None
+        return img.astype(np.float32), labs[0], inst, valid, full_seg, is_last
+
+    def _producer(self, tid: int):
+        try:
+            self._producer_loop(tid)
+        except BaseException as e:  # raised by get_batch
+            if self._err is None:
+                self._err = e
+
+    def _producer_loop(self, tid: int):
+        my_lanes = [i for i in range(self.batch) if i % self.num_threads == tid]
+        rngs = {i: np.random.default_rng(self._seed + 9973 * i) for i in my_lanes}
+        lanes = {i: self._new_traversal(rngs[i]) for i in my_lanes}
+        while not self._stop.is_set():
+            for i in my_lanes:
+                s, aug = lanes[i]
+                item = self._window(s, aug, aug["start"])
+                if item[-1]:  # is_last
+                    lanes[i] = self._new_traversal(rngs[i])
+                else:
+                    aug["start"] += self.unroll
+                while not self._stop.is_set():
+                    try:
+                        self._lane_qs[i].put(item, timeout=0.5)
+                        break
+                    except queue.Full:
+                        continue
+                if self._stop.is_set():
+                    return
+
+    def start_queues(self) -> None:
+        if self._threads:
+            return
+        self._stop.clear()
+        for tid in range(self.num_threads):
+            th = threading.Thread(target=self._producer, args=(tid,), daemon=True)
+            th.start()
+            self._threads.append(th)
+        log_print(f"CTCRAMReaderSequence2D: {self.num_threads} producer thread(s) started")
+
+    def get_batch(self):
+        items = []
+        for q in self._lane_qs:
+            while True:
+                if self._err is not None:
+                    raise self._err
+                try:
+                    items.append(q.get(timeout=0.5))
+                    break
+                except queue.Empty:
+                    continue
+        imgs, segs, insts, valids, fulls, lasts = zip(*items)
+        batch = (np.stack(imgs)[..., None], np.stack(segs), np.stack(valids),
+                 np.stack(fulls), np.asarray(lasts, np.float32))
+        if self.return_instances:
+            batch = batch + (np.stack(insts),)
+        return batch
+
+    def stop(self) -> None:
+        self._stop.set()
+        for th in self._threads:
+            th.join(timeout=2.0)
+        self._threads.clear()
+        for q in self._lane_qs:  # a restart must not pair fresh state with old windows
+            while True:
+                try:
+                    q.get_nowait()
+                except queue.Empty:
+                    break
+        self._err = None
 
 
 class CTCInferenceReader:

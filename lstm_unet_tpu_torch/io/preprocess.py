@@ -1,4 +1,4 @@
-"""Percentile normalization and padding.
+"""Percentile normalization, instance -> 3-class GT and padding.
 
 Counterpart of ``lstm_unet_tpu/io/preprocess.py``. The streaming engine
 normalizes each frame on its device with the 1st/99th percentiles of the
@@ -79,6 +79,30 @@ def percentile_normalize_np(img: np.ndarray, low: float = 1.0,
     lo = np.percentile(x, low)
     hi = np.percentile(x, high)
     return (x - lo) / max(hi - lo, 1e-6)
+
+
+def instance_to_three_class(labels: np.ndarray, boundary_width: int = 1) -> np.ndarray:
+    """Instance mask -> uint8 {0: background, 1: interior, 2: boundary}.
+
+    A labelled pixel is boundary when any pixel of its (2w+1)^2 neighbourhood
+    (edge-replicated at the frame border) carries another label, background
+    included: the reference's per-label 3x3 erosion for w = 1, in one pass.
+    """
+    lab = labels.astype(np.int32)
+    fg = lab > 0
+    boundary = np.zeros_like(fg)
+    h, w = lab.shape
+    bw = boundary_width
+    padded = np.pad(lab, bw, mode="edge")
+    for dy in range(-bw, bw + 1):
+        for dx in range(-bw, bw + 1):
+            if dy or dx:
+                neigh = padded[bw + dy:bw + dy + h, bw + dx:bw + dx + w]
+                boundary |= fg & (neigh != lab)
+    out = np.zeros(lab.shape, dtype=np.uint8)
+    out[fg] = 1
+    out[boundary] = 2
+    return out
 
 
 def pad_to_multiple(img: np.ndarray, multiple: int

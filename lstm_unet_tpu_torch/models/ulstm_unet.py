@@ -18,10 +18,11 @@ from __future__ import annotations
 
 import json
 from dataclasses import dataclass
-from typing import List, Optional, Tuple
+from typing import List, Optional, Tuple, Union
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..config import NetKernelParams
 from ..ops.conv import activate, conv2d, init_conv, max_pool_2x2, upsample_2x
@@ -239,10 +240,28 @@ class ULSTMnet2D(nn.Module):
                 x = conv(x)
         return new_state, self.head(x).float()
 
-    def apply(self, state: State, x: torch.Tensor) -> Tuple[State, torch.Tensor]:
-        """Unrolled window ``[B,T,H,W,C]`` -> (state, logits ``[B,T,H,W,K]``)."""
+    def apply(self, state: State, x: torch.Tensor, remat: Union[bool, str] = False
+              ) -> Tuple[State, torch.Tensor]:
+        """Unrolled window ``[B,T,H,W,C]`` -> (state, logits ``[B,T,H,W,K]``).
+
+        ``remat`` trades compute for memory in the backward pass, as the
+        reference's ``apply(..., remat)``: False saves every intermediate;
+        True or 'full' saves only each frame's inputs and recomputes the
+        frame's ``step`` during the backward (``torch.utils.checkpoint``,
+        non-reentrant). The reference's 'save_outputs' policy is not ported.
+        """
+        if remat == "save_outputs":
+            raise NotImplementedError(
+                "remat_policy='save_outputs' is not ported yet: ROADMAP.md "
+                "queue 1 item 8b")
+        if remat not in (False, True, "full"):
+            raise ValueError(f"unknown remat {remat!r}")
+        recompute = bool(remat) and torch.is_grad_enabled()
         logits = []
         for t in range(x.shape[1]):
-            state, lg = self.step(state, x[:, t])
+            if recompute:
+                state, lg = checkpoint(self.step, state, x[:, t], use_reentrant=False)
+            else:
+                state, lg = self.step(state, x[:, t])
             logits.append(lg)
         return state, torch.stack(logits, dim=1)

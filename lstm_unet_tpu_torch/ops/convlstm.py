@@ -9,8 +9,9 @@ hard_sigmoid recurrent activation, and an explicit ``(h, c)`` carry of
 With ``fused_cell`` and a level that :func:`kernels.convlstm_cell.supported`
 takes, the recurrent conv and the gate math run in the fused kernel (K4) with
 the x-conv + bias computed outside; otherwise the two convs run on cuDNN and
-the gate math in the gate-update kernel (K1). On the CPU both routes take
-the kernels' plain versions.
+the gate math in :func:`lstm_gate_update` (forward K1, backward K2). On the
+CPU both routes take the kernels' plain versions. The fused route is
+inference-only, as in the reference: under grad the fused kernel raises.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ from torch import nn
 
 from .conv import conv2d
 from .kernels.convlstm_cell import fused_convlstm_level, supported
-from .kernels.lstm_gates import fused_lstm_gate_update
+from .kernels.lstm_gates import lstm_gate_update
 
 Carry = Tuple[torch.Tensor, torch.Tensor]  # (h, c), each [B,H,W,F]
 
@@ -70,5 +71,5 @@ class ConvLSTMCell(nn.Module):
             return (h_new, c_new), h_new
         gates = conv2d(x, self.kernel_x, self.bias) + conv2d(h.to(x.dtype),
                                                              self.kernel_h)
-        c_new, h_new = fused_lstm_gate_update(gates, c, recurrent_activation)
+        c_new, h_new = lstm_gate_update(gates, c, recurrent_activation)
         return (h_new, c_new), h_new

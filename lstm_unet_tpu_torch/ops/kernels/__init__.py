@@ -2,7 +2,7 @@
 
 Counterpart of ``lstm_unet_tpu/ops/pallas``. Each wrapper takes its plain
 version for CPU tensors and launches its CUDA kernel for CUDA tensors, and
-counts both in its module's ``COUNT`` (see :func:`counts`).
+counts both in its :class:`_build.LaunchCount` (see :func:`counts`).
 """
 
 from __future__ import annotations
@@ -11,20 +11,21 @@ from typing import Dict
 
 from . import ccl, convlstm_cell, lstm_gates
 
-# kernel name -> its module (the K numbering of the TPU kernel table)
+# kernel name -> its launch count (the K numbering of the TPU kernel table)
 KERNELS = {
-    "lstm_gate_update": lstm_gates,       # K1
-    "ccl": ccl,                           # K3
-    "fused_convlstm_level": convlstm_cell,  # K4
+    "lstm_gate_update": lstm_gates.COUNT,           # K1
+    "lstm_gate_update_bwd": lstm_gates.BWD_COUNT,   # K2
+    "ccl": ccl.COUNT,                               # K3
+    "fused_convlstm_level": convlstm_cell.COUNT,    # K4
 }
 
 
 def counts() -> Dict[str, Dict[str, int]]:
     """``{kernel: {"kernel": launches, "plain": plain calls}}``."""
-    return {name: {"kernel": m.COUNT.kernel, "plain": m.COUNT.plain}
-            for name, m in KERNELS.items()}
+    return {name: {"kernel": n.kernel, "plain": n.plain}
+            for name, n in KERNELS.items()}
 
 
 def reset_counts() -> None:
-    for m in KERNELS.values():
-        m.COUNT.reset()
+    for n in KERNELS.values():
+        n.reset()

@@ -1,6 +1,7 @@
 """Build the CUDA sources of ``lstm_unet_tpu_torch/csrc`` and bind them.
 
-``nvcc`` compiles every ``csrc/*.cu`` for Hopper (``sm_90a``) into one shared
+``nvcc`` compiles every ``csrc/*.cu`` for Hopper (``sm_90a``), one process
+per source, all started together, and links the objects into one shared
 library with a plain C interface, which ``ctypes`` loads. The library is
 built at first use into ``lstm_unet_tpu_torch/build/`` (ignored by git),
 under a name that hashes the sources and flags, so an edit rebuilds and an
@@ -18,6 +19,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import threading
 import time
 from typing import Optional
@@ -27,8 +29,8 @@ import torch
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # dtype and activation codes of csrc/common.cuh
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -38,6 +40,7 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # argument and result types of every C entry point in csrc/
 _SIGNATURES = {
     "lut_gate_update": ([_P, _P, _P, _P, _LL, _I, _I, _I, _I, _P], _I),
+    "lut_gate_update_bwd": ([_P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _P], _I),
     "lut_convlstm_level": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                             _I, _P], _I),
     "lut_convlstm_level_smem": ([_I, _I], _LL),
@@ -83,6 +86,22 @@ def library_path() -> str:
     return os.path.join(BUILD_DIR, f"libkernels-{digest.hexdigest()[:16]}.so")
 
 
+def _run_all(cmds, log_dir: str):
+    """Run the commands at once, each with its output in a file of
+    ``log_dir``; returns ``[(cmd, returncode, output)]`` in order."""
+    procs = []
+    for i, cmd in enumerate(cmds):
+        log = open(os.path.join(log_dir, f"{i}.log"), "w+")
+        procs.append((cmd, subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT), log))
+    results = []
+    for cmd, proc, log in procs:
+        rc = proc.wait()
+        log.seek(0)
+        results.append((cmd, rc, log.read()))
+        log.close()
+    return results
+
+
 def build() -> str:
     """Compile the library unless this source tree's build exists; returns
     its path. The compiler's output (``-Xptxas -v``: registers, shared
@@ -92,16 +111,27 @@ def build() -> str:
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *_sources()]
+    work = tempfile.mkdtemp(prefix="nvcc-", dir=BUILD_DIR)
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_seconds = time.perf_counter() - t0
-    with open(os.path.join(BUILD_DIR, "build.log"), "w") as f:
-        f.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
-    os.replace(tmp, out)  # atomic: a concurrent build never sees a partial file
+    try:
+        objs = [os.path.join(work, os.path.basename(src) + ".o") for src in _sources()]
+        results = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+                            for src, obj in zip(_sources(), objs)], work)
+        tmp = f"{out}.{os.getpid()}.tmp"
+        if all(rc == 0 for _, rc, _ in results):
+            results += _run_all([[nvcc, "-shared", *ARCH_FLAGS, "-o", tmp, *objs]], work)
+        build_seconds = time.perf_counter() - t0
+        with open(os.path.join(BUILD_DIR, "build.log"), "w") as f:
+            for cmd, _, text in results:
+                f.write(" ".join(cmd) + "\n" + text)
+        failed = [(cmd, rc, text) for cmd, rc, text in results if rc != 0]
+        if failed:
+            cmd, rc, text = failed[0]
+            raise RuntimeError(f"nvcc failed ({rc}): {' '.join(cmd)}\n{text[-4000:]}")
+        os.replace(tmp, out)  # atomic: a concurrent build never sees a partial file
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     return out
 
 

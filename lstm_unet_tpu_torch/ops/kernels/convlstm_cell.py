@@ -16,6 +16,10 @@ F channels plus one Wh chunk — stays within the 227 KB a Hopper block can
 use (:func:`supported`). Flagship level 0 (F = 128, 5x5) and the tiny
 model's levels fit; F >= 256 at 5x5 does not, and the cell takes the plain
 conv + K1 path there.
+
+Inference only, as the reference (which defines no VJP for it): with grad
+mode on and any input requiring grad the wrapper raises, on every device,
+rather than return outputs that carry no gradient.
 """
 
 from __future__ import annotations
@@ -89,6 +93,11 @@ def fused_convlstm_level(gx: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
                          f"{tuple(wh.shape)}")
     if len({gx.device, h.device, c.device, wh.device}) != 1:
         raise ValueError("gx, h, c and wh must be on one device")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (gx, h, c, wh)):
+        raise RuntimeError(
+            "fused_convlstm_level is inference-only (no backward, as in the "
+            "reference): run it under torch.no_grad()/inference_mode, or train "
+            "with fused_cell=False")
     if h.device.type == "cpu":
         return fused_convlstm_level_plain(gx, h, c, wh, recurrent_activation)
     if h.device.type != "cuda":

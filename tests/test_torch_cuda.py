@@ -7,8 +7,10 @@ skip it there:
 
     python -m pytest tests/test_torch_cuda.py -q --noconftest -p no:cacheprovider
 
-Tolerances: K1 1e-6 in f32 and one bf16 ulp of output rounding in bf16; K4
-2e-5 in f32 (the reference's fused-vs-XLA bound) and one bf16 ulp; K3 equal.
+Tolerances: K1 and K2 1e-6 in f32 and one bf16 ulp of output rounding in
+bf16; K4 2e-5 in f32 (the reference's fused-vs-XLA bound) and one bf16 ulp;
+K3 equal; the tiny model's grads with the kernels against the same model with
+the plain versions 1e-5 relative (deterministic cuDNN, same formulas).
 """
 
 import glob
@@ -19,7 +21,10 @@ import pytest
 import torch
 
 from lstm_unet_tpu_torch.cli.inference2d import main as cli_main
+from lstm_unet_tpu_torch.config import tiny_net_kernel_params
+from lstm_unet_tpu_torch.engine.train import loss_and_grads
 from lstm_unet_tpu_torch.io import synthetic
+from lstm_unet_tpu_torch.models import ModelConfig, ULSTMnet2D
 from lstm_unet_tpu_torch.io.tiff import read_tiff
 from lstm_unet_tpu_torch.ops.kernels import ccl, convlstm_cell, counts, lstm_gates, reset_counts
 
@@ -68,6 +73,69 @@ def test_gate_update_rejects_what_it_cannot_take(cuda):
                                           torch.zeros(8, 4, device=cuda))
     with pytest.raises(TypeError, match="float32/bfloat16"):
         lstm_gates.fused_lstm_gate_update(gates.half(), torch.zeros(8, 4, device=cuda))
+
+
+@pytest.mark.parametrize("gdt,sdt", [(torch.float32, torch.float32),
+                                     (torch.bfloat16, torch.bfloat16),
+                                     (torch.bfloat16, torch.float32),
+                                     (torch.float32, torch.bfloat16)])
+@pytest.mark.parametrize("act", ["sigmoid", "hard_sigmoid"])
+def test_gate_bwd_matches_plain(cuda, gdt, sdt, act):
+    g = torch.Generator(device=cuda).manual_seed(1)
+    gates = torch.randn(3, 333, 4 * 24, device=cuda, generator=g) * 3
+    gates[:, :4] = 2.5  # hard_sigmoid's band edges, exactly
+    gates[:, 4:8] = -2.5
+    gates = gates.to(gdt)
+    c, dc_out, dh = (torch.randn(3, 333, 24, device=cuda, generator=g).to(sdt)
+                     for _ in range(3))
+    reset_counts()
+    got = lstm_gates.lstm_gate_update_bwd(gates, c, dc_out, dh, act)
+    want = lstm_gates.lstm_gate_update_bwd_plain(gates, c, dc_out, dh, act)
+    assert counts()["lstm_gate_update_bwd"] == {"kernel": 1, "plain": 1}
+    for a, b, dt in zip(got, want, (gdt, sdt)):
+        assert a.dtype == b.dtype == dt
+        rtol = BF16_ULP if dt == torch.bfloat16 else 1e-6
+        torch.testing.assert_close(a.float(), b.float(), atol=1e-6, rtol=rtol)
+
+
+def test_grads_on_the_card_equal_the_plain_versions(cuda, monkeypatch):
+    """One backward of the tiny model: every parameter gets a nonzero grad
+    through K1/K2, equal to the grads with the plain versions patched in."""
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    model = ULSTMnet2D(ModelConfig.make(tiny_net_kernel_params()),
+                       generator=torch.Generator(device=cuda).manual_seed(0), device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(2)
+    state = [[(torch.rand(h.shape, device=cuda, generator=g) - 0.5,
+               torch.randn(c.shape, device=cuda, generator=g)) for (h, c) in lvl]
+             for lvl in model.init_state(2, 32, 32)]
+    img = torch.rand(2, 3, 32, 32, 1, device=cuda, generator=g)
+    seg = torch.randint(0, 3, (2, 3, 32, 32), device=cuda, generator=g)
+    ones = torch.ones(2, 3, device=cuda)
+    reset_counts()
+    loss_k, _, _, grads_k = loss_and_grads(model, state, img, seg, ones, ones,
+                                           (0.15, 0.25, 0.6), remat=True)
+    ran = counts()
+    assert ran["lstm_gate_update"]["kernel"] > 0 and ran["lstm_gate_update_bwd"]["kernel"] > 0
+    assert all(v["plain"] == 0 for v in ran.values())
+    monkeypatch.setattr(lstm_gates, "fused_lstm_gate_update", lstm_gates.lstm_gate_update_plain)
+    monkeypatch.setattr(lstm_gates, "lstm_gate_update_bwd",
+                        lstm_gates.lstm_gate_update_bwd_plain)
+    loss_p, _, _, grads_p = loss_and_grads(model, state, img, seg, ones, ones,
+                                           (0.15, 0.25, 0.6), remat=True)
+    assert counts()["lstm_gate_update_bwd"]["plain"] > 0
+    torch.testing.assert_close(loss_k, loss_p, atol=0, rtol=1e-6)
+    assert sorted(grads_k) == sorted(dict(model.named_parameters()))
+    for name, gk in grads_k.items():
+        scale = float(grads_p[name].abs().max())
+        assert float(gk.abs().max()) > 0, name
+        torch.testing.assert_close(gk, grads_p[name], atol=1e-5 * scale, rtol=0, msg=name)
+
+
+def test_fused_level_refuses_grad_on_the_card(cuda):
+    gx, h, c, wh = _level(cuda, 1, 8, 8, 8, 3, torch.float32, torch.float32)
+    wh.requires_grad_()
+    with pytest.raises(RuntimeError, match="inference-only"):
+        convlstm_cell.fused_convlstm_level(gx, h, c, wh)
 
 
 def _level(cuda, b, h, w, feat, k, dt, sdt, seed=0):

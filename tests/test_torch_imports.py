@@ -15,14 +15,24 @@ PORT = os.path.join(ROOT, "lstm_unet_tpu_torch")
 _STEP = """
 import sys, torch
 import lstm_unet_tpu_torch
-from lstm_unet_tpu_torch.cli import inference2d
+from lstm_unet_tpu_torch.cli import inference2d, train2d
+from lstm_unet_tpu_torch import checkpoint, metrics
 from lstm_unet_tpu_torch.config import tiny_net_kernel_params
+from lstm_unet_tpu_torch.engine.optim import ClippedAdam
+from lstm_unet_tpu_torch.engine.train import make_train_step
+from lstm_unet_tpu_torch.io.dataset import CTCRAMReaderSequence2D
 from lstm_unet_tpu_torch.models import ModelConfig, ULSTMnet2D
 model = ULSTMnet2D(ModelConfig.make(tiny_net_kernel_params()),
                    generator=torch.Generator().manual_seed(0))
 with torch.no_grad():
     state, logits = model.step(model.init_state(1, 16, 16), torch.rand(1, 16, 16, 1))
 assert logits.shape == (1, 16, 16, 3)
+step = make_train_step(model, ClippedAdam(dict(model.named_parameters()), 1e-3, 5.0), (1, 1, 1),
+                       remat=True)
+ones = torch.ones(1, 2)
+state, m = step(model.init_state(1, 16, 16), torch.rand(1, 2, 16, 16, 1),
+                torch.randint(0, 3, (1, 2, 16, 16)), ones, ones, torch.zeros(1))
+assert torch.isfinite(m["loss"])
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "lstm_unet_tpu"))
 print("IMPORTED", bad)
 """

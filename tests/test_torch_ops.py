@@ -7,6 +7,9 @@ CPU. Where the reference reaches a Pallas kernel it runs in interpret mode
 - conv / pool / upsample / activation: 1e-6 (f32; the convs sum <= 75 terms
   of magnitude <= 1 in another order);
 - K1 gate update: 1e-6, the reference's own bound (tests/test_ops.py);
+- K2 gate backward: 1e-6 against the interpreted Pallas kernel (same
+  formulas in f32); the Function's backward against torch autograd of the
+  plain forward 1e-5, the reference's bound on grads;
 - K4 fused level: 2e-5 in f32, the reference's fused-vs-XLA bound;
 - K3 CCL: equal.
 
@@ -18,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from lstm_unet_tpu.ops import conv as jconv
@@ -106,6 +110,80 @@ def test_gate_update_checks_its_inputs():
                                           torch.zeros(4, 4, device="meta"))
 
 
+# ---------------------------------------------------------------- K2
+
+
+def _bwd_inputs(seed, rows=100, feat=8):
+    """Gates with z = +-2.5 exactly in every gate slice (hard_sigmoid's band
+    edge), plus the state and the cotangents."""
+    r = np.random.default_rng(seed)
+    gates = (r.normal(size=(rows, 4 * feat)) * 3).astype(np.float32)
+    gates[:6, :] = np.float32(2.5)
+    gates[6:12, :] = np.float32(-2.5)
+    return (gates, r.normal(size=(rows, feat)).astype(np.float32),
+            r.normal(size=(rows, feat)).astype(np.float32),
+            r.normal(size=(rows, feat)).astype(np.float32))
+
+
+@pytest.mark.parametrize("act", ["sigmoid", "hard_sigmoid"])
+def test_gate_bwd_plain_matches_interpreted_pallas(act, monkeypatch):
+    gates, c, dc_out, dh = _bwd_inputs(7)
+    reset_counts()
+    got = lstm_gates.lstm_gate_update_bwd(*map(torch.from_numpy, (gates, c, dc_out, dh)),
+                                          act)
+    assert counts()["lstm_gate_update_bwd"] == {"kernel": 0, "plain": 1}
+    # the reference's backward rule, with the Pallas kernel interpreted
+    monkeypatch.setattr(jax_lg, "FORCE_INTERPRET", True)
+    _, vjp = jax.vjp(lambda g, cc: jax_lg.fused_lstm_gate_update(g, cc, act),
+                     jnp.asarray(gates), jnp.asarray(c))
+    want = vjp((jnp.asarray(dc_out), jnp.asarray(dh)))
+    direct = jax_lg._bwd_pallas(*map(jnp.asarray, (gates, c, dc_out, dh)), act)
+    for w in (want, direct):  # both (dgates, dc)
+        for g, ww in zip(got, w):
+            np.testing.assert_allclose(g.numpy(), np.asarray(ww), atol=1e-6)
+    if act == "hard_sigmoid":  # the strict band: z = +-2.5 has derivative 0
+        dg = got[0].numpy()
+        feat = c.shape[1]
+        for k in (0, 1, 3):  # i, f, o
+            assert (dg[:12, k * feat:(k + 1) * feat] == 0).all()
+
+
+@pytest.mark.parametrize("act", ["sigmoid", "hard_sigmoid"])
+@pytest.mark.parametrize("gdt,sdt", [(torch.float32, torch.float32),
+                                     (torch.bfloat16, torch.float32)])
+def test_gate_function_backward_matches_autograd(act, gdt, sdt):
+    """Away from z = +-2.5 the Function's K2 rule is the derivative torch
+    autograd takes through the plain forward."""
+    r = np.random.default_rng(8)
+    z = r.normal(size=(3, 50, 4 * 8)) * 3
+    z[np.abs(np.abs(z) - 2.5) < 1e-2] = 0.0
+    gates = torch.tensor(z, dtype=torch.float32).to(gdt)
+    c = torch.tensor(r.normal(size=(3, 50, 8)), dtype=torch.float32).to(sdt)
+    wc = torch.tensor(r.normal(size=(3, 50, 8)), dtype=torch.float32)
+    grads = []
+    for fn in (lstm_gates.lstm_gate_update, lstm_gates.lstm_gate_update_plain):
+        g_in = gates.clone().requires_grad_()
+        c_in = c.clone().requires_grad_()
+        c1, h1 = fn(g_in, c_in, act)
+        assert c1.dtype == h1.dtype == sdt
+        loss = torch.sum(c1.float() * wc + h1.float() * 0.7)
+        grads.append(torch.autograd.grad(loss, (g_in, c_in)))
+    for got, want in zip(*grads):
+        assert got.dtype == want.dtype
+        tol = 1e-5 if gdt == torch.float32 else 2.0 ** -7  # one bf16 ulp
+        torch.testing.assert_close(got.float(), want.float(), atol=1e-5, rtol=tol)
+
+
+def test_gate_bwd_checks_its_inputs():
+    g, c = torch.zeros(4, 16), torch.zeros(4, 4)
+    with pytest.raises(ValueError, match="cotangent"):
+        lstm_gates.lstm_gate_update_bwd(g, c, torch.zeros(4, 3), c)
+    with pytest.raises(ValueError, match="cotangent"):
+        lstm_gates.lstm_gate_update_bwd(g, c, c.double(), c)
+    with pytest.raises(ValueError, match="device"):
+        lstm_gates.lstm_gate_update_bwd(*(t.to("meta") for t in (g, c, c, c)))
+
+
 # ---------------------------------------------------------------- K4
 
 
@@ -171,6 +249,25 @@ def test_cell_init_matches_reference_scheme():
     assert float(cell.kernel_x.detach().abs().max()) <= lim_x
     np.testing.assert_array_equal(cell.bias.detach().numpy(),
                                   np.repeat([0.0, 1.0, 0.0, 0.0], 8))
+
+
+def test_fused_level_refuses_grad():
+    """K4 is inference-only, as the reference: under grad it raises instead
+    of returning outputs that carry no gradient; the cell raises with it."""
+    gx, h, c, wh = map(torch.from_numpy, _level_inputs(2, (8, 8), 8, 3))
+    wh.requires_grad_()
+    with pytest.raises(RuntimeError, match="inference-only"):
+        convlstm_cell.fused_convlstm_level(gx, h, c, wh)
+    with torch.no_grad():
+        convlstm_cell.fused_convlstm_level(gx, h, c, wh)
+    cell = ConvLSTMCell(3, 2, 8)
+    carry = (torch.zeros(1, 8, 8, 8), torch.zeros(1, 8, 8, 8))
+    reset_counts()
+    with pytest.raises(RuntimeError, match="inference-only"):
+        cell(carry, torch.zeros(1, 8, 8, 2), fused_cell=True)
+    assert counts()["lstm_gate_update"]["plain"] == 0  # no quiet unfused route
+    (h1, c1), _ = cell(carry, torch.zeros(1, 8, 8, 2), fused_cell=False)
+    assert h1.requires_grad
 
 
 def test_fused_supported_limits():
