@@ -7,12 +7,18 @@ Phases, each of which raises (exit != 0) when it fails:
   a. device: the GPU's name and power limit;
   b. build: the CUDA kernels from ``lstm_unet_tpu_torch/csrc``;
   c. each kernel against its plain PyTorch version, at the flagship model's
-     shapes, with its tolerance; times from CUDA events;
+     shapes, with its tolerance; times from CUDA events. K4 has two routes:
+     the SIMT kernel (f32, flagship level 0) and the bf16 tensor-core kernel
+     at all four flagship levels, with cuDNN's h-conv + add + K1 timed beside
+     it as the yardstick the port does not call; then one flagship step with
+     the fused cell against the unfused one, in f32 and in bf16;
   d. the golden sequence through the inference CLI against
      ``tests/golden/masks`` (equal instance count, <= 3 px per frame);
   e. the flagship model (512^2, random weights from a seed) through
      ``run_inference`` in float32 and bfloat16, fused cell off and on, with
-     each kernel's launch count over (d) + (e);
+     each kernel's launch count over (d) + (e): with the fused cell, bf16
+     runs K4's tensor-core route at all 4 levels of every frame and f32 its
+     SIMT route once per frame (level 0);
   f. K2 (the gate backward) against its plain version at the flagship
      training shapes (B = 5, 256^2 crops), with K2's time;
   g. the flagship trained through ``cli/train2d.main`` (B = 5, T = 7, 256^2
@@ -22,7 +28,8 @@ Phases, each of which raises (exit != 0) when it fails:
      run, and every parameter must get a nonzero gradient;
   h. one f32 flagship training step (loss and grads) with the kernels
      against the same step with the plain versions patched in.
-The last two lines are a JSON kernel summary and the device JSON.
+The last two lines are a JSON kernel summary and the device JSON. The build
+fails if ptxas reports spills for K4's tensor-core kernel.
 """
 
 from __future__ import annotations
@@ -42,6 +49,11 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(HERE, "tests", "golden")
 # the frozen recipe of tests/golden/make_golden.py
 GOLDEN_DATA = dict(num_frames=8, height=32, width=32, num_cells=3, seed=123)
+# H100 SXM peaks (NVIDIA data sheet, dense): bytes/s of HBM3, f32 FLOP/s on
+# the SIMT units, bf16 FLOP/s on the tensor cores
+HBM_BPS, F32_FLOPS, BF16_FLOPS = 3.35e12, 67e12, 989e12
+# flagship ConvLSTM levels: (H = W, F), 5x5
+FLAGSHIP_LEVELS = ((512, 128), (256, 256), (128, 256), (64, 512))
 
 
 def log(*args):
@@ -63,6 +75,20 @@ def time_ms(fn, iters=10):
     return start.elapsed_time(end) / iters
 
 
+def bound(nbytes, flops=0.0, peak=BF16_FLOPS):
+    """(least ms the card could take, what bounds it): bytes over the HBM
+    rate against operations over the peak rate of their type."""
+    t_bytes, t_ops = nbytes / HBM_BPS * 1e3, flops / peak * 1e3
+    return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
+
+
+def summary(ms, plain_ms, max_abs_err, bound_ms_by):
+    """A kernel's entry of the summary line; no single PyTorch call computes
+    any of the port's kernel functions, so none has a library time."""
+    return dict(max_abs_err=max_abs_err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms_by[0], bound_by=bound_ms_by[1], library_ms=None)
+
+
 def max_err(a, b):
     return float((a.float() - b.float()).abs().max())
 
@@ -81,7 +107,7 @@ def check_close(name, got, want, atol, rtol):
 def phase_kernels(torch):
     """(c): every kernel vs its plain version; returns {name: summary}."""
     from lstm_unet_tpu_torch.io.synthetic import dense_components_mask, spiral_mask
-    from lstm_unet_tpu_torch.ops.kernels import _build, ccl, convlstm_cell, lstm_gates
+    from lstm_unet_tpu_torch.ops.kernels import ccl, lstm_gates
 
     # the plain versions' f32 convs must not run in TF32
     torch.backends.cudnn.allow_tf32 = False
@@ -115,60 +141,11 @@ def phase_kernels(torch):
                           time_ms(lambda: lstm_gates.lstm_gate_update_plain(gates, c)))
                 log(f"K1 time @512^2 F=128 float32: kernel {timing[0]:.4f} ms, "
                     f"plain {timing[1]:.4f} ms")
-    out["lstm_gate_update"] = dict(max_abs_err=max(errs), ms=timing[0], plain_ms=timing[1])
+    # reads 4F gates + F state, writes 2F, f32, per row
+    out["lstm_gate_update"] = summary(timing[0], timing[1], max(errs),
+                                      bound(512 * 512 * 128 * 7 * 4))
 
-    # K4 at flagship level 0 (f32, bf16) and the tiny model's 3x3 levels
-    lib = _build.library()
-    for k, feat in ((5, 128), (3, 8), (3, 16)):
-        c_smem = lib.lut_convlstm_level_smem(k, feat)
-        if c_smem != convlstm_cell.smem_bytes(k, feat):
-            raise AssertionError(f"K4 smem formula differs: C {c_smem} vs "
-                                 f"python {convlstm_cell.smem_bytes(k, feat)}")
-    tol4 = {torch.float32: (2e-5, 0.0),         # the reference's fused-vs-XLA bound
-            torch.bfloat16: (1e-5, 2.0 ** -7)}  # one bf16 ulp of output rounding
-    errs, timing = [], {}
-    cases = [(1, 512, 128, 5, torch.float32, torch.float32),
-             (1, 512, 128, 5, torch.bfloat16, torch.bfloat16),
-             (1, 64, 128, 5, torch.bfloat16, torch.float32),  # state_dtype float32
-             (1, 32, 8, 3, torch.float32, torch.float32),
-             (2, 16, 16, 3, torch.float32, torch.float32)]
-    for (b, hw, feat, k, dt, sdt) in cases:
-        lim = (6.0 / (k * k * feat + k * k * 4 * feat)) ** 0.5
-        gx = (torch.randn(b, hw, hw, 4 * feat, device=dev, generator=g) * 0.5).to(dt)
-        h = (torch.rand(b, hw, hw, feat, device=dev, generator=g) * 2 - 1).to(sdt)
-        c = torch.randn(b, hw, hw, feat, device=dev, generator=g).to(sdt)
-        wh = ((torch.rand(k, k, feat, 4 * feat, device=dev, generator=g) * 2 - 1)
-              * lim).to(dt)
-        got = convlstm_cell.fused_convlstm_level(gx, h, c, wh)
-        want = convlstm_cell.fused_convlstm_level_plain(gx, h, c, wh)
-        e = check_close(f"K4 {hw}^2 F={feat} {k}x{k} {dt}/{sdt}", got, want,
-                        *tol4[sdt])
-        errs.append(e)
-        log(f"K4 fused_convlstm_level B={b} {hw}^2 F={feat} {k}x{k} compute "
-            f"{str(dt)[6:]} state {str(sdt)[6:]}: max_abs_err={e:.3g}")
-        if hw == 512:
-            ms = time_ms(lambda: convlstm_cell.fused_convlstm_level(gx, h, c, wh), 5)
-            plain = time_ms(lambda: convlstm_cell.fused_convlstm_level_plain(
-                gx, h, c, wh), 5)
-            # what the unfused path runs instead: the h-conv in the compute
-            # dtype (cuDNN) + the K1 kernel
-            w_oihw = wh.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
-            h_nchw = h.permute(0, 3, 1, 2)
-
-            def unfused():
-                z = torch.nn.functional.conv2d(h_nchw, w_oihw, padding=k // 2)
-                gates = z.permute(0, 2, 3, 1).contiguous() + gx
-                return lstm_gates.fused_lstm_gate_update(gates, c)
-
-            alt = time_ms(unfused, 5)
-            timing[dt] = (ms, plain)
-            tflops = 2 * hw * hw * k * k * feat * 4 * feat / (ms * 1e-3) / 1e12
-            log(f"K4 time @512^2 F=128 5x5 {str(dt)[6:]}: kernel {ms:.3f} ms "
-                f"({tflops:.1f} TFLOP/s), plain f32 conv + gates {plain:.3f} ms, "
-                f"cuDNN h-conv + K1 {alt:.3f} ms")
-    out["fused_convlstm_level"] = dict(max_abs_err=max(errs),
-                                       ms=timing[torch.float32][0],
-                                       plain_ms=timing[torch.float32][1])
+    out.update(phase_k4(torch, g))
 
     # K3: random masks of several densities, a dense small-component frame and
     # the spiral, each bit-identical
@@ -186,10 +163,126 @@ def phase_kernels(torch):
         log(f"K3 ccl {tuple(m.shape)} density={float(m.float().mean()):.3f} "
             f"components={n_comp}: bit-identical")
     m = masks[1]
-    out["ccl"] = dict(max_abs_err=0.0, ms=time_ms(lambda: ccl.connected_components(m)),
-                      plain_ms=time_ms(lambda: ccl.connected_components_plain(m), 3))
+    # reads the bool mask, writes int32 labels
+    out["ccl"] = summary(time_ms(lambda: ccl.connected_components(m)),
+                         time_ms(lambda: ccl.connected_components_plain(m), 3), 0.0,
+                         bound(m.numel() * 5))
     log(f"K3 time @512^2 density 0.5: kernel {out['ccl']['ms']:.4f} ms, plain "
         f"{out['ccl']['plain_ms']:.3f} ms")
+    return out
+
+
+def k4_inputs(torch, g, b, hw, feat, k, dt, sdt):
+    """gx, h, c, wh of one level, made on the card from ``g``; ``hw`` is
+    (H, W) or one side."""
+    h_, w_ = (hw, hw) if isinstance(hw, int) else hw
+    lim = (6.0 / (k * k * feat + k * k * 4 * feat)) ** 0.5
+    return ((torch.randn(b, h_, w_, 4 * feat, device="cuda", generator=g) * 0.5).to(dt),
+            (torch.rand(b, h_, w_, feat, device="cuda", generator=g) * 2 - 1).to(sdt),
+            torch.randn(b, h_, w_, feat, device="cuda", generator=g).to(sdt),
+            ((torch.rand(k, k, feat, 4 * feat, device="cuda", generator=g) * 2 - 1)
+             * lim).to(dt))
+
+
+def k4_tolerance(torch, k, feat, sdt):
+    """(atol, rtol) of K4 against its plain version. Both sum exact products
+    in f32, in other orders: 2e-5 with f32 state (the reference's
+    fused-vs-XLA bound) and 1e-5 plus one bf16 ulp of output rounding with
+    bf16 state, up to flagship level 0's K*K*F = 3200 products; above that
+    the atol grows with the summation length, as a sum's worst-case rounding
+    error does (x2 at levels 1-2, x4 at level 3)."""
+    scale = max(1.0, k * k * feat / 3200)
+    if sdt == torch.float32:
+        return 2e-5 * scale, 0.0
+    return 1e-5 * scale, 2.0 ** -7
+
+
+def hconv_k1(torch, lstm_gates, gx, h, c, wh):
+    """What the unfused cell runs instead of K4 (its yardstick, never called
+    by the port's fused path): cuDNN's h-conv in the compute dtype, the add
+    of gx, and K1."""
+    k = wh.shape[0]
+    w_oihw = wh.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    h_nchw = h.to(wh.dtype).permute(0, 3, 1, 2)
+
+    def run():
+        z = torch.nn.functional.conv2d(h_nchw, w_oihw, padding=k // 2)
+        return lstm_gates.fused_lstm_gate_update(z.permute(0, 2, 3, 1) + gx, c)
+    return run
+
+
+def phase_k4(torch, g):
+    """(c), K4: both routes against the plain version; returns the two
+    routes' summaries."""
+    from lstm_unet_tpu_torch.ops.kernels import _build, convlstm_cell, lstm_gates
+
+    lib = _build.library()
+    for k, feat in ((5, 128), (3, 8), (3, 16)):
+        if lib.lut_convlstm_level_smem(k, feat) != convlstm_cell.smem_bytes(k, feat):
+            raise AssertionError(f"K4 SIMT smem formula differs at {k}x{k} F={feat}")
+    for k in convlstm_cell.TC_KERNEL_SIZES:
+        if lib.lut_convlstm_level_wgmma_smem(k) != convlstm_cell.wgmma_smem_bytes(k):
+            raise AssertionError(f"K4 tensor-core smem formula differs at {k}x{k}")
+    out = {}
+
+    # SIMT route: flagship level 0 in f32 (timed) and the tiny model's levels
+    errs = []
+    for (b, hw, feat, k) in ((1, 512, 128, 5), (1, 32, 8, 3), (2, 16, 16, 3)):
+        ins = k4_inputs(torch, g, b, hw, feat, k, torch.float32, torch.float32)
+        if convlstm_cell.route(hw, hw, feat, k, b, torch.float32) != "simt":
+            raise AssertionError(f"K4 route of {hw}^2 F={feat} f32 is not the SIMT kernel")
+        got = convlstm_cell.fused_convlstm_level(*ins)
+        want = convlstm_cell.fused_convlstm_level_plain(*ins)
+        errs.append(check_close(f"K4 SIMT {hw}^2 F={feat} {k}x{k}", got, want,
+                                *k4_tolerance(torch, k, feat, torch.float32)))
+        log(f"K4 SIMT B={b} {hw}^2 F={feat} {k}x{k} f32: max_abs_err={errs[-1]:.3g}")
+        if hw == 512:
+            ms = time_ms(lambda: convlstm_cell.fused_convlstm_level(*ins), 5)
+            plain = time_ms(lambda: convlstm_cell.fused_convlstm_level_plain(*ins), 5)
+            flops = 2 * hw * hw * k * k * feat * 4 * feat
+            nbytes = 4 * (hw * hw * 8 * feat + k * k * feat * 4 * feat)  # gx, h, c, h', c', wh
+            simt = summary(ms, plain, None, bound(nbytes, flops, F32_FLOPS))
+            log(f"K4 SIMT time @512^2 F=128 5x5 f32: kernel {ms:.3f} ms "
+                f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain:.3f} ms, bound "
+                f"{simt['bound_ms']:.3f} ms ({simt['bound_by']})")
+    simt["max_abs_err"] = max(errs)
+    out["fused_convlstm_level"] = simt
+
+    # tensor-core route: the four flagship levels, state bf16 and f32, both
+    # activations, plus a ragged B = 2 shape (W not a multiple of 64)
+    errs, levels = [], []
+    cases = [(1, hw, feat, 5) for hw, feat in FLAGSHIP_LEVELS] + [(2, (37, 100), 128, 5)]
+    for (b, hw, feat, k) in cases:
+        h_, w_ = (hw, hw) if isinstance(hw, int) else hw
+        if convlstm_cell.route(h_, w_, feat, k, b, torch.bfloat16) != "wgmma":
+            raise AssertionError(f"K4 route of {hw} F={feat} bf16 is not the tensor-core kernel")
+        for sdt in (torch.bfloat16, torch.float32):
+            ins = k4_inputs(torch, g, b, hw, feat, k, torch.bfloat16, sdt)
+            tol = k4_tolerance(torch, k, feat, sdt)
+            for act in ("sigmoid", "hard_sigmoid"):
+                got = convlstm_cell.fused_convlstm_level(*ins, act)
+                want = convlstm_cell.fused_convlstm_level_plain(*ins, act)
+                e = check_close(f"K4 wgmma B={b} {hw} F={feat} state {sdt} {act}", got,
+                                want, *tol)
+                errs.append(e)
+                log(f"K4 wgmma B={b} {hw} F={feat} {k}x{k} state {str(sdt)[6:]} {act}: "
+                    f"max_abs_err={e:.3g} (atol {tol[0]:.3g}, rtol {tol[1]:.3g})")
+            if b == 1 and sdt == torch.bfloat16:
+                gx, h, c, wh = ins
+                packed = convlstm_cell.pack_wh(wh)
+                ms = time_ms(lambda: convlstm_cell.wgmma_level(gx, h, c, packed, k), 10)
+                pack_ms = time_ms(lambda: convlstm_cell.pack_wh(wh), 10)
+                alt = time_ms(hconv_k1(torch, lstm_gates, *ins), 10)
+                plain = time_ms(lambda: convlstm_cell.fused_convlstm_level_plain(*ins), 3)
+                flops = 2 * hw * hw * k * k * feat * 4 * feat
+                nbytes = 2 * (hw * hw * 8 * feat + k * k * feat * 4 * feat)
+                bd = bound(nbytes, flops)
+                levels.append(summary(ms, plain, None, bd))
+                log(f"K4 wgmma time @{hw}^2 F={feat} 5x5 bf16: kernel {ms:.4f} ms "
+                    f"({flops / ms / 1e9:.1f} TFLOP/s, {100 * bd[0] / ms:.1f}% of the "
+                    f"{bd[0]:.4f} ms bf16 bound), pack {pack_ms:.4f} ms, plain "
+                    f"{plain:.3f} ms; cuDNN h-conv + add + K1 {alt:.4f} ms")
+    out["fused_convlstm_level_wgmma"] = dict(levels[0], max_abs_err=max(errs))
     return out
 
 
@@ -234,7 +327,8 @@ def phase_k2(torch):
                 gb = rows * feat * 12 * 4 / 1e9  # reads 7F, writes 5F f32 per row
                 log(f"K2 time @B5x256^2 F=128 float32: kernel {timing[0]:.4f} ms "
                     f"({gb / timing[0]:.2f} TB/s), plain {timing[1]:.4f} ms")
-    return dict(max_abs_err=max(errs), ms=timing[0], plain_ms=timing[1])
+    # reads 4F gates + F state + 2F cotangents, writes 4F + F, f32, per row
+    return summary(timing[0], timing[1], max(errs), bound(5 * 256 * 256 * 128 * 12 * 4))
 
 
 def train_args(root, save_root, dtype, steps):
@@ -398,27 +492,48 @@ def flagship_model(torch, dtype, fused):
     return cast_params_for_inference(model, cfg.compute_dtype)
 
 
-def phase_fused_vs_unfused(torch):
-    """One f32 flagship step with the fused cell on and off, same inputs."""
-    model = flagship_model(torch, "float32", False)
+def phase_fused_vs_unfused(torch, dtype):
+    """One flagship step with the fused cell on and off, same inputs, in
+    ``dtype``; the fused step must run K4's route for that dtype at every
+    level it takes (f32: level 0, SIMT; bf16: all four, tensor cores)."""
+    from lstm_unet_tpu_torch.ops import kernels
+
+    model = flagship_model(torch, dtype, False)
+    dt = getattr(torch, dtype)
     gen = torch.Generator(device="cuda").manual_seed(1)
     with torch.inference_mode():
-        state = [[(torch.rand(h.shape, device="cuda", generator=gen) - 0.5,
-                   torch.randn(c.shape, device="cuda", generator=gen) * 0.5)
+        state = [[((torch.rand(h.shape, device="cuda", generator=gen) - 0.5).to(dt),
+                   (torch.randn(c.shape, device="cuda", generator=gen) * 0.5).to(dt))
                   for (h, c) in lvl] for lvl in model.init_state(1, 512, 512)]
         frame = torch.rand(1, 512, 512, 1, device="cuda", generator=gen)
         s0, l0 = model.step(state, frame)
         model.cfg = dataclasses.replace(model.cfg, fused_cell=True)
+        kernels.reset_counts()
         s1, l1 = model.step(state, frame)
+        ran = kernels.counts()
+    want = ({"fused_convlstm_level": 1, "fused_convlstm_level_wgmma": 0} if dtype == "float32"
+            else {"fused_convlstm_level": 0, "fused_convlstm_level_wgmma": 4})
+    if any(ran[k]["kernel"] != n for k, n in want.items()):
+        raise AssertionError(f"fused {dtype} step: K4 launches {ran}, expected {want}")
     ds = max(max_err(a, b) for la, lb in zip(s0, s1) for ta, tb in zip(la, lb)
              for a, b in zip(ta, tb))
     dl = max_err(l0, l1)
-    log(f"flagship f32 step fused vs unfused: state max diff {ds:.3g}, logits "
-        f"max diff {dl:.3g}")
-    # two f32 summation orders of the 3200-term level-0 h-conv, carried
-    # through the network
-    if ds > 1e-4 or dl > 1e-3:
-        raise AssertionError("fused and unfused f32 steps disagree")
+    scale = float(l0.float().abs().max())
+    log(f"flagship {dtype} step fused vs unfused: state max diff {ds:.3g}, logits "
+        f"max diff {dl:.3g} (largest |logit| {scale:.3g})")
+    if dtype == "float32":
+        # two f32 summation orders of the 3200-term level-0 h-conv, carried
+        # through the network
+        bad = ds > 1e-4 or dl > 1e-3
+    else:
+        # the unfused cell rounds its 4F gate pre-activations to bf16 (2^-9
+        # relative) before K1, the fused one keeps them in f32: h' and c'
+        # (|c| up to a few units) move by a few bf16 ulps, 2^-4 at most;
+        # the decoder's bf16 convs carry that to the logits, 2^-3 of their
+        # largest magnitude at most
+        bad = ds > 2.0 ** -4 or dl > 2.0 ** -3 * max(scale, 1.0)
+    if bad:
+        raise AssertionError(f"fused and unfused {dtype} steps disagree")
 
 
 def phase_golden(torch, work):
@@ -482,9 +597,18 @@ def phase_flagship(torch, work, card):
                                      f"reported, {written} written")
             if any(v["plain"] for v in d.values()):
                 raise AssertionError(f"plain versions ran on the card: {d}")
-            if (d["ccl"]["kernel"] == 0 or d["lstm_gate_update"]["kernel"] == 0
-                    or (d["fused_convlstm_level"]["kernel"] > 0) != fused):
-                raise AssertionError(f"unexpected kernel launches: {d}")
+            # per frame (n + 2 with the warm-up): K1 at each level K4 does
+            # not take; K4 in f32 at level 0 (SIMT), in bf16 at all four
+            # levels (tensor cores)
+            steps = n + 2
+            k4 = {"fused_convlstm_level": steps if fused and dtype == "float32" else 0,
+                  "fused_convlstm_level_wgmma": 4 * steps if fused and dtype == "bfloat16"
+                  else 0}
+            k1 = 4 * steps - k4["fused_convlstm_level"] - k4["fused_convlstm_level_wgmma"]
+            if (d["ccl"]["kernel"] == 0 or d["lstm_gate_update"]["kernel"] != k1
+                    or any(d[k]["kernel"] != v for k, v in k4.items())):
+                raise AssertionError(f"unexpected kernel launches: {d}, expected K1 {k1}, "
+                                     f"K4 {k4}")
             log(f"flagship 512^2 {dtype} fused_cell={fused}: {n + 2} frames "
                 f"(2 warm-up) in {secs:.3f} s = {(n + 2) / secs:.3f} frames/s "
                 f"incl. first-frame set-up [{card}]; launches "
@@ -525,14 +649,22 @@ def main() -> int:
     log(f"build: {time.perf_counter() - t0:.1f} s (nvcc {_build.build_seconds} s; "
         f"{os.path.relpath(_build.library_path(), HERE)})")
     with open(os.path.join(_build.BUILD_DIR, "build.log")) as f:
-        for line in f:
-            if "registers" in line or "spill" in line:
-                log("  ptxas:", line.strip())
+        ptxas = f.read().splitlines()
+    entry = None
+    for line in ptxas:
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+        if "registers" in line or "spill" in line:
+            log("  ptxas:", line.strip())
+            if (entry and "convlstm_wgmma_kernel" in entry and "spill" in line
+                    and "0 bytes spill stores, 0 bytes spill loads" not in line):
+                raise AssertionError(f"K4's tensor-core kernel spills: {entry}: {line.strip()}")
 
     # (c) kernels vs plain versions; (f) K2
-    summary = phase_kernels(torch)
-    phase_fused_vs_unfused(torch)
-    summary["lstm_gate_update_bwd"] = phase_k2(torch)
+    kernel_summary = phase_kernels(torch)
+    phase_fused_vs_unfused(torch, "float32")
+    phase_fused_vs_unfused(torch, "bfloat16")
+    kernel_summary["lstm_gate_update_bwd"] = phase_k2(torch)
 
     # (d) + (e): the inference path, counted; (g): the training path, counted
     launched = {}
@@ -541,7 +673,8 @@ def main() -> int:
         phase_golden(torch, work)
         phase_flagship(torch, work, smi)
         inference = kernels.counts()
-        for k in ("lstm_gate_update", "ccl", "fused_convlstm_level"):
+        for k in ("lstm_gate_update", "ccl", "fused_convlstm_level",
+                  "fused_convlstm_level_wgmma"):
             if inference[k]["kernel"] == 0:
                 raise AssertionError(f"inference path: {k} never launched: {inference}")
         if any(v["plain"] for v in inference.values()):
@@ -561,10 +694,12 @@ def main() -> int:
                "ccl": ("lstm_unet_tpu_torch/csrc/ccl.cu",
                        "lstm_unet_tpu/ops/pallas/ccl.py:79"),
                "fused_convlstm_level": ("lstm_unet_tpu_torch/csrc/convlstm_cell.cu",
-                                        "lstm_unet_tpu/ops/pallas/convlstm_cell.py:125")}
+                                        "lstm_unet_tpu/ops/pallas/convlstm_cell.py:125"),
+               "fused_convlstm_level_wgmma": ("lstm_unet_tpu_torch/csrc/convlstm_wgmma.cu",
+                                              "lstm_unet_tpu/ops/pallas/convlstm_cell.py:125")}
     log(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": sources[k][0], "replaces": sources[k][1],
-         "launches": launched[k]["kernel"], **summary[k]} for k in sources]}))
+         "launches": launched[k]["kernel"], **kernel_summary[k]} for k in sources]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}),
           flush=True)

@@ -21,9 +21,9 @@
 //    features); inside a chunk each h value is a warp-wide broadcast and each
 //    weight a conflict-free 32-lane read, feeding 64 FMAs per 20 loads.
 // The shared-memory budget (h tile + one Wh chunk <= 227 KB) is what
-// ops/kernels/convlstm_cell.py::supported checks: F = 128 at K = 5 fits,
-// F = 256 does not, and those levels take the plain conv + K1 path.
-// wgmma/TMA implicit GEMM is the planned next step.
+// ops/kernels/convlstm_cell.py::route checks: F = 128 at K = 5 fits, F = 256
+// does not. This is K4's route for f32 compute and narrow levels; bf16
+// levels with F % 64 == 0 take the tensor-core kernel (convlstm_wgmma.cu).
 
 #include "common.cuh"
 

@@ -7,11 +7,14 @@ hard_sigmoid recurrent activation, and an explicit ``(h, c)`` carry of
 ``[B, H, W, F]`` tensors.
 
 With ``fused_cell`` and a level that :func:`kernels.convlstm_cell.supported`
-takes, the recurrent conv and the gate math run in the fused kernel (K4) with
-the x-conv + bias computed outside; otherwise the two convs run on cuDNN and
-the gate math in :func:`lstm_gate_update` (forward K1, backward K2). On the
-CPU both routes take the kernels' plain versions. The fused route is
-inference-only, as in the reference: under grad the fused kernel raises.
+takes in the compute dtype, the recurrent conv and the gate math run in the
+fused kernel (K4) with the x-conv + bias computed outside: in bf16 its
+tensor-core route takes every level with F % 64 == 0 (all four of the
+flagship model), in f32 its SIMT route the levels whose h tile fits one
+block (flagship level 0, the tiny model). Otherwise the two convs run on
+cuDNN and the gate math in :func:`lstm_gate_update` (forward K1, backward
+K2). On the CPU both routes take the kernels' plain versions. The fused route
+is inference-only, as in the reference: under grad the fused kernel raises.
 """
 
 from __future__ import annotations
@@ -64,9 +67,10 @@ class ConvLSTMCell(nn.Module):
         h, c = carry
         b, hh, ww, _ = x.shape
         k = self.kernel_h.shape[-1]
-        if fused_cell and supported(hh, ww, self.filters, k, k, b):
+        if fused_cell and supported(hh, ww, self.filters, k, k, b, x.dtype):
             gx = conv2d(x, self.kernel_x, self.bias)
-            wh = self.kernel_h.to(x.dtype).permute(2, 3, 1, 0).contiguous()  # HWIO
+            # an HWIO view: the kernel's wrapper packs or copies it once
+            wh = self.kernel_h.to(x.dtype).permute(2, 3, 1, 0)
             h_new, c_new = fused_convlstm_level(gx, h, c, wh, recurrent_activation)
             return (h_new, c_new), h_new
         gates = conv2d(x, self.kernel_x, self.bias) + conv2d(h.to(x.dtype),

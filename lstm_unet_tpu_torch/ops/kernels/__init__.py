@@ -16,7 +16,8 @@ KERNELS = {
     "lstm_gate_update": lstm_gates.COUNT,           # K1
     "lstm_gate_update_bwd": lstm_gates.BWD_COUNT,   # K2
     "ccl": ccl.COUNT,                               # K3
-    "fused_convlstm_level": convlstm_cell.COUNT,    # K4
+    "fused_convlstm_level": convlstm_cell.COUNT,    # K4, SIMT route
+    "fused_convlstm_level_wgmma": convlstm_cell.WGMMA_COUNT,  # K4, bf16 tensor cores
 }
 
 

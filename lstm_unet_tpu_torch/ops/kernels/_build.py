@@ -44,6 +44,9 @@ _SIGNATURES = {
     "lut_convlstm_level": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                             _I, _P], _I),
     "lut_convlstm_level_smem": ([_I, _I], _LL),
+    "lut_convlstm_level_wgmma": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                  _I, _P], _I),
+    "lut_convlstm_level_wgmma_smem": ([_I], _LL),
     "lut_ccl": ([_P, _P, _P, _I, _I, _P], _I),
     "lut_error_string": ([_I], ctypes.c_char_p),
 }

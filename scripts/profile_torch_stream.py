@@ -36,8 +36,10 @@ WARM, TIMED, PROFILED = 3, 8, 3
 
 
 def kind(name: str) -> str:
+    if "convlstm_wgmma" in name:
+        return "K4 wgmma"
     if "convlstm_level" in name:
-        return "K4"
+        return "K4 SIMT"
     if "gate_update" in name:
         return "K1"
     if "ccl_" in name:

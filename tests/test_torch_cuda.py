@@ -9,8 +9,13 @@ skip it there:
 
 Tolerances: K1 and K2 1e-6 in f32 and one bf16 ulp of output rounding in
 bf16; K4 2e-5 in f32 (the reference's fused-vs-XLA bound) and one bf16 ulp;
-K3 equal; the tiny model's grads with the kernels against the same model with
-the plain versions 1e-5 relative (deterministic cuDNN, same formulas).
+K4's tensor-core route (bf16 compute, f32 sums in another order than
+cuDNN's) 2e-5 with f32 state and 1e-5 plus one bf16 ulp with bf16 state, up
+to K*K*F = 3200 summed products (flagship level 0), scaled linearly with
+the summation length above that (a sum's worst-case rounding error grows
+with its length: x4 at level 3's 12800); K3 equal; the tiny model's grads
+with the kernels against the same model with the plain versions 1e-5
+relative (deterministic cuDNN, same formulas).
 """
 
 import glob
@@ -160,12 +165,16 @@ def _level(cuda, b, h, w, feat, k, dt, sdt, seed=0):
 ])
 @pytest.mark.parametrize("act", ["sigmoid", "hard_sigmoid"])
 def test_fused_level_matches_plain(cuda, b, h, w, feat, k, dt, sdt, act):
+    """Each case on the route that takes it (bf16 at F % 64 == 0: tensor
+    cores), counted there."""
     ins = _level(cuda, b, h, w, feat, k, dt, sdt)
-    assert convlstm_cell.supported(h, w, feat, k, k, b)
+    assert convlstm_cell.supported(h, w, feat, k, k, b, dt)
+    which = convlstm_cell.route(h, w, feat, k, b, dt)
+    name = {"simt": "fused_convlstm_level", "wgmma": "fused_convlstm_level_wgmma"}[which]
     reset_counts()
     got = convlstm_cell.fused_convlstm_level(*ins, act)
     want = convlstm_cell.fused_convlstm_level_plain(*ins, act)
-    assert counts()["fused_convlstm_level"] == {"kernel": 1, "plain": 1}
+    assert counts()[name] == {"kernel": 1, "plain": 1}
     _close(got, want, sdt, atol=2e-5)
 
 
@@ -178,8 +187,67 @@ def test_fused_level_smem_formula_matches_the_kernel(cuda):
             assert lib.lut_convlstm_level_smem(k, feat) == convlstm_cell.smem_bytes(k, feat)
 
 
+def test_wgmma_level_smem_and_route_match_the_kernel(cuda):
+    """The tensor-core kernel's shared memory is the Python formula's and
+    fits a block; the route sends it exactly the kernel sizes it builds."""
+    from lstm_unet_tpu_torch.ops.kernels import _build
+
+    lib = _build.library()
+    for k in convlstm_cell.KERNEL_SIZES:
+        got = lib.lut_convlstm_level_wgmma_smem(k)
+        if k in convlstm_cell.TC_KERNEL_SIZES:
+            assert got == convlstm_cell.wgmma_smem_bytes(k) <= convlstm_cell.SMEM_LIMIT
+        else:
+            assert got == 0
+            assert convlstm_cell.route(64, 64, 128, k, 1, torch.bfloat16) != "wgmma"
+
+
+def _tc_close(got, want, sdt, k, feat):
+    scale = max(1.0, k * k * feat / 3200)  # summation length over flagship level 0's
+    _close(got, want, sdt, atol=(2e-5 if sdt == torch.float32 else 1e-5) * scale)
+
+
+@pytest.mark.parametrize("b,h,w,feat,k,sdt", [
+    (1, 12, 64, 128, 5, torch.bfloat16),    # flagship level 0 width
+    (1, 12, 64, 128, 5, torch.float32),
+    (1, 8, 128, 256, 5, torch.bfloat16),    # levels 1-2 width
+    (1, 8, 128, 256, 5, torch.float32),
+    (1, 8, 64, 512, 5, torch.bfloat16),     # level 3 width
+    (1, 8, 64, 512, 5, torch.float32),
+    (2, 9, 70, 128, 5, torch.bfloat16),     # ragged rows and columns, B = 2
+    (2, 9, 70, 128, 5, torch.float32),
+    (3, 5, 3, 192, 3, torch.bfloat16),      # narrower than a tile, 3x3
+    (1, 7, 66, 64, 1, torch.float32),       # 1x1
+])
+@pytest.mark.parametrize("act", ["sigmoid", "hard_sigmoid"])
+def test_wgmma_level_matches_plain(cuda, b, h, w, feat, k, sdt, act):
+    ins = _level(cuda, b, h, w, feat, k, torch.bfloat16, sdt)
+    assert convlstm_cell.route(h, w, feat, k, b, torch.bfloat16) == "wgmma"
+    reset_counts()
+    got = convlstm_cell.fused_convlstm_level(*ins, act)
+    want = convlstm_cell.fused_convlstm_level_plain(*ins, act)
+    ran = counts()
+    assert ran["fused_convlstm_level_wgmma"] == {"kernel": 1, "plain": 1}
+    assert ran["fused_convlstm_level"] == {"kernel": 0, "plain": 0}
+    _tc_close(got, want, sdt, k, feat)
+
+
+def test_wgmma_level_takes_the_cells_weight_view(cuda):
+    """The cell passes kernel_h as a permuted view; the pack takes it as is."""
+    gx, h, c, wh = _level(cuda, 1, 6, 64, 64, 5, torch.bfloat16, torch.bfloat16)
+    view = wh.permute(3, 2, 0, 1).contiguous().permute(2, 3, 1, 0)
+    assert not view.is_contiguous()
+    got = convlstm_cell.fused_convlstm_level(gx, h, c, view)
+    want = convlstm_cell.fused_convlstm_level(gx, h, c, wh)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
 def test_fused_level_rejects_unsupported_shapes(cuda):
     ins = _level(cuda, 1, 8, 8, 256, 5, torch.float32, torch.float32)
+    with pytest.raises(ValueError, match="supported"):
+        convlstm_cell.fused_convlstm_level(*ins)
+    ins = _level(cuda, 1, 8, 8, 128, 7, torch.bfloat16, torch.bfloat16)  # neither route
     with pytest.raises(ValueError, match="supported"):
         convlstm_cell.fused_convlstm_level(*ins)
 

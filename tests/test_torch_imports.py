@@ -79,7 +79,7 @@ def test_build_dir_is_ignored_and_named_by_sources():
     assert os.path.dirname(path) == _build.BUILD_DIR == os.path.join(PORT, "build")
     assert path == _build.library_path()  # stable for an unchanged tree
     assert sorted(os.path.basename(p) for p in glob.glob(os.path.join(PORT, "csrc", "*.cu"))) \
-        == ["ccl.cu", "convlstm_cell.cu", "lstm_gates.cu"]
+        == ["ccl.cu", "convlstm_cell.cu", "convlstm_wgmma.cu", "lstm_gates.cu"]
 
 
 def test_chip_smoke_alone_fails_and_prints_nothing(tmp_path):

@@ -10,7 +10,10 @@ CPU. Where the reference reaches a Pallas kernel it runs in interpret mode
 - K2 gate backward: 1e-6 against the interpreted Pallas kernel (same
   formulas in f32); the Function's backward against torch autograd of the
   plain forward 1e-5, the reference's bound on grads;
-- K4 fused level: 2e-5 in f32, the reference's fused-vs-XLA bound;
+- K4 fused level: 2e-5 in f32, the reference's fused-vs-XLA bound; its Wh
+  pack round-trips exactly; in bf16 the fused cell and the unfused cell
+  differ by the unfused conv's bf16 rounding of the gates (see
+  test_bf16_fused_cell_takes_the_tensor_core_route);
 - K3 CCL: equal.
 
 The CUDA kernels themselves are compared with these plain versions in
@@ -30,6 +33,7 @@ from lstm_unet_tpu.ops.convlstm import ConvLSTMCell as JaxCell
 from lstm_unet_tpu.ops.pallas import lstm_gates as jax_lg
 from lstm_unet_tpu.ops.pallas.ccl import connected_components_pallas
 from lstm_unet_tpu.ops.pallas.convlstm_cell import fused_convlstm_level as jax_fused
+from lstm_unet_tpu_torch.config import default_net_kernel_params, tiny_net_kernel_params
 from lstm_unet_tpu_torch.io.synthetic import dense_components_mask, spiral_mask
 from lstm_unet_tpu_torch.ops import conv as tconv
 from lstm_unet_tpu_torch.ops.convlstm import ConvLSTMCell
@@ -210,11 +214,13 @@ def test_fused_level_plain_matches_interpreted_pallas():
 
 
 @pytest.mark.parametrize("k,feat,hw,batch", [(5, 128, (8, 128), 1), (3, 8, (12, 10), 2),
-                                             (3, 16, (8, 8), 1)])
+                                             (3, 16, (8, 8), 1), (5, 256, (8, 8), 1)])
 @pytest.mark.parametrize("fused", [False, True])
 def test_convlstm_cell_matches_unfused_jax_cell(k, feat, hw, batch, fused):
     """The port's cell, fused (K4 plain) or not (convs + K1 plain), against
-    the reference's unfused cell with the same weights."""
+    the reference's unfused cell with the same weights. In f32 the fused cell
+    takes K4 where a route takes the level (F = 256 at 5x5 has none in f32:
+    the cell runs the convs + K1 there, as the reference falls back)."""
     r = np.random.default_rng(3)
     cin = 3
     jcell = {"kernel_x": r.uniform(-0.3, 0.3, (k, k, cin, 4 * feat)).astype(np.float32),
@@ -235,8 +241,11 @@ def test_convlstm_cell_matches_unfused_jax_cell(k, feat, hw, batch, fused):
         (th, tc), out = cell((torch.from_numpy(h0), torch.from_numpy(c0)),
                              torch.from_numpy(x), fused_cell=fused)
     ran = counts()
-    assert ran["fused_convlstm_level"]["plain"] == int(fused)
-    assert ran["lstm_gate_update"]["plain"] == int(not fused)
+    k4 = fused and convlstm_cell.supported(*hw, feat, k, k, batch)
+    assert k4 == (fused and feat != 256)
+    assert ran["fused_convlstm_level"]["plain"] == int(k4)
+    assert ran["fused_convlstm_level_wgmma"]["plain"] == 0
+    assert ran["lstm_gate_update"]["plain"] == int(not k4)
     assert out is th
     np.testing.assert_allclose(th.numpy(), np.asarray(jh), atol=2e-5)
     np.testing.assert_allclose(tc.numpy(), np.asarray(jc), atol=2e-5)
@@ -274,9 +283,116 @@ def test_fused_supported_limits():
     assert convlstm_cell.supported(512, 512, 128, 5, 5, 1)      # flagship level 0
     assert convlstm_cell.supported(32, 32, 8, 3, 3, 1)          # tiny levels
     assert convlstm_cell.supported(16, 16, 16, 3, 3, 4)
-    assert not convlstm_cell.supported(256, 256, 256, 5, 5, 1)  # smem budget
+    assert not convlstm_cell.supported(256, 256, 256, 5, 5, 1)  # f32: smem budget
+    assert convlstm_cell.supported(256, 256, 256, 5, 5, 1, torch.bfloat16)  # tensor cores
     assert not convlstm_cell.supported(64, 64, 8, 4, 4, 1)      # even kernel
     assert not convlstm_cell.supported(64, 64, 8, 3, 5, 1)      # not square
+    assert not convlstm_cell.supported(64, 64, 128, 7, 7, 1, torch.bfloat16)  # neither
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_route_table(dtype):
+    """Which K4 kernel takes each ConvLSTM level: the flagship's four in bf16
+    on the tensor cores, only its level 0 in f32 (SIMT); the tiny model's
+    narrow levels on the SIMT kernel in both dtypes."""
+    bf16 = dtype == torch.bfloat16
+    want = {"flagship": ["wgmma"] * 4 if bf16 else ["simt", None, None, None],
+            "tiny": ["simt", "simt"]}
+    for name, nkp, hw in (("flagship", default_net_kernel_params(), 512),
+                          ("tiny", tiny_net_kernel_params(), 32)):
+        got = [convlstm_cell.route(hw >> lvl, hw >> lvl, f, k, 1, dtype)
+               for lvl, ((k, f),) in enumerate(nkp.lstm_kernels)]
+        assert got == want[name], name
+    assert convlstm_cell.route(9, 70, 128, 5, 2, dtype) == ("wgmma" if bf16 else "simt")
+    assert convlstm_cell.route(0, 70, 128, 5, 2, dtype) is None
+
+
+@pytest.mark.parametrize("k,feat", [(5, 128), (5, 512), (3, 64), (1, 192)])
+def test_wh_pack_round_trips(k, feat):
+    """pack_wh is a permutation: unpack_wh inverts it exactly, and a view of
+    the cell's OIHW kernel packs as its contiguous copy does."""
+    wh = torch.from_numpy(np.random.default_rng(k + feat).normal(
+        size=(k, k, feat, 4 * feat)).astype(np.float32)).to(torch.bfloat16)
+    packed = convlstm_cell.pack_wh(wh)
+    assert packed.shape == (feat // 64, feat // 64, k * k, 8, 256, 8)
+    assert packed.is_contiguous()
+    assert torch.equal(convlstm_cell.unpack_wh(packed), wh)
+    view = wh.permute(3, 2, 0, 1).contiguous().permute(2, 3, 1, 0)  # as the cell passes it
+    assert torch.equal(convlstm_cell.pack_wh(view), packed)
+    assert sorted(packed.flatten().tolist()) == sorted(wh.flatten().tolist())
+
+
+def test_wh_pack_rejects_ragged_channels():
+    with pytest.raises(ValueError, match="F % 64"):
+        convlstm_cell.pack_wh(torch.zeros(3, 3, 96, 384))
+
+
+def _fragment_gate_feature(col):
+    """(gate, feature within the tile) the kernel's epilogue reads from wgmma
+    accumulator column ``col``: the fragment gives lane q of a quad columns
+    8j + 2q + {0, 1}; the epilogue takes j = 2n as (i, f) and j = 2n + 1 as
+    (g, o) of feature 16q + n."""
+    j, q, b = col // 8, (col % 8) // 2, col % 2
+    return 2 * (j % 2) + b, 16 * q + j // 2
+
+
+def test_packed_matmul_matches_interpreted_pallas():
+    """The kernel's GEMM on the CPU: per column tile, 64-channel chunk and
+    tap, a plain matmul of the shifted h tile with the packed Wh tile, then
+    the columns de-interleaved as the epilogue reads them, plus gx and the
+    gate math, equals the reference's fused level (Pallas, interpreted) at
+    8x128, F = 128; a column-order mistake in the pack shows here."""
+    gx, h, c, wh = _level_inputs(5, (8, 128), 128, 5)
+    feat, k = 128, 5
+    packed = convlstm_cell.pack_wh(torch.from_numpy(wh)).double()
+    hp = torch.nn.functional.pad(torch.from_numpy(h[0]).double(), (0, 0, 2, 2, 2, 2))
+    z = torch.zeros(8 * 128, 4 * feat, dtype=torch.float64)
+    gate, fl = zip(*map(_fragment_gate_feature, range(256)))
+    for nt in range(feat // 64):
+        acc = torch.zeros(8 * 128, 256, dtype=torch.float64)
+        for ch in range(feat // 64):
+            for tap in range(k * k):
+                ky, kx = divmod(tap, k)
+                a = hp[ky:ky + 8, kx:kx + 128, ch * 64:(ch + 1) * 64].reshape(-1, 64)
+                b = packed[nt, ch, tap].permute(0, 2, 1).reshape(64, 256)  # [channel, column]
+                acc += a @ b
+        cols = [g * feat + nt * 64 + f for g, f in zip(gate, fl)]
+        z[:, cols] = acc
+    z = z.reshape(1, 8, 128, 4 * feat) + torch.from_numpy(gx)
+    c_new, h_new = lstm_gates.gate_math(*(z[..., i * feat:(i + 1) * feat].float()
+                                          for i in range(4)),
+                                        torch.from_numpy(c), "sigmoid")
+    want = jax_fused(jnp.asarray(gx[0]), jnp.asarray(h[0]), jnp.asarray(c[0]),
+                     jnp.asarray(wh))
+    for g, w in zip((h_new, c_new), want):
+        np.testing.assert_allclose(g[0].numpy(), np.asarray(w), atol=2e-5)
+
+
+def test_bf16_fused_cell_takes_the_tensor_core_route():
+    """In bf16 a flagship-width level (F = 256, 5x5) goes to the tensor-core
+    route (its plain version here) and agrees with the unfused bf16 cell.
+    Tolerance: the unfused conv rounds the 4F gate pre-activations to bf16
+    (relative 2^-9) before K1, the fused level keeps them in f32; through
+    the gate math that moves h' and c' by a few bf16 ulps, so 2^-5 relative
+    plus 2^-8 absolute."""
+    r = np.random.default_rng(11)
+    cell = ConvLSTMCell(5, 3, 256, generator=torch.Generator().manual_seed(0))
+    x = torch.from_numpy(r.normal(size=(1, 8, 8, 3)).astype(np.float32)).bfloat16()
+    carry = tuple(torch.from_numpy(r.uniform(-1, 1, (1, 8, 8, 256)).astype(np.float32))
+                  .bfloat16() for _ in range(2))
+    cell = cell.to(torch.bfloat16)
+    outs = {}
+    for fused in (True, False):
+        reset_counts()
+        with torch.no_grad():
+            outs[fused], _ = cell(carry, x, fused_cell=fused)
+        ran = counts()
+        assert ran["fused_convlstm_level_wgmma"] == {"kernel": 0, "plain": int(fused)}
+        assert ran["fused_convlstm_level"]["plain"] == 0
+        assert ran["lstm_gate_update"]["plain"] == int(not fused)
+    for a, b in zip(outs[True], outs[False]):
+        assert a.dtype == b.dtype == torch.bfloat16
+        torch.testing.assert_close(a.float(), b.float(), atol=2.0 ** -8, rtol=2.0 ** -5)
 
 
 # ---------------------------------------------------------------- K3
