@@ -7,18 +7,20 @@ Phases, each of which raises (exit != 0) when it fails:
   a. device: the GPU's name and power limit;
   b. build: the CUDA kernels from ``lstm_unet_tpu_torch/csrc``;
   c. each kernel against its plain PyTorch version, at the flagship model's
-     shapes, with its tolerance; times from CUDA events. K4 has two routes:
-     the SIMT kernel (f32, flagship level 0) and the bf16 tensor-core kernel
-     at all four flagship levels, with cuDNN's h-conv + add + K1 timed beside
-     it as the yardstick the port does not call; then one flagship step with
-     the fused cell against the unfused one, in f32 and in bf16;
+     shapes, with its tolerance; times from CUDA events. K4 has three
+     routes: the SIMT kernel (f32; timed at flagship level 0, run by the
+     route on the tiny model's levels), the bf16 tensor-core kernel and the
+     f32 one (3xTF32), each at all four flagship levels, with cuDNN's h-conv
+     + add + K1 in the same dtype timed beside it as the yardstick the port
+     does not call; then one flagship step with the fused cell against the
+     unfused one, in f32 and in bf16;
   d. the golden sequence through the inference CLI against
-     ``tests/golden/masks`` (equal instance count, <= 3 px per frame);
+     ``tests/golden/masks`` (equal instance count, <= 3 px per frame), with
+     the fused cell off and on (f32: the tiny levels take K4's SIMT route);
   e. the flagship model (512^2, random weights from a seed) through
      ``run_inference`` in float32 and bfloat16, fused cell off and on, with
-     each kernel's launch count over (d) + (e): with the fused cell, bf16
-     runs K4's tensor-core route at all 4 levels of every frame and f32 its
-     SIMT route once per frame (level 0);
+     each kernel's launch count over (d) + (e): with the fused cell, K4's
+     tensor-core route of the dtype runs at all 4 levels of every frame;
   f. K2 (the gate backward) against its plain version at the flagship
      training shapes (B = 5, 256^2 crops), with K2's time;
   g. the flagship trained through ``cli/train2d.main`` (B = 5, T = 7, 256^2
@@ -29,7 +31,7 @@ Phases, each of which raises (exit != 0) when it fails:
   h. one f32 flagship training step (loss and grads) with the kernels
      against the same step with the plain versions patched in.
 The last two lines are a JSON kernel summary and the device JSON. The build
-fails if ptxas reports spills for K4's tensor-core kernel.
+fails if ptxas reports spills for K4's tensor-core kernel (bf16 or 3xTF32).
 """
 
 from __future__ import annotations
@@ -50,8 +52,8 @@ GOLDEN = os.path.join(HERE, "tests", "golden")
 # the frozen recipe of tests/golden/make_golden.py
 GOLDEN_DATA = dict(num_frames=8, height=32, width=32, num_cells=3, seed=123)
 # H100 SXM peaks (NVIDIA data sheet, dense): bytes/s of HBM3, f32 FLOP/s on
-# the SIMT units, bf16 FLOP/s on the tensor cores
-HBM_BPS, F32_FLOPS, BF16_FLOPS = 3.35e12, 67e12, 989e12
+# the SIMT units, bf16 and TF32 FLOP/s on the tensor cores
+HBM_BPS, F32_FLOPS, BF16_FLOPS, TF32_FLOPS = 3.35e12, 67e12, 989e12, 495e12
 # flagship ConvLSTM levels: (H = W, F), 5x5
 FLAGSHIP_LEVELS = ((512, 128), (256, 256), (128, 256), (64, 512))
 
@@ -212,8 +214,8 @@ def hconv_k1(torch, lstm_gates, gx, h, c, wh):
 
 
 def phase_k4(torch, g):
-    """(c), K4: both routes against the plain version; returns the two
-    routes' summaries."""
+    """(c), K4: the three routes against the plain version; returns their
+    summaries."""
     from lstm_unet_tpu_torch.ops.kernels import _build, convlstm_cell, lstm_gates
 
     lib = _build.library()
@@ -223,21 +225,28 @@ def phase_k4(torch, g):
     for k in convlstm_cell.TC_KERNEL_SIZES:
         if lib.lut_convlstm_level_wgmma_smem(k) != convlstm_cell.wgmma_smem_bytes(k):
             raise AssertionError(f"K4 tensor-core smem formula differs at {k}x{k}")
+        if lib.lut_convlstm_level_tf32x3_smem(k) != convlstm_cell.tf32x3_smem_bytes(k):
+            raise AssertionError(f"K4 3xTF32 smem formula differs at {k}x{k}")
     out = {}
 
-    # SIMT route: flagship level 0 in f32 (timed) and the tiny model's levels
+    # SIMT route: flagship level 0 in f32 (timed; the route sends it to
+    # 3xTF32, so the SIMT entry is called directly) and the tiny model's
+    # levels through the route
     errs = []
     for (b, hw, feat, k) in ((1, 512, 128, 5), (1, 32, 8, 3), (2, 16, 16, 3)):
         ins = k4_inputs(torch, g, b, hw, feat, k, torch.float32, torch.float32)
-        if convlstm_cell.route(hw, hw, feat, k, b, torch.float32) != "simt":
+        if hw == 512:
+            got = convlstm_cell.simt_level(*ins)
+        elif convlstm_cell.route(hw, hw, feat, k, b, torch.float32) != "simt":
             raise AssertionError(f"K4 route of {hw}^2 F={feat} f32 is not the SIMT kernel")
-        got = convlstm_cell.fused_convlstm_level(*ins)
+        else:
+            got = convlstm_cell.fused_convlstm_level(*ins)
         want = convlstm_cell.fused_convlstm_level_plain(*ins)
         errs.append(check_close(f"K4 SIMT {hw}^2 F={feat} {k}x{k}", got, want,
                                 *k4_tolerance(torch, k, feat, torch.float32)))
         log(f"K4 SIMT B={b} {hw}^2 F={feat} {k}x{k} f32: max_abs_err={errs[-1]:.3g}")
         if hw == 512:
-            ms = time_ms(lambda: convlstm_cell.fused_convlstm_level(*ins), 5)
+            ms = time_ms(lambda: convlstm_cell.simt_level(*ins), 5)
             plain = time_ms(lambda: convlstm_cell.fused_convlstm_level_plain(*ins), 5)
             flops = 2 * hw * hw * k * k * feat * 4 * feat
             nbytes = 4 * (hw * hw * 8 * feat + k * k * feat * 4 * feat)  # gx, h, c, h', c', wh
@@ -283,6 +292,45 @@ def phase_k4(torch, g):
                     f"{bd[0]:.4f} ms bf16 bound), pack {pack_ms:.4f} ms, plain "
                     f"{plain:.3f} ms; cuDNN h-conv + add + K1 {alt:.4f} ms")
     out["fused_convlstm_level_wgmma"] = dict(levels[0], max_abs_err=max(errs))
+
+    # 3xTF32 route: the four flagship levels in f32 (state f32, both
+    # activations), plus the ragged B = 2 shape with f32 and bf16 state; held
+    # to K4's f32 tolerance, not TF32's; its bound is 3 TF32 products per
+    # multiply-add at the TF32 peak
+    errs, levels = [], []
+    cases = [(1, hw, feat, 5, torch.float32) for hw, feat in FLAGSHIP_LEVELS]
+    cases += [(2, (37, 100), 128, 5, sdt) for sdt in (torch.float32, torch.bfloat16)]
+    for (b, hw, feat, k, sdt) in cases:
+        h_, w_ = (hw, hw) if isinstance(hw, int) else hw
+        if convlstm_cell.route(h_, w_, feat, k, b, torch.float32) != "tf32x3":
+            raise AssertionError(f"K4 route of {hw} F={feat} f32 is not the 3xTF32 kernel")
+        ins = k4_inputs(torch, g, b, hw, feat, k, torch.float32, sdt)
+        tol = k4_tolerance(torch, k, feat, sdt)
+        for act in ("sigmoid", "hard_sigmoid"):
+            got = convlstm_cell.fused_convlstm_level(*ins, act)
+            want = convlstm_cell.fused_convlstm_level_plain(*ins, act)
+            e = check_close(f"K4 tf32x3 B={b} {hw} F={feat} state {sdt} {act}", got, want,
+                            *tol)
+            errs.append(e)
+            log(f"K4 tf32x3 B={b} {hw} F={feat} {k}x{k} state {str(sdt)[6:]} {act}: "
+                f"max_abs_err={e:.3g} (atol {tol[0]:.3g}, rtol {tol[1]:.3g})")
+        if b == 1:
+            gx, h, c, wh = ins
+            packed = convlstm_cell.pack_wh_tf32x3(wh)
+            ms = time_ms(lambda: convlstm_cell.tf32x3_level(gx, h, c, packed, k), 10)
+            pack_ms = time_ms(lambda: convlstm_cell.pack_wh_tf32x3(wh), 10)
+            alt = time_ms(hconv_k1(torch, lstm_gates, *ins), 5)
+            plain = time_ms(lambda: convlstm_cell.fused_convlstm_level_plain(*ins), 3)
+            flops = 2 * hw * hw * k * k * feat * 4 * feat
+            # gx, h, c, h', c' in f32 and the hi/lo packed Wh
+            nbytes = 4 * (hw * hw * 8 * feat + 2 * k * k * feat * 4 * feat)
+            bd = bound(nbytes, 3 * flops, TF32_FLOPS)
+            levels.append(summary(ms, plain, None, bd))
+            log(f"K4 tf32x3 time @{hw}^2 F={feat} 5x5 f32: kernel {ms:.4f} ms "
+                f"({flops / ms / 1e9:.1f} f32 TFLOP/s, {100 * bd[0] / ms:.1f}% of the "
+                f"{bd[0]:.4f} ms 3xTF32 bound), pack {pack_ms:.4f} ms, plain "
+                f"{plain:.3f} ms; cuDNN f32 h-conv + add + K1 (TF32 off) {alt:.4f} ms")
+    out["fused_convlstm_level_tf32x3"] = dict(levels[0], max_abs_err=max(errs))
     return out
 
 
@@ -494,8 +542,8 @@ def flagship_model(torch, dtype, fused):
 
 def phase_fused_vs_unfused(torch, dtype):
     """One flagship step with the fused cell on and off, same inputs, in
-    ``dtype``; the fused step must run K4's route for that dtype at every
-    level it takes (f32: level 0, SIMT; bf16: all four, tensor cores)."""
+    ``dtype``; the fused step must run K4's tensor-core route for that dtype
+    at all four levels (f32: 3xTF32; bf16: bf16) and no other route."""
     from lstm_unet_tpu_torch.ops import kernels
 
     model = flagship_model(torch, dtype, False)
@@ -511,8 +559,9 @@ def phase_fused_vs_unfused(torch, dtype):
         kernels.reset_counts()
         s1, l1 = model.step(state, frame)
         ran = kernels.counts()
-    want = ({"fused_convlstm_level": 1, "fused_convlstm_level_wgmma": 0} if dtype == "float32"
-            else {"fused_convlstm_level": 0, "fused_convlstm_level_wgmma": 4})
+    tc = "fused_convlstm_level_tf32x3" if dtype == "float32" else "fused_convlstm_level_wgmma"
+    want = {k: 4 if k == tc else 0 for k in ("fused_convlstm_level", "fused_convlstm_level_wgmma",
+                                              "fused_convlstm_level_tf32x3")}
     if any(ran[k]["kernel"] != n for k, n in want.items()):
         raise AssertionError(f"fused {dtype} step: K4 launches {ran}, expected {want}")
     ds = max(max_err(a, b) for la, lb in zip(s0, s1) for ta, tb in zip(la, lb)
@@ -522,8 +571,8 @@ def phase_fused_vs_unfused(torch, dtype):
     log(f"flagship {dtype} step fused vs unfused: state max diff {ds:.3g}, logits "
         f"max diff {dl:.3g} (largest |logit| {scale:.3g})")
     if dtype == "float32":
-        # two f32 summation orders of the 3200-term level-0 h-conv, carried
-        # through the network
+        # the h-convs' f32 sums in two orders (3xTF32 chunks against cuDNN's
+        # f32 conv) at all four levels, carried through the network
         bad = ds > 1e-4 or dl > 1e-3
     else:
         # the unfused cell rounds its 4F gate pre-activations to bf16 (2^-9
@@ -537,34 +586,41 @@ def phase_fused_vs_unfused(torch, dtype):
 
 
 def phase_golden(torch, work):
+    """(d): the golden sequence in f32, fused cell off, then on (the tiny
+    model's levels, F = 8 and 16, take K4's SIMT route: 2 per frame)."""
     from lstm_unet_tpu_torch.cli.inference2d import main as cli_main
     from lstm_unet_tpu_torch.io.synthetic import write_ctc_dataset
     from lstm_unet_tpu_torch.io.tiff import read_tiff
-    import numpy as np
+    from lstm_unet_tpu_torch.ops import kernels
 
     root = os.path.join(work, "golden")
     write_ctc_dataset(root, **GOLDEN_DATA)
-    out = os.path.join(work, "golden_res")
-    n = cli_main(["--model_path", os.path.join(GOLDEN, "torch_ckpt"),
-                  "--sequence_path", os.path.join(root, "Synth-N2DH-SIM", "01"),
-                  "--output_path", out, "--device", "cuda",
-                  "--pre_sequence_frames", "2", "--min_cell_size", "5",
-                  "--dtype", "float32"])
     want_paths = sorted(glob.glob(os.path.join(GOLDEN, "masks", "mask*.tif")))
-    if n != len(want_paths) or n == 0:
-        raise AssertionError(f"golden: wrote {n} masks, expected {len(want_paths)}")
-    diffs = []
-    for p in want_paths:
-        want = read_tiff(p)
-        got = read_tiff(os.path.join(out, os.path.basename(p)))
-        d = int((got != want).sum())
-        diffs.append(d)
-        if len(np.unique(got)) != len(np.unique(want)) or d > 3:
-            raise AssertionError(f"golden {os.path.basename(p)}: {d} px differ, "
-                                 f"instances {len(np.unique(got)) - 1} vs "
-                                 f"{len(np.unique(want)) - 1}")
-    log(f"golden masks on the card: differing px per frame {diffs} (bar: equal "
-        "instance count, <= 3 px)")
+    for fused in (False, True):
+        out = os.path.join(work, f"golden_res_{int(fused)}")
+        before = kernels.counts()["fused_convlstm_level"]["kernel"]
+        n = cli_main(["--model_path", os.path.join(GOLDEN, "torch_ckpt"),
+                      "--sequence_path", os.path.join(root, "Synth-N2DH-SIM", "01"),
+                      "--output_path", out, "--device", "cuda",
+                      "--pre_sequence_frames", "2", "--min_cell_size", "5",
+                      "--dtype", "float32", *(["--fused_cell"] if fused else [])])
+        simt = kernels.counts()["fused_convlstm_level"]["kernel"] - before
+        if n != len(want_paths) or n == 0:
+            raise AssertionError(f"golden: wrote {n} masks, expected {len(want_paths)}")
+        if simt != (2 * (n + 2) if fused else 0):
+            raise AssertionError(f"golden fused_cell={fused}: {simt} SIMT K4 launches")
+        diffs = []
+        for p in want_paths:
+            want = read_tiff(p)
+            got = read_tiff(os.path.join(out, os.path.basename(p)))
+            d = int((got != want).sum())
+            diffs.append(d)
+            if len(np.unique(got)) != len(np.unique(want)) or d > 3:
+                raise AssertionError(f"golden fused_cell={fused} {os.path.basename(p)}: {d} "
+                                     f"px differ, instances {len(np.unique(got)) - 1} vs "
+                                     f"{len(np.unique(want)) - 1}")
+        log(f"golden masks on the card, f32 fused_cell={fused}: differing px per frame "
+            f"{diffs} (bar: equal instance count, <= 3 px); SIMT K4 launches {simt}")
 
 
 def phase_flagship(torch, work, card):
@@ -597,14 +653,16 @@ def phase_flagship(torch, work, card):
                                      f"reported, {written} written")
             if any(v["plain"] for v in d.values()):
                 raise AssertionError(f"plain versions ran on the card: {d}")
-            # per frame (n + 2 with the warm-up): K1 at each level K4 does
-            # not take; K4 in f32 at level 0 (SIMT), in bf16 at all four
-            # levels (tensor cores)
+            # per frame (n + 2 with the warm-up): with the fused cell K4's
+            # tensor-core route of the dtype at all four levels (f32:
+            # 3xTF32), else K1 at each level
             steps = n + 2
-            k4 = {"fused_convlstm_level": steps if fused and dtype == "float32" else 0,
-                  "fused_convlstm_level_wgmma": 4 * steps if fused and dtype == "bfloat16"
-                  else 0}
-            k1 = 4 * steps - k4["fused_convlstm_level"] - k4["fused_convlstm_level_wgmma"]
+            tc = ("fused_convlstm_level_tf32x3" if dtype == "float32"
+                  else "fused_convlstm_level_wgmma")
+            k4 = {k: 4 * steps if fused and k == tc else 0
+                  for k in ("fused_convlstm_level", "fused_convlstm_level_wgmma",
+                            "fused_convlstm_level_tf32x3")}
+            k1 = 4 * steps - sum(k4.values())
             if (d["ccl"]["kernel"] == 0 or d["lstm_gate_update"]["kernel"] != k1
                     or any(d[k]["kernel"] != v for k, v in k4.items())):
                 raise AssertionError(f"unexpected kernel launches: {d}, expected K1 {k1}, "
@@ -650,15 +708,19 @@ def main() -> int:
         f"{os.path.relpath(_build.library_path(), HERE)})")
     with open(os.path.join(_build.BUILD_DIR, "build.log")) as f:
         ptxas = f.read().splitlines()
-    entry = None
+    entry, tensor_core = None, set()
     for line in ptxas:
         if "Compiling entry function" in line:
             entry = line.split("'")[1]
         if "registers" in line or "spill" in line:
             log("  ptxas:", line.strip())
-            if (entry and "convlstm_wgmma_kernel" in entry and "spill" in line
-                    and "0 bytes spill stores, 0 bytes spill loads" not in line):
-                raise AssertionError(f"K4's tensor-core kernel spills: {entry}: {line.strip()}")
+            if entry and "convlstm_wgmma_kernel" in entry and "spill" in line:
+                tensor_core.add("Tf32x3" if "Tf32x3" in entry else "Bf16")
+                if "0 bytes spill stores, 0 bytes spill loads" not in line:
+                    raise AssertionError(f"K4's tensor-core kernel spills: {entry}: "
+                                         f"{line.strip()}")
+    if tensor_core != {"Bf16", "Tf32x3"}:
+        raise AssertionError(f"ptxas reported no spill line for K4's {tensor_core} entries")
 
     # (c) kernels vs plain versions; (f) K2
     kernel_summary = phase_kernels(torch)
@@ -674,7 +736,7 @@ def main() -> int:
         phase_flagship(torch, work, smi)
         inference = kernels.counts()
         for k in ("lstm_gate_update", "ccl", "fused_convlstm_level",
-                  "fused_convlstm_level_wgmma"):
+                  "fused_convlstm_level_wgmma", "fused_convlstm_level_tf32x3"):
             if inference[k]["kernel"] == 0:
                 raise AssertionError(f"inference path: {k} never launched: {inference}")
         if any(v["plain"] for v in inference.values()):
@@ -696,7 +758,9 @@ def main() -> int:
                "fused_convlstm_level": ("lstm_unet_tpu_torch/csrc/convlstm_cell.cu",
                                         "lstm_unet_tpu/ops/pallas/convlstm_cell.py:125"),
                "fused_convlstm_level_wgmma": ("lstm_unet_tpu_torch/csrc/convlstm_wgmma.cu",
-                                              "lstm_unet_tpu/ops/pallas/convlstm_cell.py:125")}
+                                              "lstm_unet_tpu/ops/pallas/convlstm_cell.py:125"),
+               "fused_convlstm_level_tf32x3": ("lstm_unet_tpu_torch/csrc/convlstm_wgmma.cu",
+                                               "lstm_unet_tpu/ops/pallas/convlstm_cell.py:125")}
     log(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": sources[k][0], "replaces": sources[k][1],
          "launches": launched[k]["kernel"], **kernel_summary[k]} for k in sources]}))

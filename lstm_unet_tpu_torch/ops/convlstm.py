@@ -8,10 +8,10 @@ hard_sigmoid recurrent activation, and an explicit ``(h, c)`` carry of
 
 With ``fused_cell`` and a level that :func:`kernels.convlstm_cell.supported`
 takes in the compute dtype, the recurrent conv and the gate math run in the
-fused kernel (K4) with the x-conv + bias computed outside: in bf16 its
-tensor-core route takes every level with F % 64 == 0 (all four of the
-flagship model), in f32 its SIMT route the levels whose h tile fits one
-block (flagship level 0, the tiny model). Otherwise the two convs run on
+fused kernel (K4) with the x-conv + bias computed outside: its
+tensor-core routes take every level with F % 64 == 0 at K in {1, 3, 5} (all
+four of the flagship model; bf16 as bf16, f32 as 3xTF32), its SIMT route
+the other levels whose h tile fits one block (the tiny model). Otherwise the two convs run on
 cuDNN and the gate math in :func:`lstm_gate_update` (forward K1, backward
 K2). On the CPU both routes take the kernels' plain versions. The fused route
 is inference-only, as in the reference: under grad the fused kernel raises.

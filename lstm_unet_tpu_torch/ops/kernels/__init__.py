@@ -18,6 +18,7 @@ KERNELS = {
     "ccl": ccl.COUNT,                               # K3
     "fused_convlstm_level": convlstm_cell.COUNT,    # K4, SIMT route
     "fused_convlstm_level_wgmma": convlstm_cell.WGMMA_COUNT,  # K4, bf16 tensor cores
+    "fused_convlstm_level_tf32x3": convlstm_cell.TF32X3_COUNT,  # K4, f32 as 3xTF32
 }
 
 

@@ -1,4 +1,4 @@
-"""K4 — fused ConvLSTM level, inference (two CUDA routes + plain version).
+"""K4 — fused ConvLSTM level, inference (three CUDA routes + plain version).
 
 Replaces ``lstm_unet_tpu/ops/pallas/convlstm_cell.py::fused_convlstm_level``.
 From ``gx [B,H,W,4F]`` (x-conv + bias, computed outside), ``h, c [B,H,W,F]``
@@ -9,7 +9,7 @@ Returns ``(h', c')`` — the reverse of K1's ``(c', h')`` — in h's and c's
 dtypes.
 
 The TPU kernel's limits (B = 1, F and W multiples of 128, H of 4, 5x5 only,
-its VMEM budget) were the TPU's. On the card :func:`route` picks one of two
+its VMEM budget) were the TPU's. On the card :func:`route` picks one of three
 kernels by dtype and shape, each with its own launch count:
 
 - ``"wgmma"`` (``csrc/convlstm_wgmma.cu``, :data:`WGMMA_COUNT`): bf16 compute
@@ -17,14 +17,19 @@ kernels by dtype and shape, each with its own launch count:
   implicit GEMM on the tensor cores with the gate math as its epilogue; Wh
   goes in packed (:func:`pack_wh`). It takes every ConvLSTM level of the
   flagship model.
+- ``"tf32x3"`` (the same kernel on f32 operands, :data:`TF32X3_COUNT`): f32
+  compute under the same limits. The tensor cores have no f32 mode, and one
+  TF32 product misses the 2e-5 tolerance, so h and Wh are each split into
+  hi = tf32(x) and lo = tf32(x - hi) and every product is taken as
+  hi*lo + lo*hi + hi*hi (3xTF32, f32-grade sums); Wh goes in packed as hi
+  and lo (:func:`pack_wh_tf32x3`). It takes every flagship level in f32.
 - ``"simt"`` (``csrc/convlstm_cell.cu``, :data:`COUNT`): everything else that
   fits one block's shared memory — the halo'd h tile for all F channels plus
   one Wh chunk within the 227 KB a Hopper block can use
-  (:func:`smem_bytes`). It serves f32 compute (tensor cores have no true f32
-  mode, and TF32 would break the 2e-5 tolerance: flagship level 0 only, F >=
-  256 at 5x5 does not fit) and the tiny model's narrow levels.
+  (:func:`smem_bytes`): the tiny model's narrow levels (F = 8, 16), 7x7, and
+  F that is not a multiple of 64.
 
-A level neither route takes raises; the cell checks :func:`supported` first.
+A level no route takes raises; the cell checks :func:`supported` first.
 
 Inference only, as the reference (which defines no VJP for it): with grad
 mode on and any input requiring grad the wrapper raises, on every device,
@@ -41,8 +46,9 @@ import torch.nn.functional as F
 from . import _build
 from .lstm_gates import gate_math
 
-COUNT = _build.LaunchCount()        # the SIMT route
-WGMMA_COUNT = _build.LaunchCount()  # the bf16 tensor-core route
+COUNT = _build.LaunchCount()         # the SIMT route
+WGMMA_COUNT = _build.LaunchCount()   # the bf16 tensor-core route
+TF32X3_COUNT = _build.LaunchCount()  # the f32 tensor-core route (3xTF32)
 
 # block geometry of csrc/convlstm_cell.cu (SIMT route)
 TILE_H, TILE_W, FEAT_SLICE, CHUNK = 8, 16, 32, 4
@@ -54,6 +60,10 @@ SMEM_LIMIT = 232_448  # bytes of shared memory one Hopper block may use
 # 3-stage Wh ring
 TC_ROWS, TC_COLS, TC_FEAT, TC_CHUNK, TC_STAGES = 2, 64, 64, 64, 3
 TC_KERNEL_SIZES = (1, 3, 5)
+# the 3xTF32 route: tiles of 2 rows x 64 pixels x 32 features (128 gate
+# columns), 16-channel chunks, each h tile and Wh stage as hi and lo planes of
+# 4 f32 channels, a 6-stage Wh ring
+TF32_FEAT, TF32_CHUNK, TF32_STAGES = 32, 16, 6
 GRID_LIMIT = 65535  # gridDim.z of the SIMT kernel
 
 
@@ -73,14 +83,26 @@ def wgmma_smem_bytes(k: int) -> int:
             + (2 * TC_STAGES + 4) * 8)
 
 
+def tf32x3_smem_bytes(k: int) -> int:
+    """Shared memory one 3xTF32 block needs: the Wh ring (hi and lo), two h
+    tiles of one 16-channel chunk as hi and lo planes (each padded as in
+    :func:`wgmma_smem_bytes`) and 16 mbarriers."""
+    plane = (((TC_ROWS + k - 1) * (TC_COLS + k - 1)) | 1) * 16
+    return (TF32_STAGES * 2 * TF32_CHUNK * 4 * TF32_FEAT * 4
+            + 2 * 2 * (TF32_CHUNK // 4) * plane + (2 * TF32_STAGES + 4) * 8)
+
+
 def route(h: int, w: int, feat: int, k: int, batch: int,
           dtype: torch.dtype = torch.float32) -> Optional[str]:
     """The K4 kernel that takes a level of a square ``k`` x ``k`` kernel in
-    compute ``dtype``: ``"wgmma"``, ``"simt"``, or None (neither)."""
+    compute ``dtype``: ``"wgmma"``, ``"tf32x3"``, ``"simt"``, or None."""
     if min(h, w, feat, batch) <= 0:
         return None
-    if dtype == torch.bfloat16 and k in TC_KERNEL_SIZES and feat % TC_CHUNK == 0:
-        return "wgmma"
+    if k in TC_KERNEL_SIZES and feat % TC_FEAT == 0:
+        if dtype == torch.bfloat16:
+            return "wgmma"
+        if dtype == torch.float32:
+            return "tf32x3"
     if (k in KERNEL_SIZES and batch * -(-feat // FEAT_SLICE) <= GRID_LIMIT
             and smem_bytes(k, feat) <= SMEM_LIMIT):
         return "simt"
@@ -94,48 +116,86 @@ def supported(h: int, w: int, feat: int, kh: int, kw: int, batch: int,
     return kh == kw and route(h, w, feat, kh, batch, dtype) is not None
 
 
+_COUNTS = {"simt": COUNT, "wgmma": WGMMA_COUNT, "tf32x3": TF32X3_COUNT}
+
+
 def _count(gx: torch.Tensor, h: torch.Tensor, wh: torch.Tensor) -> _build.LaunchCount:
     b, hh, ww, feat = h.shape
-    r = route(hh, ww, feat, wh.shape[0], b, gx.dtype)
-    return WGMMA_COUNT if r == "wgmma" else COUNT
+    return _COUNTS.get(route(hh, ww, feat, wh.shape[0], b, gx.dtype), COUNT)
 
 
 # ---------------------------------------------------------------- Wh pack
 #
-# The tensor-core kernel reads Wh as [F/64 column tiles][F/64 chunks][K*K taps]
-# tiles of [8 channel groups][256 columns][8 channels], each 32 KB and in the
-# no-swizzle K-major layout wgmma reads from shared memory. Column n of a tile
-# (n16 = n // 16, r = n % 16) holds gate 2 * (r // 8) + r % 2 of feature
-# 64 * tile + 16 * ((r % 8) // 2) + n16: per 16 columns [i f i f i f i f | g o g
-# o g o g o], so one thread's accumulator fragment holds i, f, g and o of the
-# same 16 features. _pack_dims splits wh [K*K, F, 4F] into (tap, chunk, group,
-# channel, gate // 2, gate % 2, tile, feature // 16 % 4, feature % 16).
+# The tensor-core kernel reads Wh as [F/T column tiles][F/chunk chunks][K*K
+# taps] tiles, each in the no-swizzle K-major layout wgmma reads from shared
+# memory: bf16, T = 64 features and 64-channel chunks of [8 channel
+# groups][256 columns][8 channels] (32 KB); 3xTF32, T = 32 and 16-channel
+# chunks of [hi, lo][4 channel groups][128 columns][4 channels] (16 KB).
+# With t = T // 4 features per thread, column n of a tile (n16 = n // 16,
+# r = n % 16) holds gate 2 * (r // 8) + r % 2 of feature
+# T * tile + t * ((r % 8) // 2) + n16: per 16 columns
+# [i f i f i f i f | g o g o g o g o], so one thread's accumulator fragment
+# holds i, f, g and o of the same t features. _pack_dims splits
+# wh [K*K, F, 4F] into (tap, chunk, group, channel, gate // 2, gate % 2,
+# tile, feature // t % 4, feature % t).
 _PACK_PERM = (6, 1, 0, 2, 8, 4, 7, 5, 3)
 _UNPACK_PERM = tuple(sorted(range(9), key=_PACK_PERM.__getitem__))
 
 
-def _pack_dims(k: int, feat: int):
-    return (k * k, feat // TC_CHUNK, TC_CHUNK // 8, 8, 2, 2, feat // TC_FEAT, 4, TC_FEAT // 4)
+def _pack_dims(k: int, feat: int, tile: int, chunk: int, vec: int):
+    return (k * k, feat // chunk, chunk // vec, vec, 2, 2, feat // tile, 4, tile // 4)
+
+
+def _pack(wh: torch.Tensor, tile: int, chunk: int, vec: int) -> torch.Tensor:
+    """``wh [K,K,F,4F]`` -> ``[F/tile, F/chunk, K*K, chunk/vec, 4 tile, vec]``."""
+    k, _, feat, _ = wh.shape
+    if feat % TC_FEAT:
+        raise ValueError(f"the packed Wh needs F % {TC_FEAT} == 0, got F={feat}")
+    t = wh.reshape(_pack_dims(k, feat, tile, chunk, vec)).permute(_PACK_PERM)
+    return t.reshape(feat // tile, feat // chunk, k * k, chunk // vec, 4 * tile, vec)
+
+
+def _unpack(packed: torch.Tensor, tile: int, chunk: int, vec: int) -> torch.Tensor:
+    kk, feat = packed.shape[2], packed.shape[0] * tile
+    k = round(kk ** 0.5)
+    dims = [_pack_dims(k, feat, tile, chunk, vec)[p] for p in _PACK_PERM]
+    t = packed.reshape(dims).permute(_UNPACK_PERM)
+    return t.reshape(k, k, feat, 4 * feat).contiguous()
 
 
 def pack_wh(wh: torch.Tensor) -> torch.Tensor:
-    """``wh [K,K,F,4F]`` (any strides) -> the tensor-core kernel's packed
+    """``wh [K,K,F,4F]`` (any strides) -> the bf16 kernel's packed
     ``[F/64, F/64, K*K, 8, 256, 8]``, in one copy."""
-    k, _, feat, _ = wh.shape
-    if feat % TC_CHUNK:
-        raise ValueError(f"the packed Wh needs F % {TC_CHUNK} == 0, got F={feat}")
-    t = wh.reshape(_pack_dims(k, feat)).permute(_PACK_PERM)
-    return t.reshape(feat // TC_FEAT, feat // TC_CHUNK, k * k, TC_CHUNK // 8,
-                     4 * TC_FEAT, 8).contiguous()
+    return _pack(wh, TC_FEAT, TC_CHUNK, 8).contiguous()
 
 
 def unpack_wh(packed: torch.Tensor) -> torch.Tensor:
     """Inverse of :func:`pack_wh`: ``[K,K,F,4F]``."""
-    kk, feat = packed.shape[2], packed.shape[0] * TC_FEAT
-    k = round(kk ** 0.5)
-    dims = [_pack_dims(k, feat)[p] for p in _PACK_PERM]
-    t = packed.reshape(dims).permute(_UNPACK_PERM)
-    return t.reshape(k, k, feat, 4 * feat).contiguous()
+    return _unpack(packed, TC_FEAT, TC_CHUNK, 8)
+
+
+def round_tf32(x: torch.Tensor) -> torch.Tensor:
+    """f32 ``x`` rounded to TF32 (10 mantissa bits) to nearest, ties away
+    from zero, as ``cvt.rna.tf32.f32``: by the bit pattern."""
+    bits = x.view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def pack_wh_tf32x3(wh: torch.Tensor) -> torch.Tensor:
+    """``wh [K,K,F,4F]`` f32 (any strides) -> the 3xTF32 kernel's packed
+    ``[F/32, F/16, K*K, 2, 4, 128, 4]``: index 0 of the hi/lo axis holds
+    hi = tf32(wh), index 1 lo = tf32(wh - hi)."""
+    if wh.dtype != torch.float32:
+        raise ValueError(f"the 3xTF32 pack takes float32 Wh, got {wh.dtype}")
+    t = _pack(wh, TF32_FEAT, TF32_CHUNK, 4)
+    hi = round_tf32(t)
+    return torch.stack((hi, round_tf32(t - hi)), dim=3)
+
+
+def unpack_wh_tf32x3(packed: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Inverse of :func:`pack_wh_tf32x3`: ``(hi, lo)``, each ``[K,K,F,4F]``."""
+    return (_unpack(packed[:, :, :, 0], TF32_FEAT, TF32_CHUNK, 4),
+            _unpack(packed[:, :, :, 1], TF32_FEAT, TF32_CHUNK, 4))
 
 
 # ---------------------------------------------------------------- versions
@@ -145,9 +205,10 @@ def fused_convlstm_level_plain(gx: torch.Tensor, h: torch.Tensor,
                                c: torch.Tensor, wh: torch.Tensor,
                                recurrent_activation: str = "sigmoid"
                                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of both routes: the recurrent conv in f32 on the
-    h rounded to wh's dtype (exact products, f32 sums, as the kernels), then
-    the gate math. Counted on the route the wrapper would take."""
+    """Plain PyTorch version of every route: the recurrent conv in f32 on the
+    h rounded to wh's dtype (exact products, f32 sums, which the 3xTF32
+    route matches to ~2^-21 relative per product), then the gate math.
+    Counted on the route the wrapper would take."""
     _count(gx, h, wh).plain += 1
     k = wh.shape[0]
     feat = c.shape[-1]
@@ -206,41 +267,74 @@ def fused_convlstm_level(gx: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
         raise ValueError(f"unknown recurrent activation {recurrent_activation!r}")
     if which == "wgmma":
         return wgmma_level(gx, h, c, pack_wh(wh), k, recurrent_activation)
-    act = _build.ACTIVATIONS[recurrent_activation]
+    if which == "tf32x3":
+        return tf32x3_level(gx, h, c, pack_wh_tf32x3(wh), k, recurrent_activation)
+    return simt_level(gx, h, c, wh, recurrent_activation)
+
+
+def simt_level(gx: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
+               wh: torch.Tensor, recurrent_activation: str = "sigmoid"
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The SIMT launch, for CUDA tensors that :func:`fused_convlstm_level`
+    has checked (this entry also lets a caller time the SIMT kernel at a
+    level that :func:`route` sends to the tensor cores)."""
+    b, hh, ww, feat = h.shape
+    k = wh.shape[0]
     h_out = torch.empty_like(h)
     c_out = torch.empty_like(c)
     wh = wh.contiguous()
     with torch.cuda.device(h.device):
         err = _build.library().lut_convlstm_level(
             gx.data_ptr(), h.data_ptr(), c.data_ptr(), wh.data_ptr(),
-            h_out.data_ptr(), c_out.data_ptr(), b, hh, ww, feat, k, act,
-            _build.DTYPES[gx.dtype], _build.DTYPES[h.dtype], _build.stream_handle(h))
+            h_out.data_ptr(), c_out.data_ptr(), b, hh, ww, feat, k,
+            _build.ACTIVATIONS[recurrent_activation], _build.DTYPES[gx.dtype],
+            _build.DTYPES[h.dtype], _build.stream_handle(h))
     _build.check(err, "lut_convlstm_level")
     COUNT.kernel += 1
+    return h_out, c_out
+
+
+def _tensor_core_level(entry: str, count: _build.LaunchCount, want, dtype: torch.dtype,
+                       gx: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
+                       packed: torch.Tensor, k: int, recurrent_activation: str
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    b, hh, ww, feat = h.shape
+    if packed.shape != want or packed.dtype != dtype:
+        raise ValueError(f"packed Wh {tuple(packed.shape)} {packed.dtype} is not "
+                         f"the {dtype} pack for {k}x{k}, F={feat}")
+    if any(t.data_ptr() % 16 for t in (gx, h, c)):
+        raise ValueError("the tensor-core K4 needs 16-byte aligned gx, h and c")
+    h_out = torch.empty_like(h)
+    c_out = torch.empty_like(c)
+    with torch.cuda.device(h.device):
+        err = getattr(_build.library(), entry)(
+            gx.data_ptr(), h.data_ptr(), c.data_ptr(), packed.data_ptr(),
+            h_out.data_ptr(), c_out.data_ptr(), b, hh, ww, feat, k,
+            _build.ACTIVATIONS[recurrent_activation], _build.DTYPES[h.dtype],
+            _build.stream_handle(h))
+    _build.check(err, entry)
+    count.kernel += 1
     return h_out, c_out
 
 
 def wgmma_level(gx: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
                 packed: torch.Tensor, k: int, recurrent_activation: str = "sigmoid"
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The tensor-core launch on Wh already packed by :func:`pack_wh`, for
-    CUDA tensors that :func:`fused_convlstm_level` has checked (it packs per
-    call; this entry lets a caller time the kernel without the pack)."""
-    b, hh, ww, feat = h.shape
-    if packed.shape != (feat // TC_FEAT, feat // TC_CHUNK, k * k, TC_CHUNK // 8,
-                        4 * TC_FEAT, 8) or packed.dtype != torch.bfloat16:
-        raise ValueError(f"packed Wh {tuple(packed.shape)} {packed.dtype} is not "
-                         f"pack_wh's for {k}x{k}, F={feat}")
-    if any(t.data_ptr() % 16 for t in (gx, h, c)):
-        raise ValueError("the tensor-core K4 needs 16-byte aligned gx, h and c")
-    h_out = torch.empty_like(h)
-    c_out = torch.empty_like(c)
-    with torch.cuda.device(h.device):
-        err = _build.library().lut_convlstm_level_wgmma(
-            gx.data_ptr(), h.data_ptr(), c.data_ptr(), packed.data_ptr(),
-            h_out.data_ptr(), c_out.data_ptr(), b, hh, ww, feat, k,
-            _build.ACTIVATIONS[recurrent_activation], _build.DTYPES[h.dtype],
-            _build.stream_handle(h))
-    _build.check(err, "lut_convlstm_level_wgmma")
-    WGMMA_COUNT.kernel += 1
-    return h_out, c_out
+    """The bf16 tensor-core launch on Wh already packed by :func:`pack_wh`,
+    for CUDA tensors that :func:`fused_convlstm_level` has checked (it packs
+    per call; this entry lets a caller time the kernel without the pack)."""
+    feat = h.shape[-1]
+    want = (feat // TC_FEAT, feat // TC_CHUNK, k * k, TC_CHUNK // 8, 4 * TC_FEAT, 8)
+    return _tensor_core_level("lut_convlstm_level_wgmma", WGMMA_COUNT, want,
+                              torch.bfloat16, gx, h, c, packed, k, recurrent_activation)
+
+
+def tf32x3_level(gx: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
+                 packed: torch.Tensor, k: int, recurrent_activation: str = "sigmoid"
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The 3xTF32 launch on Wh already packed by :func:`pack_wh_tf32x3`, as
+    :func:`wgmma_level` is for bf16."""
+    feat = h.shape[-1]
+    want = (feat // TF32_FEAT, feat // TF32_CHUNK, k * k, 2, TF32_CHUNK // 4, 4 * TF32_FEAT, 4)
+    return _tensor_core_level("lut_convlstm_level_tf32x3", TF32X3_COUNT, want,
+                              torch.float32, gx, h, c, packed, k, recurrent_activation)

@@ -36,6 +36,8 @@ WARM, TIMED, PROFILED = 3, 8, 3
 
 
 def kind(name: str) -> str:
+    if "Tf32x3" in name:
+        return "K4 tf32x3"
     if "convlstm_wgmma" in name:
         return "K4 wgmma"
     if "convlstm_level" in name:

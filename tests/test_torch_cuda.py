@@ -9,8 +9,8 @@ skip it there:
 
 Tolerances: K1 and K2 1e-6 in f32 and one bf16 ulp of output rounding in
 bf16; K4 2e-5 in f32 (the reference's fused-vs-XLA bound) and one bf16 ulp;
-K4's tensor-core route (bf16 compute, f32 sums in another order than
-cuDNN's) 2e-5 with f32 state and 1e-5 plus one bf16 ulp with bf16 state, up
+K4's tensor-core routes (bf16, and f32 as 3xTF32: f32 sums in another
+order than cuDNN's) 2e-5 with f32 state and 1e-5 plus one bf16 ulp with bf16 state, up
 to K*K*F = 3200 summed products (flagship level 0), scaled linearly with
 the summation length above that (a sum's worst-case rounding error grows
 with its length: x4 at level 3's 12800); K3 equal; the tiny model's grads
@@ -165,12 +165,13 @@ def _level(cuda, b, h, w, feat, k, dt, sdt, seed=0):
 ])
 @pytest.mark.parametrize("act", ["sigmoid", "hard_sigmoid"])
 def test_fused_level_matches_plain(cuda, b, h, w, feat, k, dt, sdt, act):
-    """Each case on the route that takes it (bf16 at F % 64 == 0: tensor
-    cores), counted there."""
+    """Each case on the route that takes it (F % 64 == 0 at 5x5: tensor
+    cores, bf16 or 3xTF32), counted there."""
     ins = _level(cuda, b, h, w, feat, k, dt, sdt)
     assert convlstm_cell.supported(h, w, feat, k, k, b, dt)
     which = convlstm_cell.route(h, w, feat, k, b, dt)
-    name = {"simt": "fused_convlstm_level", "wgmma": "fused_convlstm_level_wgmma"}[which]
+    name = {"simt": "fused_convlstm_level", "wgmma": "fused_convlstm_level_wgmma",
+            "tf32x3": "fused_convlstm_level_tf32x3"}[which]
     reset_counts()
     got = convlstm_cell.fused_convlstm_level(*ins, act)
     want = convlstm_cell.fused_convlstm_level_plain(*ins, act)
@@ -243,8 +244,62 @@ def test_wgmma_level_takes_the_cells_weight_view(cuda):
         assert torch.equal(a, b)
 
 
+def test_tf32x3_level_smem_and_route_match_the_kernel(cuda):
+    """The 3xTF32 kernel's shared memory is the Python formula's and fits a
+    block; the route sends it f32 levels of exactly the kernel sizes it
+    builds."""
+    from lstm_unet_tpu_torch.ops.kernels import _build
+
+    lib = _build.library()
+    for k in convlstm_cell.KERNEL_SIZES:
+        got = lib.lut_convlstm_level_tf32x3_smem(k)
+        if k in convlstm_cell.TC_KERNEL_SIZES:
+            assert got == convlstm_cell.tf32x3_smem_bytes(k) <= convlstm_cell.SMEM_LIMIT
+            assert convlstm_cell.route(64, 64, 128, k, 1, torch.float32) == "tf32x3"
+        else:
+            assert got == 0
+            assert convlstm_cell.route(64, 64, 128, k, 1, torch.float32) != "tf32x3"
+
+
+@pytest.mark.parametrize("b,h,w,feat,k,sdt", [
+    (1, 12, 64, 128, 5, torch.float32),     # flagship level 0 width
+    (1, 8, 128, 256, 5, torch.float32),     # levels 1-2 width
+    (1, 8, 64, 512, 5, torch.float32),      # level 3 width
+    (2, 9, 70, 128, 5, torch.float32),      # ragged rows and columns, B = 2
+    (2, 9, 70, 128, 5, torch.bfloat16),     # bf16 state
+    (3, 5, 3, 192, 3, torch.float32),       # narrower than a tile, 3x3
+    (1, 7, 66, 64, 1, torch.float32),       # 1x1
+])
+@pytest.mark.parametrize("act", ["sigmoid", "hard_sigmoid"])
+def test_tf32x3_level_matches_plain(cuda, b, h, w, feat, k, sdt, act):
+    """f32 compute on the tensor cores as 3xTF32, within K4's f32 tolerance
+    (not TF32's): the kernel launches once, the plain version once (called
+    here), no other route."""
+    ins = _level(cuda, b, h, w, feat, k, torch.float32, sdt)
+    assert convlstm_cell.route(h, w, feat, k, b, torch.float32) == "tf32x3"
+    reset_counts()
+    got = convlstm_cell.fused_convlstm_level(*ins, act)
+    assert counts()["fused_convlstm_level_tf32x3"] == {"kernel": 1, "plain": 0}
+    want = convlstm_cell.fused_convlstm_level_plain(*ins, act)
+    ran = counts()
+    assert ran["fused_convlstm_level_tf32x3"] == {"kernel": 1, "plain": 1}
+    assert ran["fused_convlstm_level"] == ran["fused_convlstm_level_wgmma"] == {
+        "kernel": 0, "plain": 0}
+    _tc_close(got, want, sdt, k, feat)
+
+
+def test_tf32x3_level_takes_the_cells_weight_view(cuda):
+    gx, h, c, wh = _level(cuda, 1, 6, 64, 64, 5, torch.float32, torch.float32)
+    view = wh.permute(3, 2, 0, 1).contiguous().permute(2, 3, 1, 0)
+    assert not view.is_contiguous()
+    got = convlstm_cell.fused_convlstm_level(gx, h, c, view)
+    want = convlstm_cell.fused_convlstm_level(gx, h, c, wh)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
 def test_fused_level_rejects_unsupported_shapes(cuda):
-    ins = _level(cuda, 1, 8, 8, 256, 5, torch.float32, torch.float32)
+    ins = _level(cuda, 1, 8, 8, 200, 5, torch.float32, torch.float32)  # neither route
     with pytest.raises(ValueError, match="supported"):
         convlstm_cell.fused_convlstm_level(*ins)
     ins = _level(cuda, 1, 8, 8, 128, 7, torch.bfloat16, torch.bfloat16)  # neither route
@@ -282,6 +337,29 @@ def test_golden_masks_on_the_card(cuda, tmp_path):
     ran = counts()
     assert all(v["plain"] == 0 for v in ran.values())
     assert ran["ccl"]["kernel"] == 10 and ran["lstm_gate_update"]["kernel"] == 20
+    golden = sorted(glob.glob(os.path.join(GOLDEN, "masks", "mask*.tif")))
+    assert n == len(golden) == 8
+    for p in golden:
+        want = read_tiff(p)
+        got = read_tiff(os.path.join(out, os.path.basename(p)))
+        assert len(np.unique(got)) == len(np.unique(want))
+        assert int((got != want).sum()) <= 3
+
+
+def test_golden_masks_fused_f32_on_the_card(cuda, tmp_path):
+    """With --fused_cell in f32 the tiny model's narrow levels (F = 8, 16)
+    take K4's SIMT route on every frame; the masks hold the golden bar."""
+    seq_dir, _ = synthetic.write_ctc_dataset(str(tmp_path / "ctc"), num_frames=8,
+                                             height=32, width=32, num_cells=3, seed=123)
+    out = str(tmp_path / "res")
+    reset_counts()
+    n = cli_main(["--model_path", os.path.join(GOLDEN, "torch_ckpt"),
+                  "--sequence_path", seq_dir, "--output_path", out,
+                  "--pre_sequence_frames", "2", "--min_cell_size", "5",
+                  "--dtype", "float32", "--fused_cell"])
+    ran = counts()
+    assert all(v["plain"] == 0 for v in ran.values())
+    assert ran["fused_convlstm_level"]["kernel"] == 20 and ran["lstm_gate_update"]["kernel"] == 0
     golden = sorted(glob.glob(os.path.join(GOLDEN, "masks", "mask*.tif")))
     assert n == len(golden) == 8
     for p in golden:

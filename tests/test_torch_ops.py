@@ -10,8 +10,9 @@ CPU. Where the reference reaches a Pallas kernel it runs in interpret mode
 - K2 gate backward: 1e-6 against the interpreted Pallas kernel (same
   formulas in f32); the Function's backward against torch autograd of the
   plain forward 1e-5, the reference's bound on grads;
-- K4 fused level: 2e-5 in f32, the reference's fused-vs-XLA bound; its Wh
-  pack round-trips exactly; in bf16 the fused cell and the unfused cell
+- K4 fused level: 2e-5 in f32, the reference's fused-vs-XLA bound, also for
+  the 3xTF32 tensor-core route's arithmetic (emulated here; plain TF32
+  misses it); its Wh packs round-trip exactly; in bf16 the fused cell and the unfused cell
   differ by the unfused conv's bf16 rounding of the gates (see
   test_bf16_fused_cell_takes_the_tensor_core_route);
 - K3 CCL: equal.
@@ -202,11 +203,13 @@ def _level_inputs(seed, hw, feat, k, batch=1):
 
 
 def test_fused_level_plain_matches_interpreted_pallas():
-    """At a shape the TPU kernel supports (B=1, 8x128, F=128, 5x5)."""
+    """At a shape the TPU kernel supports (B=1, 8x128, F=128, 5x5); in f32
+    the 3xTF32 route takes it, so its plain version runs here."""
     gx, h, c, wh = _level_inputs(2, (8, 128), 128, 5)
     reset_counts()
     got = convlstm_cell.fused_convlstm_level(*map(torch.from_numpy, (gx, h, c, wh)))
-    assert counts()["fused_convlstm_level"] == {"kernel": 0, "plain": 1}
+    assert counts()["fused_convlstm_level_tf32x3"] == {"kernel": 0, "plain": 1}
+    assert counts()["fused_convlstm_level"] == {"kernel": 0, "plain": 0}
     want = jax_fused(jnp.asarray(gx[0]), jnp.asarray(h[0]), jnp.asarray(c[0]),
                      jnp.asarray(wh))
     for g, w in zip(got, want):  # both (h', c')
@@ -219,8 +222,8 @@ def test_fused_level_plain_matches_interpreted_pallas():
 def test_convlstm_cell_matches_unfused_jax_cell(k, feat, hw, batch, fused):
     """The port's cell, fused (K4 plain) or not (convs + K1 plain), against
     the reference's unfused cell with the same weights. In f32 the fused cell
-    takes K4 where a route takes the level (F = 256 at 5x5 has none in f32:
-    the cell runs the convs + K1 there, as the reference falls back)."""
+    takes K4 at every level here: the narrow ones (F = 8, 16) on the SIMT
+    route, F = 128 and 256 on the 3xTF32 route; each counts its plain call."""
     r = np.random.default_rng(3)
     cin = 3
     jcell = {"kernel_x": r.uniform(-0.3, 0.3, (k, k, cin, 4 * feat)).astype(np.float32),
@@ -242,9 +245,11 @@ def test_convlstm_cell_matches_unfused_jax_cell(k, feat, hw, batch, fused):
                              torch.from_numpy(x), fused_cell=fused)
     ran = counts()
     k4 = fused and convlstm_cell.supported(*hw, feat, k, k, batch)
-    assert k4 == (fused and feat != 256)
-    assert ran["fused_convlstm_level"]["plain"] == int(k4)
-    assert ran["fused_convlstm_level_wgmma"]["plain"] == 0
+    assert k4 == fused
+    name = ("fused_convlstm_level_tf32x3" if feat % 64 == 0 else "fused_convlstm_level")
+    assert ran[name]["plain"] == int(k4)
+    assert sum(ran[n]["plain"] for n in ("fused_convlstm_level", "fused_convlstm_level_wgmma",
+                                         "fused_convlstm_level_tf32x3")) == int(k4)
     assert ran["lstm_gate_update"]["plain"] == int(not k4)
     assert out is th
     np.testing.assert_allclose(th.numpy(), np.asarray(jh), atol=2e-5)
@@ -283,7 +288,9 @@ def test_fused_supported_limits():
     assert convlstm_cell.supported(512, 512, 128, 5, 5, 1)      # flagship level 0
     assert convlstm_cell.supported(32, 32, 8, 3, 3, 1)          # tiny levels
     assert convlstm_cell.supported(16, 16, 16, 3, 3, 4)
-    assert not convlstm_cell.supported(256, 256, 256, 5, 5, 1)  # f32: smem budget
+    assert convlstm_cell.supported(256, 256, 256, 5, 5, 1)      # f32: 3xTF32
+    assert not convlstm_cell.supported(64, 64, 200, 5, 5, 1)    # f32: SIMT smem budget
+    assert convlstm_cell.supported(64, 64, 160, 5, 5, 1)        # F % 64 != 0: SIMT
     assert convlstm_cell.supported(256, 256, 256, 5, 5, 1, torch.bfloat16)  # tensor cores
     assert not convlstm_cell.supported(64, 64, 8, 4, 4, 1)      # even kernel
     assert not convlstm_cell.supported(64, 64, 8, 3, 5, 1)      # not square
@@ -292,18 +299,19 @@ def test_fused_supported_limits():
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_fused_route_table(dtype):
-    """Which K4 kernel takes each ConvLSTM level: the flagship's four in bf16
-    on the tensor cores, only its level 0 in f32 (SIMT); the tiny model's
-    narrow levels on the SIMT kernel in both dtypes."""
+    """Which K4 kernel takes each ConvLSTM level: the flagship's four on the
+    tensor cores (bf16 as bf16, f32 as 3xTF32); the tiny model's narrow
+    levels on the SIMT kernel in both dtypes."""
     bf16 = dtype == torch.bfloat16
-    want = {"flagship": ["wgmma"] * 4 if bf16 else ["simt", None, None, None],
+    want = {"flagship": ["wgmma" if bf16 else "tf32x3"] * 4,
             "tiny": ["simt", "simt"]}
     for name, nkp, hw in (("flagship", default_net_kernel_params(), 512),
                           ("tiny", tiny_net_kernel_params(), 32)):
         got = [convlstm_cell.route(hw >> lvl, hw >> lvl, f, k, 1, dtype)
                for lvl, ((k, f),) in enumerate(nkp.lstm_kernels)]
         assert got == want[name], name
-    assert convlstm_cell.route(9, 70, 128, 5, 2, dtype) == ("wgmma" if bf16 else "simt")
+    assert convlstm_cell.route(9, 70, 128, 5, 2, dtype) == ("wgmma" if bf16 else "tf32x3")
+    assert convlstm_cell.route(9, 70, 16, 7, 2, dtype) == "simt"
     assert convlstm_cell.route(0, 70, 128, 5, 2, dtype) is None
 
 
@@ -327,13 +335,14 @@ def test_wh_pack_rejects_ragged_channels():
         convlstm_cell.pack_wh(torch.zeros(3, 3, 96, 384))
 
 
-def _fragment_gate_feature(col):
+def _fragment_gate_feature(col, per_thread=16):
     """(gate, feature within the tile) the kernel's epilogue reads from wgmma
     accumulator column ``col``: the fragment gives lane q of a quad columns
     8j + 2q + {0, 1}; the epilogue takes j = 2n as (i, f) and j = 2n + 1 as
-    (g, o) of feature 16q + n."""
+    (g, o) of feature t q + n, t = ``per_thread`` features per thread (16 at
+    N = 256, 8 at N = 128)."""
     j, q, b = col // 8, (col % 8) // 2, col % 2
-    return 2 * (j % 2) + b, 16 * q + j // 2
+    return 2 * (j % 2) + b, per_thread * q + j // 2
 
 
 def test_packed_matmul_matches_interpreted_pallas():
@@ -393,6 +402,93 @@ def test_bf16_fused_cell_takes_the_tensor_core_route():
     for a, b in zip(outs[True], outs[False]):
         assert a.dtype == b.dtype == torch.bfloat16
         torch.testing.assert_close(a.float(), b.float(), atol=2.0 ** -8, rtol=2.0 ** -5)
+
+
+def _tf32(x):
+    """f32 rounded to TF32 (10 mantissa bits), to nearest with ties away from
+    zero (cvt.rna), by the bit pattern."""
+    bits = np.asarray(x, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def test_round_tf32_is_rna():
+    r = np.random.default_rng(12)
+    x = np.concatenate([r.normal(size=1000).astype(np.float32),
+                        np.float32([1 + 2 ** -11, -(1 + 2 ** -11), 1 + 3 * 2 ** -11,
+                                    1 + 2 ** -12, 0.0, 2.0 ** -130])])
+    got = convlstm_cell.round_tf32(torch.from_numpy(x)).numpy()
+    np.testing.assert_array_equal(got, _tf32(x))
+    np.testing.assert_array_equal(got[1000:1004], np.float32(  # ties away from zero
+        [1 + 2 ** -10, -(1 + 2 ** -10), 1 + 2 ** -9, 1.0]))
+    assert not (got.view(np.uint32) & 0x1FFF).any()
+
+
+@pytest.mark.parametrize("k,feat", [(5, 128), (5, 512), (3, 64), (1, 192)])
+def test_wh_pack_tf32x3_round_trips(k, feat):
+    """The f32 pack holds hi = tf32(wh) and lo = tf32(wh - hi) of every
+    weight, in the layout the 3xTF32 kernel reads; unpacking gives both back
+    exactly, and hi + lo is wh to 2^-21 relative."""
+    wh = torch.from_numpy(np.random.default_rng(k + feat).normal(
+        size=(k, k, feat, 4 * feat)).astype(np.float32))
+    packed = convlstm_cell.pack_wh_tf32x3(wh)
+    assert packed.shape == (feat // 32, feat // 16, k * k, 2, 4, 128, 4)
+    assert packed.is_contiguous() and packed.dtype == torch.float32
+    hi, lo = convlstm_cell.unpack_wh_tf32x3(packed)
+    np.testing.assert_array_equal(hi.numpy(), _tf32(wh.numpy()))
+    np.testing.assert_array_equal(lo.numpy(), _tf32(wh.numpy() - hi.numpy()))
+    assert float(((hi + lo - wh).abs() / wh.abs()).max()) <= 2.0 ** -21
+    view = wh.permute(3, 2, 0, 1).contiguous().permute(2, 3, 1, 0)  # as the cell passes it
+    assert torch.equal(convlstm_cell.pack_wh_tf32x3(view), packed)
+
+
+@pytest.mark.parametrize("products", ["3xtf32", "1xtf32"])
+def test_tf32x3_gemm_matches_interpreted_pallas(products):
+    """The 3xTF32 kernel's arithmetic on the CPU at 8x128, F = 128, 5x5: per
+    32-feature column tile, 16-channel chunk and tap, the split h tile
+    against the packed hi/lo Wh as hi*lo + lo*hi + hi*hi (exact products),
+    each chunk's sum rounded to f32 and added into an f32 sum as the kernel
+    flushes it, then de-interleaved as the epilogue reads the m64n128
+    fragment, plus gx and the gate math. It matches the reference's fused
+    level (Pallas, interpreted) to 2e-5; the control, hi*hi alone (plain
+    TF32), must miss 2e-5, so the test tells the two apart."""
+    gx, h, c, wh = _level_inputs(5, (8, 128), 128, 5)
+    feat, k, tile, chunk = 128, 5, 32, 16
+    packed = convlstm_cell.pack_wh_tf32x3(torch.from_numpy(wh)).double()
+    hp = np.pad(h[0], ((2, 2), (2, 2), (0, 0)))
+    a_hi = _tf32(hp)
+    a_lo = _tf32(hp - a_hi)
+    a_hi, a_lo = torch.from_numpy(a_hi).double(), torch.from_numpy(a_lo).double()
+    z = torch.zeros(8 * 128, 4 * feat, dtype=torch.float64)
+    gate, fl = zip(*(_fragment_gate_feature(n, tile // 4) for n in range(4 * tile)))
+    for nt in range(feat // tile):
+        total = torch.zeros(8 * 128, 4 * tile, dtype=torch.float32)
+        for ch in range(feat // chunk):
+            part = torch.zeros(8 * 128, 4 * tile, dtype=torch.float64)
+            for tap in range(k * k):
+                ky, kx = divmod(tap, k)
+                sl = (slice(ky, ky + 8), slice(kx, kx + 128), slice(ch * chunk, (ch + 1) * chunk))
+                ah, al = a_hi[sl].reshape(-1, chunk), a_lo[sl].reshape(-1, chunk)
+                # [hi/lo, group, column, channel] -> [channel, column]
+                bh, bl = (packed[nt, ch, tap, s].permute(0, 2, 1).reshape(chunk, 4 * tile)
+                          for s in (0, 1))
+                if products == "3xtf32":
+                    part += ah @ bl + al @ bh
+                part += ah @ bh
+            total += part.float()
+        cols = [g * feat + nt * tile + f for g, f in zip(gate, fl)]
+        z[:, cols] = total.double()
+    z = z.reshape(1, 8, 128, 4 * feat) + torch.from_numpy(gx)
+    c_new, h_new = lstm_gates.gate_math(*(z[..., i * feat:(i + 1) * feat].float()
+                                          for i in range(4)),
+                                        torch.from_numpy(c), "sigmoid")
+    want = jax_fused(jnp.asarray(gx[0]), jnp.asarray(h[0]), jnp.asarray(c[0]),
+                     jnp.asarray(wh))
+    err = max(float(np.abs(g[0].numpy() - np.asarray(w)).max())
+              for g, w in zip((h_new, c_new), want))
+    if products == "3xtf32":
+        assert err <= 2e-5, err
+    else:
+        assert err > 2e-5, err
 
 
 # ---------------------------------------------------------------- K3
