@@ -13,14 +13,27 @@ Phases, each of which raises (exit != 0) when it fails:
      f32 one (3xTF32), each at all four flagship levels, with cuDNN's h-conv
      + add + K1 in the same dtype timed beside it as the yardstick the port
      does not call; then one flagship step with the fused cell against the
-     unfused one, in f32 and in bf16;
+     unfused one, in f32 and in bf16. K3 has two routes (the cluster kernel,
+     which takes the flagship's 512^2 frame, and the grid kernel for frames
+     too large for it), each held bit-identical to the plain version on
+     random, ragged, degenerate and cell-like masks and timed two ways: CUDA
+     events around the calls, and the kernel's own device time from
+     torch.profiler (one launch per call);
+  c2. ``postprocess_frame`` on cell-like 512^2 probabilities (made from a
+     seed, no model) with the instance split off, 'dist' and 'prob': equal to
+     the same call on the CPU, 1, 2 and 2 K3 launches a frame, ms per frame
+     and the rounds of the growth and erosion loops;
   d. the golden sequence through the inference CLI against
      ``tests/golden/masks`` (equal instance count, <= 3 px per frame), with
-     the fused cell off and on (f32: the tiny levels take K4's SIMT route);
+     the fused cell off and on (f32: the tiny levels take K4's SIMT route),
+     then a 1024^2 sequence, whose frames take K3's grid route, against the
+     same run on the CPU;
   e. the flagship model (512^2, random weights from a seed) through
-     ``run_inference`` in float32 and bfloat16, fused cell off and on, with
-     each kernel's launch count over (d) + (e): with the fused cell, K4's
-     tensor-core route of the dtype runs at all 4 levels of every frame;
+     ``run_inference`` in float32 and bfloat16, fused cell off and on, and
+     once more in bfloat16 with ``instance_split`` ('prob': 2 K3 launches a
+     frame), with each kernel's launch count over (d) + (e): with the fused
+     cell, K4's tensor-core route of the dtype runs at all 4 levels of every
+     frame;
   f. K2 (the gate backward) against its plain version at the flagship
      training shapes (B = 5, 256^2 crops), with K2's time;
   g. the flagship trained through ``cli/train2d.main`` (B = 5, T = 7, 256^2
@@ -30,7 +43,8 @@ Phases, each of which raises (exit != 0) when it fails:
      run, and every parameter must get a nonzero gradient;
   h. one f32 flagship training step (loss and grads) with the kernels
      against the same step with the plain versions patched in.
-The last two lines are a JSON kernel summary and the device JSON. The build
+The last two lines are a JSON kernel summary (K3's two routes as ``ccl`` and
+``ccl_grid``) and the device JSON. The build
 fails if ptxas reports spills for K4's tensor-core kernel (bf16 or 3xTF32).
 """
 
@@ -77,6 +91,28 @@ def time_ms(fn, iters=10):
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, kernel_name, iters=20):
+    """Mean device milliseconds per call of ``fn`` spent in the kernel whose
+    name holds ``kernel_name``, from torch.profiler; ``fn`` must launch it
+    exactly once."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and kernel_name in e.key]
+    launches = sum(e.count for e in events)
+    if launches != iters:
+        raise AssertionError(f"{kernel_name}: {launches} launches in {iters} calls")
+    return sum(e.device_time_total for e in events) / 1e3 / iters
+
+
 def bound(nbytes, flops=0.0, peak=BF16_FLOPS):
     """(least ms the card could take, what bounds it): bytes over the HBM
     rate against operations over the peak rate of their type."""
@@ -108,8 +144,7 @@ def check_close(name, got, want, atol, rtol):
 
 def phase_kernels(torch):
     """(c): every kernel vs its plain version; returns {name: summary}."""
-    from lstm_unet_tpu_torch.io.synthetic import dense_components_mask, spiral_mask
-    from lstm_unet_tpu_torch.ops.kernels import ccl, lstm_gates
+    from lstm_unet_tpu_torch.ops.kernels import lstm_gates
 
     # the plain versions' f32 convs must not run in TF32
     torch.backends.cudnn.allow_tf32 = False
@@ -149,29 +184,114 @@ def phase_kernels(torch):
 
     out.update(phase_k4(torch, g))
 
-    # K3: random masks of several densities, a dense small-component frame and
-    # the spiral, each bit-identical
-    masks = [torch.rand(512, 512, device=dev, generator=g) < p for p in (0.3, 0.5, 0.6, 0.7)]
-    masks.append(torch.rand(333, 517, device=dev, generator=g) < 0.55)  # ragged tiles
-    masks.append(torch.from_numpy(dense_components_mask(512, 512)).to(dev))
-    masks.append(torch.from_numpy(spiral_mask(128)).to(dev))
-    for m in masks:
-        got = ccl.connected_components(m)
+    out.update(phase_k3(torch, g))
+    return out
+
+
+def cell_like_masks(torch):
+    """(probabilities [512, 512, 3], interior mask, marker mask of the 'prob'
+    splitter) of 300 synthetic cells, 40% of them touching another, on the
+    card."""
+    from lstm_unet_tpu_torch.io.synthetic import cell_like_probs
+    from lstm_unet_tpu_torch.ops import postprocess
+
+    probs = torch.from_numpy(cell_like_probs(512, 512, num_cells=300, seed=0)[0]).cuda()
+    interior = (probs[..., 1] > 0.5).contiguous()
+    markers = postprocess._erode(interior & (probs[..., 1] >= 0.8)).contiguous()
+    return probs, interior, markers
+
+
+def phase_k3(torch, g):
+    """(c), K3: both routes bit-identical to the plain version, then their
+    times; returns their summaries."""
+    from lstm_unet_tpu_torch.io.synthetic import dense_components_mask, spiral_mask
+    from lstm_unet_tpu_torch.ops.kernels import ccl
+
+    dev = torch.device("cuda")
+    rand = lambda h, w, p: torch.rand(h, w, device=dev, generator=g) < p
+    masks = {f"random {p}": rand(512, 512, p) for p in (0.3, 0.5, 0.6, 0.7)}
+    masks["ragged"] = rand(333, 517, 0.55)
+    masks["dense components"] = torch.from_numpy(dense_components_mask(512, 512)).to(dev)
+    masks["spiral"] = torch.from_numpy(spiral_mask(128)).to(dev)
+    masks["empty"] = torch.zeros(512, 512, dtype=torch.bool, device=dev)
+    masks["full"] = torch.ones(512, 512, dtype=torch.bool, device=dev)
+    masks["isolated pixels"] = torch.zeros(512, 512, dtype=torch.bool, device=dev)
+    masks["isolated pixels"][::2, ::2] = True
+    masks["one row"] = rand(1, 512, 0.5)
+    masks["one column"] = rand(512, 1, 0.5)
+    masks["W = 500"] = rand(512, 500, 0.5)
+    masks["random 1024^2"] = rand(1024, 1024, 0.5)
+    _, masks["cell-like"], masks["cell-like markers"] = cell_like_masks(torch)
+    for name, m in masks.items():
         want = ccl.connected_components_plain(m)
         n_comp = int(torch.unique(want).numel()) - int(bool((want == 0).any()))
-        if not torch.equal(got, want):
-            raise AssertionError(f"K3 differs on a {tuple(m.shape)} mask: "
-                                 f"{int((got != want).sum())} px")
-        log(f"K3 ccl {tuple(m.shape)} density={float(m.float().mean()):.3f} "
-            f"components={n_comp}: bit-identical")
-    m = masks[1]
+        routes = ["grid"] if ccl.route(*m.shape) == "grid" else ["cluster", "grid"]
+        for which in routes:
+            got = ccl.launch(m, which)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(f"K3 {which} differs on the {name} mask "
+                                     f"{tuple(m.shape)}: {int((got != want).sum())} px")
+        if not torch.equal(ccl.connected_components(m), ccl.launch(m, routes[0])):
+            raise AssertionError(f"K3: the wrapper did not take the {routes[0]} route")
+        log(f"K3 ccl {name} {tuple(m.shape)} density={float(m.float().mean()):.3f} "
+            f"components={n_comp}: {' and '.join(routes)} bit-identical")
+
+    # 512^2: events around the wrapper's calls (host and device together) and
+    # the kernel's own device time, for both routes; the plain version once
+    times = {}
+    for name in ("random 0.5", "cell-like", "cell-like markers"):
+        m = masks[name]
+        times[name] = dict(
+            cluster_ms=time_ms(lambda: ccl.connected_components(m), 50),
+            cluster_device_ms=device_ms(lambda: ccl.connected_components(m), "ccl_cluster"),
+            grid_ms=time_ms(lambda: ccl.launch(m, "grid"), 50),
+            grid_device_ms=device_ms(lambda: ccl.launch(m, "grid"), "ccl_grid"),
+            plain_ms=time_ms(lambda: ccl.connected_components_plain(m), 2))
+        log(f"K3 time @512^2 {name}: " + ", ".join(f"{k} {v:.4f}" for k, v in times[name].items()))
+    big = masks["random 1024^2"]
+    grid = dict(ms=time_ms(lambda: ccl.connected_components(big), 50),
+                device_ms=device_ms(lambda: ccl.connected_components(big), "ccl_grid"),
+                plain_ms=time_ms(lambda: ccl.connected_components_plain(big), 1))
+    log(f"K3 time @1024^2 random 0.5 (grid route): kernel {grid['ms']:.4f} ms (device "
+        f"{grid['device_ms']:.4f}), plain {grid['plain_ms']:.3f} ms")
     # reads the bool mask, writes int32 labels
-    out["ccl"] = summary(time_ms(lambda: ccl.connected_components(m)),
-                         time_ms(lambda: ccl.connected_components_plain(m), 3), 0.0,
-                         bound(m.numel() * 5))
-    log(f"K3 time @512^2 density 0.5: kernel {out['ccl']['ms']:.4f} ms, plain "
-        f"{out['ccl']['plain_ms']:.3f} ms")
-    return out
+    t = times["random 0.5"]
+    return {"ccl": dict(summary(t["cluster_ms"], t["plain_ms"], 0.0, bound(512 * 512 * 5)),
+                        device_ms=t["cluster_device_ms"], masks=times),
+            "ccl_grid": dict(summary(grid["ms"], grid["plain_ms"], 0.0,
+                                     bound(big.numel() * 5)), device_ms=grid["device_ms"])}
+
+
+def phase_postprocess(torch):
+    """(c2): postprocess_frame on the card against the CPU, split off and on."""
+    from lstm_unet_tpu_torch.ops import kernels, postprocess
+
+    probs = cell_like_masks(torch)[0]
+    probs_cpu = probs.cpu()
+    counts = {}
+    for name, k3, kw in (("off", 1, {}),
+                         ("dist", 2, dict(instance_split=True, split_method="dist")),
+                         ("prob", 2, dict(instance_split=True, split_method="prob"))):
+        kernels.reset_counts()
+        postprocess.ROUNDS.update(grow=0, erode=0)
+        got = postprocess.postprocess_frame(probs, **kw)
+        torch.cuda.synchronize()
+        ran, rounds = kernels.counts(), dict(postprocess.ROUNDS)
+        if ran["ccl"]["kernel"] != k3 or any(v["plain"] for v in ran.values()):
+            raise AssertionError(f"postprocess split {name}: expected {k3} K3 launches "
+                                 f"and no plain call on the card, got {ran}")
+        ms = time_ms(lambda: postprocess.postprocess_frame(probs, **kw), 5)
+        want = postprocess.postprocess_frame(probs_cpu, **kw)
+        if not torch.equal(got.cpu(), want):
+            raise AssertionError(f"postprocess split {name}: card and CPU differ in "
+                                 f"{int((got.cpu() != want).sum())} px")
+        counts[name] = int(got.max())
+        log(f"postprocess 512^2 cell-like, split {name}: {counts[name]} instances, equal "
+            f"on the card and the CPU; {ms:.3f} ms/frame, K3 launches {k3}, growth rounds "
+            f"{rounds['grow']}, erosion rounds {rounds['erode']} (one host read a round)")
+    if not counts["dist"] > counts["off"] < counts["prob"]:
+        raise AssertionError(f"the split changed nothing: instances {counts}")
 
 
 def k4_inputs(torch, g, b, hw, feat, k, dt, sdt):
@@ -622,6 +742,41 @@ def phase_golden(torch, work):
         log(f"golden masks on the card, f32 fused_cell={fused}: differing px per frame "
             f"{diffs} (bar: equal instance count, <= 3 px); SIMT K4 launches {simt}")
 
+    # frames too large for K3's cluster route: the same model on a 1024^2
+    # sequence, on the card (grid route, once a frame) and on the CPU
+    seq_dir, _ = write_ctc_dataset(os.path.join(work, "large"), num_frames=3, height=1024,
+                                   width=1024, num_cells=40, seed=1)
+    outs = {}
+    for device in ("cuda", "cpu"):
+        outs[device] = os.path.join(work, f"large_res_{device}")
+        before = kernels.counts()
+        n = cli_main(["--model_path", os.path.join(GOLDEN, "torch_ckpt"),
+                      "--sequence_path", seq_dir, "--output_path", outs[device],
+                      "--device", device, "--pre_sequence_frames", "1",
+                      "--min_cell_size", "5", "--dtype", "float32"])
+        after = kernels.counts()
+        if device == "cuda":
+            ran = {k: after[k]["kernel"] - before[k]["kernel"] for k in ("ccl", "ccl_grid")}
+            if n != 3 or ran != {"ccl": 0, "ccl_grid": n + 1}:
+                raise AssertionError(f"1024^2 sequence: {n} masks, K3 launches {ran}")
+        else:  # the plain versions the CPU run calls are no part of the path's count
+            for k in after:
+                kernels.KERNELS[k].plain = before[k]["plain"]
+    diffs = []
+    for p in sorted(glob.glob(os.path.join(outs["cpu"], "mask*.tif"))):
+        want = read_tiff(p)
+        got = read_tiff(os.path.join(outs["cuda"], os.path.basename(p)))
+        diffs.append(int((got != want).sum()))
+        # 1024 times the golden frames' pixels: the same bar of equal counts,
+        # and 64 px for pixels whose f32 probability sits at a threshold
+        if len(np.unique(got)) != len(np.unique(want)) or diffs[-1] > 64:
+            raise AssertionError(f"1024^2 {os.path.basename(p)}: {diffs[-1]} px differ from "
+                                 f"the CPU run, instances {len(np.unique(got)) - 1} vs "
+                                 f"{len(np.unique(want)) - 1}")
+    log(f"1024^2 sequence, tiny model f32: K3 grid route {n + 1} launches; differing px per "
+        f"frame against the CPU run {diffs} (bar: equal instance count, <= 64 px), "
+        f"instances in the last frame {len(np.unique(got)) - 1}")
+
 
 def phase_flagship(torch, work, card):
     from lstm_unet_tpu_torch.config import InferenceParams
@@ -632,46 +787,50 @@ def phase_flagship(torch, work, card):
     root = os.path.join(work, "flagship")
     seq_dir, _ = write_ctc_dataset(root, num_frames=8, height=512, width=512,
                                    num_cells=40, seed=0)
-    for dtype in ("float32", "bfloat16"):
-        for fused in (False, True):
-            out = os.path.join(work, f"flagship_{dtype}_{int(fused)}")
-            ip = InferenceParams(sequence_path=seq_dir, output_path=out,
-                                 pre_sequence_frames=2, dtype=dtype, fused_cell=fused)
-            model = flagship_model(torch, dtype, fused)
-            before = kernels.counts()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            n = run_inference(ip, device="cuda", model=model)
-            torch.cuda.synchronize()
-            secs = time.perf_counter() - t0
-            after = kernels.counts()
-            d = {k: {s: after[k][s] - before[k][s] for s in ("kernel", "plain")}
-                 for k in after}
-            written = len(glob.glob(os.path.join(out, "mask*.tif")))
-            if n != 8 or written != 8:
-                raise AssertionError(f"flagship {dtype} fused={fused}: {n} masks "
-                                     f"reported, {written} written")
-            if any(v["plain"] for v in d.values()):
-                raise AssertionError(f"plain versions ran on the card: {d}")
-            # per frame (n + 2 with the warm-up): with the fused cell K4's
-            # tensor-core route of the dtype at all four levels (f32:
-            # 3xTF32), else K1 at each level
-            steps = n + 2
-            tc = ("fused_convlstm_level_tf32x3" if dtype == "float32"
-                  else "fused_convlstm_level_wgmma")
-            k4 = {k: 4 * steps if fused and k == tc else 0
-                  for k in ("fused_convlstm_level", "fused_convlstm_level_wgmma",
-                            "fused_convlstm_level_tf32x3")}
-            k1 = 4 * steps - sum(k4.values())
-            if (d["ccl"]["kernel"] == 0 or d["lstm_gate_update"]["kernel"] != k1
-                    or any(d[k]["kernel"] != v for k, v in k4.items())):
-                raise AssertionError(f"unexpected kernel launches: {d}, expected K1 {k1}, "
-                                     f"K4 {k4}")
-            log(f"flagship 512^2 {dtype} fused_cell={fused}: {n + 2} frames "
-                f"(2 warm-up) in {secs:.3f} s = {(n + 2) / secs:.3f} frames/s "
-                f"incl. first-frame set-up [{card}]; launches "
-                f"{ {k: v['kernel'] for k, v in d.items()} }")
-            del model
+    for dtype, fused, split in (("float32", False, False), ("float32", True, False),
+                                ("bfloat16", False, False), ("bfloat16", True, False),
+                                ("bfloat16", False, True)):
+        out = os.path.join(work, f"flagship_{dtype}_{int(fused)}_{int(split)}")
+        ip = InferenceParams(sequence_path=seq_dir, output_path=out,
+                             pre_sequence_frames=2, dtype=dtype, fused_cell=fused,
+                             instance_split=split, split_method="prob")
+        model = flagship_model(torch, dtype, fused)
+        before = kernels.counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n = run_inference(ip, device="cuda", model=model)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        after = kernels.counts()
+        d = {k: {s: after[k][s] - before[k][s] for s in ("kernel", "plain")}
+             for k in after}
+        written = len(glob.glob(os.path.join(out, "mask*.tif")))
+        if n != 8 or written != 8:
+            raise AssertionError(f"flagship {dtype} fused={fused} split={split}: {n} masks "
+                                 f"reported, {written} written")
+        if any(v["plain"] for v in d.values()):
+            raise AssertionError(f"plain versions ran on the card: {d}")
+        # per frame (n + 2 with the warm-up): with the fused cell K4's
+        # tensor-core route of the dtype at all four levels (f32: 3xTF32),
+        # else K1 at each level; K3's cluster route once, twice with the split
+        steps = n + 2
+        tc = ("fused_convlstm_level_tf32x3" if dtype == "float32"
+              else "fused_convlstm_level_wgmma")
+        k4 = {k: 4 * steps if fused and k == tc else 0
+              for k in ("fused_convlstm_level", "fused_convlstm_level_wgmma",
+                        "fused_convlstm_level_tf32x3")}
+        k1 = 4 * steps - sum(k4.values())
+        k3 = (2 if split else 1) * steps
+        if (d["ccl"]["kernel"] != k3 or d["ccl_grid"]["kernel"] != 0
+                or d["lstm_gate_update"]["kernel"] != k1
+                or any(d[k]["kernel"] != v for k, v in k4.items())):
+            raise AssertionError(f"unexpected kernel launches: {d}, expected K1 {k1}, "
+                                 f"K3 {k3}, K4 {k4}")
+        log(f"flagship 512^2 {dtype} fused_cell={fused} instance_split={split}: {n + 2} "
+            f"frames (2 warm-up) in {secs:.3f} s = {(n + 2) / secs:.3f} frames/s "
+            f"incl. first-frame set-up [{card}]; launches "
+            f"{ {k: v['kernel'] for k, v in d.items()} }")
+        del model
 
 
 def main() -> int:
@@ -724,6 +883,7 @@ def main() -> int:
 
     # (c) kernels vs plain versions; (f) K2
     kernel_summary = phase_kernels(torch)
+    phase_postprocess(torch)
     phase_fused_vs_unfused(torch, "float32")
     phase_fused_vs_unfused(torch, "bfloat16")
     kernel_summary["lstm_gate_update_bwd"] = phase_k2(torch)
@@ -735,7 +895,7 @@ def main() -> int:
         phase_golden(torch, work)
         phase_flagship(torch, work, smi)
         inference = kernels.counts()
-        for k in ("lstm_gate_update", "ccl", "fused_convlstm_level",
+        for k in ("lstm_gate_update", "ccl", "ccl_grid", "fused_convlstm_level",
                   "fused_convlstm_level_wgmma", "fused_convlstm_level_tf32x3"):
             if inference[k]["kernel"] == 0:
                 raise AssertionError(f"inference path: {k} never launched: {inference}")
@@ -749,18 +909,21 @@ def main() -> int:
             raise AssertionError(f"main paths: {k} launched {v['kernel']} times, "
                                  f"plain version {v['plain']} times")
 
+    # source, and the line of the pl.pallas_call it replaces
     sources = {"lstm_gate_update": ("lstm_unet_tpu_torch/csrc/lstm_gates.cu",
-                                    "lstm_unet_tpu/ops/pallas/lstm_gates.py:77"),
+                                    "lstm_unet_tpu/ops/pallas/lstm_gates.py:82"),
                "lstm_gate_update_bwd": ("lstm_unet_tpu_torch/csrc/lstm_gates.cu",
-                                        "lstm_unet_tpu/ops/pallas/lstm_gates.py:142"),
+                                        "lstm_unet_tpu/ops/pallas/lstm_gates.py:147"),
                "ccl": ("lstm_unet_tpu_torch/csrc/ccl.cu",
-                       "lstm_unet_tpu/ops/pallas/ccl.py:79"),
+                       "lstm_unet_tpu/ops/pallas/ccl.py:94"),
+               "ccl_grid": ("lstm_unet_tpu_torch/csrc/ccl.cu",
+                            "lstm_unet_tpu/ops/pallas/ccl.py:94"),
                "fused_convlstm_level": ("lstm_unet_tpu_torch/csrc/convlstm_cell.cu",
-                                        "lstm_unet_tpu/ops/pallas/convlstm_cell.py:125"),
+                                        "lstm_unet_tpu/ops/pallas/convlstm_cell.py:140"),
                "fused_convlstm_level_wgmma": ("lstm_unet_tpu_torch/csrc/convlstm_wgmma.cu",
-                                              "lstm_unet_tpu/ops/pallas/convlstm_cell.py:125"),
+                                              "lstm_unet_tpu/ops/pallas/convlstm_cell.py:140"),
                "fused_convlstm_level_tf32x3": ("lstm_unet_tpu_torch/csrc/convlstm_wgmma.cu",
-                                               "lstm_unet_tpu/ops/pallas/convlstm_cell.py:125")}
+                                               "lstm_unet_tpu/ops/pallas/convlstm_cell.py:140")}
     log(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": sources[k][0], "replaces": sources[k][1],
          "launches": launched[k]["kernel"], **kernel_summary[k]} for k in sources]}))

@@ -19,7 +19,6 @@ from ..config import InferenceParams, load_recipe
 from ..engine.infer import run_inference
 
 _INT8 = "ROADMAP.md queue 1 item 9 (int8 inference)"
-_SPLIT = "ROADMAP.md queue 1 item 10 (instance splitting)"
 _SURFACE = "ROADMAP.md queue 1 item 11 (TTA, reset_on_jump)"
 _MESH = "ROADMAP.md queue 1 item 12 (parallelism)"
 _TPU_ONLY = "ROADMAP.md 'Do not port' (a TPU lowering or layout knob)"
@@ -28,15 +27,11 @@ _TPU_ONLY = "ROADMAP.md 'Do not port' (a TPU lowering or layout knob)"
 _UNPORTED_FLAGS = {
     "calibrate": _INT8, "int8_keep_float": _INT8,
     "tta": _SURFACE, "tta_mode": _SURFACE, "reset_on_jump": _SURFACE,
-    "instance_split": _SPLIT, "split_method": _SPLIT, "split_hi_thresh": _SPLIT,
-    "split_erode": _SPLIT, "split_window": _SPLIT, "split_min_dist": _SPLIT,
-    "split_slack": _SPLIT, "split_rel": _SPLIT, "split_rel_window": _SPLIT,
-    "split_min_size": _SPLIT,
     "conv_method": _TPU_ONLY, "entry_layouts": _TPU_ONLY,
 }
 # recipe key -> (value that leaves the feature off, roadmap item)
 _UNPORTED_RECIPE = {
-    "instance_split": (False, _SPLIT), "tta": (False, _SURFACE),
+    "tta": (False, _SURFACE),
     "reset_on_jump": (0.0, _SURFACE), "int8_keep_float": ("", _INT8),
     "conv_method": ("conv", _TPU_ONLY), "entry_layouts": (False, _TPU_ONLY),
     "mesh_shape": ({}, _MESH),
@@ -79,18 +74,21 @@ def build_parser() -> argparse.ArgumentParser:
                     help="knob recipe JSON; explicit flags win over its keys")
     ap.add_argument("--ckpt_step", type=int,
                     help="saved step of a training run's dir (0 = latest)")
-    # not ported yet: accepted, then rejected by name in main()
-    ap.add_argument("--conv_method", type=str, choices=["conv", "dots", "auto"])
-    ap.add_argument("--entry_layouts", action="store_true", default=None)
-    ap.add_argument("--tta", action="store_true", default=None)
-    ap.add_argument("--tta_mode", type=str, choices=("flip", "d4"))
-    ap.add_argument("--instance_split", action="store_true", default=None)
-    ap.add_argument("--split_method", type=str, choices=("dist", "prob"))
+    ap.add_argument("--instance_split", action="store_true", default=None,
+                    help="split merged components of touching cells")
+    ap.add_argument("--split_method", type=str, choices=("dist", "prob"),
+                    help="'dist': distance-ridge markers; 'prob': markers from "
+                         "the model's own p(cell) dips")
     for name, typ in (("split_hi_thresh", float), ("split_erode", int),
                       ("split_window", int), ("split_min_dist", int),
                       ("split_slack", int), ("split_rel", float),
                       ("split_rel_window", int), ("split_min_size", int)):
         ap.add_argument(f"--{name}", type=typ)
+    # not ported yet: accepted, then rejected by name in main()
+    ap.add_argument("--conv_method", type=str, choices=["conv", "dots", "auto"])
+    ap.add_argument("--entry_layouts", action="store_true", default=None)
+    ap.add_argument("--tta", action="store_true", default=None)
+    ap.add_argument("--tta_mode", type=str, choices=("flip", "d4"))
     ap.add_argument("--int8_keep_float", type=str)
     ap.add_argument("--reset_on_jump", type=float)
     ap.add_argument("--calibrate", type=int, metavar="N")

@@ -214,6 +214,16 @@ class InferenceParams:
     boundary_growth: str = "marker"  # 'marker' | 'dilate' | 'none'
     grow_iters: int = 0            # 0 = to exhaustion ('marker'), 3 ('dilate')
     size_filter: str = "pre"       # 'pre' | 'post' boundary growth
+    instance_split: bool = False   # split merged components of touching cells
+    split_method: str = "dist"     # 'dist' (distance ridge) | 'prob' (p(cell) dips)
+    split_window: int = 16         # dist: regional-max window radius (px)
+    split_min_dist: int = 4        # dist: least distance to background of a marker
+    split_slack: int = 1           # dist: tolerance below the window max (px)
+    split_rel: float = 0.65        # dist: marker reaches rel * the wider window's max
+    split_rel_window: int = 48     # dist: the wider window's radius (px)
+    split_min_size: int = 0        # only components of at least this size are split
+    split_hi_thresh: float = 0.8   # prob: marker threshold on p(cell)
+    split_erode: int = 1           # prob: erosion rounds of the markers
     pre_sequence_frames: int = 4   # warm-up: first frames fed reversed
     save_intermediate: bool = False
     save_intermediate_path: str = ""

@@ -114,7 +114,17 @@ class StreamingInferenceEngine:
                               max_cell_size=ip.max_cell_size,
                               size_filter=ip.size_filter, fov=ip.FOV,
                               boundary_growth=ip.boundary_growth,
-                              grow_iters=ip.grow_iters)
+                              grow_iters=ip.grow_iters,
+                              instance_split=ip.instance_split,
+                              split_method=ip.split_method,
+                              split_window=ip.split_window,
+                              split_min_dist=ip.split_min_dist,
+                              split_slack=ip.split_slack,
+                              split_rel=ip.split_rel,
+                              split_rel_window=ip.split_rel_window,
+                              split_min_size=ip.split_min_size,
+                              split_hi_thresh=ip.split_hi_thresh,
+                              split_erode=ip.split_erode)
             for p in probs])
         return labels, (probs if ip.save_intermediate else None)
 

@@ -123,6 +123,46 @@ def dense_components_mask(height: int, width: int, seed: int = 0) -> np.ndarray:
     return mask
 
 
+def cell_like_probs(height: int = 512, width: int = 512, num_cells: int = 300,
+                    seed: int = 0, radius: Tuple[float, float] = (6.0, 12.0),
+                    touch_frac: float = 0.4) -> Tuple[np.ndarray, int]:
+    """3-class probabilities ``[H, W, 3]`` float32 (background, cell,
+    boundary) as a trained model gives them on a dense field of cells, made
+    without a model: elliptical cells with a confident core
+    (p(cell) = 0.97 exp(-d/2) for the normalised squared radius d <= 0.7) and
+    a boundary rim (0.7 < d <= 1). A share ``touch_frac`` of the cells is
+    placed against an earlier one, 0.6-0.8 of the summed radii away, so the
+    two cores merge into one component with a neck and a dip of p(cell)
+    along the line between them: what instance splitting is for. Returns
+    ``(probs, num_cells)``. (The port's own helper: the reference has no
+    counterpart.)"""
+    rng = np.random.default_rng(seed)
+    cy = rng.uniform(0.04 * height, 0.96 * height, num_cells)
+    cx = rng.uniform(0.04 * width, 0.96 * width, num_cells)
+    ry = rng.uniform(*radius, num_cells)
+    rx = rng.uniform(*radius, num_cells)
+    n_touch = min(int(round(num_cells * touch_frac)), num_cells - 1)
+    for c in range(num_cells - n_touch, num_cells):
+        j = int(rng.integers(0, num_cells - n_touch))
+        ang = rng.uniform(0.0, 2.0 * np.pi)
+        gap = rng.uniform(0.6, 0.8)
+        cy[c] = np.clip(cy[j] + np.sin(ang) * gap * (ry[j] + ry[c]), 0, height - 1)
+        cx[c] = np.clip(cx[j] + np.cos(ang) * gap * (rx[j] + rx[c]), 0, width - 1)
+    d = np.full((height, width), np.inf)
+    for c in range(num_cells):  # each pixel keeps its nearest cell's d
+        y0, y1 = max(int(cy[c] - ry[c]) - 1, 0), min(int(cy[c] + ry[c]) + 2, height)
+        x0, x1 = max(int(cx[c] - rx[c]) - 1, 0), min(int(cx[c] + rx[c]) + 2, width)
+        yy, xx = np.mgrid[y0:y1, x0:x1]
+        dc = ((yy - cy[c]) / ry[c]) ** 2 + ((xx - cx[c]) / rx[c]) ** 2
+        d[y0:y1, x0:x1] = np.minimum(d[y0:y1, x0:x1], dc)
+    core, rim = d <= 0.7, (d > 0.7) & (d <= 1.0)
+    p_cell = np.where(core, 0.97 * np.exp(-0.5 * np.where(core, d, 0.0)),
+                      np.where(rim, 0.1, 0.01))
+    p_edge = np.where(core, 0.02, np.where(rim, 0.8, 0.01))
+    probs = np.stack([1.0 - p_cell - p_edge, p_cell, p_edge], -1)
+    return probs.astype(np.float32), num_cells
+
+
 def write_ctc_dataset(root: str, dataset: str = "Synth-N2DH-SIM", seq: str = "01",
                       annotate_every: int = 1, **kwargs) -> Tuple[str, str]:
     """Write a synthetic sequence in CTC layout; returns (seq_dir, seg_dir).

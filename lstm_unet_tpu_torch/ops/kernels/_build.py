@@ -50,7 +50,9 @@ _SIGNATURES = {
     "lut_convlstm_level_tf32x3": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                    _I, _P], _I),
     "lut_convlstm_level_tf32x3_smem": ([_I], _LL),
-    "lut_ccl": ([_P, _P, _P, _I, _I, _P], _I),
+    "lut_ccl_cluster": ([_P, _P, _I, _I, _P], _I),
+    "lut_ccl_cluster_smem": ([_I, _I], _LL),
+    "lut_ccl_grid": ([_P, _P, _I, _I, _P], _I),
     "lut_error_string": ([_I], ctypes.c_char_p),
 }
 

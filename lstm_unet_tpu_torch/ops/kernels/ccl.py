@@ -8,8 +8,18 @@ plus one — not compact (``ops/ccl.py::relabel_compact`` numbers them).
 
 The plain version propagates the 3x3 minimum to a fixed point, four sweeps
 per convergence check, bounded by H*W sweeps, as the reference does. The
-kernel (``csrc/ccl.cu``) is a union-find whose roots are component minima,
-so it reaches the same labels with no iteration bound at all.
+kernel (``csrc/ccl.cu``) is a union-find over runs of set pixels whose roots
+are component minima, so it reaches the same labels with no iteration bound,
+in one launch. :func:`route` picks one of two kernels by shape, each with its
+own launch count:
+
+- ``"cluster"`` (:data:`COUNT`): frames whose int32 label grid fits the
+  shared memory of a thread-block cluster of 8 (:func:`cluster_smem_bytes`;
+  512^2 is 8 strips of 64 rows, 128 KB each). The forest never leaves shared
+  memory; seams are joined through distributed shared memory. No scratch.
+- ``"grid"`` (:data:`GRID_COUNT`): every other shape, one cooperative launch
+  with the forest in the label grid itself and the mask's bit words as scratch
+  behind it (one allocation).
 """
 
 from __future__ import annotations
@@ -18,7 +28,11 @@ import torch
 
 from . import _build
 
-COUNT = _build.LaunchCount()
+COUNT = _build.LaunchCount()       # the cluster route
+GRID_COUNT = _build.LaunchCount()  # the grid route
+
+CLUSTER_BLOCKS = 8    # the portable cluster size
+SMEM_LIMIT = 232_448  # bytes of shared memory one Hopper block may use
 
 INT_MAX = torch.iinfo(torch.int32).max
 
@@ -42,11 +56,28 @@ def _neighbor_min(lbl: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def cluster_smem_bytes(h: int, w: int) -> int:
+    """Shared memory one block of the cluster route needs: its strip of
+    ``ceil(h / 8)`` rows of int32 parents (in whole groups of 32), the bit
+    words of the strip and of the row above it, and the strip's root flags."""
+    rows, words = -(-h // CLUSTER_BLOCKS), -(-w // 32)
+    return 4 * (-(-rows * w // 32) * 32 + (rows + 1) * words + rows * words)
+
+
+def route(h: int, w: int) -> str:
+    """The K3 kernel that takes an ``h`` x ``w`` mask: ``"cluster"`` or
+    ``"grid"``."""
+    return "cluster" if cluster_smem_bytes(h, w) <= SMEM_LIMIT else "grid"
+
+
+_COUNTS = {"cluster": COUNT, "grid": GRID_COUNT}
+
+
 def connected_components_plain(mask: torch.Tensor, max_iters: int = 0
                                ) -> torch.Tensor:
     """Plain PyTorch version: synchronous min-label propagation."""
-    COUNT.plain += 1
     h, w = mask.shape
+    _COUNTS[route(h, w)].plain += 1
     mask = mask.bool()
     idx = torch.arange(1, h * w + 1, dtype=torch.int32,
                        device=mask.device).reshape(h, w)
@@ -66,15 +97,26 @@ def connected_components_plain(mask: torch.Tensor, max_iters: int = 0
 def connected_components(mask: torch.Tensor) -> torch.Tensor:
     """Labels of a bool (or uint8 0/1) mask ``[H, W]``; see the module doc.
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel (any
-    other device raises). The kernel needs a contiguous mask.
+    CPU tensors take the plain version; CUDA tensors launch the kernel of
+    their :func:`route` (any other device raises, and so does a refused
+    launch). The kernel needs a contiguous mask.
     """
     if mask.dim() != 2:
         raise ValueError(f"mask must be [H, W], got {tuple(mask.shape)}")
     if mask.device.type == "cpu":
         return connected_components_plain(mask)
+    return launch(mask, route(*mask.shape))
+
+
+def launch(mask: torch.Tensor, which: str) -> torch.Tensor:
+    """Labels of a CUDA mask by the kernel of route ``which``. The grid
+    route takes every shape; the cluster route only those that fit it."""
+    if which not in _COUNTS:
+        raise ValueError(f"unknown K3 route {which!r}")
     if mask.device.type != "cuda":
         raise ValueError(f"no CCL kernel for device {mask.device}")
+    if mask.dim() != 2:
+        raise ValueError(f"mask must be [H, W], got {tuple(mask.shape)}")
     if mask.dtype not in (torch.bool, torch.uint8):
         raise TypeError(f"CCL kernel takes a bool or uint8 mask, got {mask.dtype}")
     if not mask.is_contiguous():
@@ -82,14 +124,24 @@ def connected_components(mask: torch.Tensor) -> torch.Tensor:
     h, w = mask.shape
     if h * w >= 2 ** 31 - 1:
         raise ValueError(f"mask {h}x{w} too large for int32 labels")
-    labels = torch.empty((h, w), dtype=torch.int32, device=mask.device)
+    if which == "cluster" and route(h, w) != "cluster":
+        raise ValueError(f"mask {h}x{w} does not fit the cluster route's shared memory")
     if h * w == 0:
-        return labels
-    parent = torch.empty((h * w,), dtype=torch.int32, device=mask.device)
-    lib = _build.library()
-    with torch.cuda.device(mask.device):
-        err = lib.lut_ccl(mask.data_ptr(), parent.data_ptr(), labels.data_ptr(),
-                          h, w, _build.stream_handle(mask))
-    _build.check(err, "lut_ccl")
-    COUNT.kernel += 1
+        return torch.empty((h, w), dtype=torch.int32, device=mask.device)
+    if which == "cluster":
+        labels = torch.empty((h, w), dtype=torch.int32, device=mask.device)
+        entry, out = "lut_ccl_cluster", labels
+    else:  # the bit words follow the labels in one buffer
+        out = torch.empty((h * w + h * -(-w // 32),), dtype=torch.int32,
+                          device=mask.device)
+        entry, labels = "lut_ccl_grid", out[:h * w].view(h, w)
+    fn = getattr(_build.library(), entry)
+    args = (mask.data_ptr(), out.data_ptr(), h, w, _build.stream_handle(mask))
+    if mask.device.index == torch.cuda.current_device():
+        err = fn(*args)
+    else:
+        with torch.cuda.device(mask.device):
+            err = fn(*args)
+    _build.check(err, entry)
+    _COUNTS[which].kernel += 1
     return labels

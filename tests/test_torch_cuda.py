@@ -13,7 +13,8 @@ K4's tensor-core routes (bf16, and f32 as 3xTF32: f32 sums in another
 order than cuDNN's) 2e-5 with f32 state and 1e-5 plus one bf16 ulp with bf16 state, up
 to K*K*F = 3200 summed products (flagship level 0), scaled linearly with
 the summation length above that (a sum's worst-case rounding error grows
-with its length: x4 at level 3's 12800); K3 equal; the tiny model's grads
+with its length: x4 at level 3's 12800); K3 (both routes) and the postprocess
+with the instance split equal; the tiny model's grads
 with the kernels against the same model with the plain versions 1e-5
 relative (deterministic cuDNN, same formulas).
 """
@@ -309,19 +310,76 @@ def test_fused_level_rejects_unsupported_shapes(cuda):
 
 def _masks():
     r = np.random.default_rng(4)
+    isolated = np.zeros((64, 96), bool)
+    isolated[::2, ::2] = True
+    cell = synthetic.cell_like_probs(256, 256, num_cells=80, seed=2)[0][..., 1] > 0.5
     return [r.random((512, 512)) < 0.5, r.random((333, 517)) < 0.6,
             r.random((1, 100)) < 0.5, r.random((100, 1)) < 0.5,
             np.zeros((40, 40), bool), np.ones((70, 65), bool),
-            synthetic.spiral_mask(96), synthetic.dense_components_mask(256, 256)]
+            synthetic.spiral_mask(96), synthetic.dense_components_mask(256, 256),
+            isolated, r.random((512, 500)) < 0.5, r.random((5, 7)) < 0.5, cell,
+            np.fliplr(np.eye(64, dtype=bool)).copy()]
 
 
-@pytest.mark.parametrize("case", range(8))
-def test_ccl_equals_plain(cuda, case):
+@pytest.mark.parametrize("which", ["cluster", "grid"])
+@pytest.mark.parametrize("case", range(13))
+def test_ccl_equals_plain(cuda, case, which):
+    """Both K3 routes, each one launch, bit-identical to the plain version."""
     mask = torch.from_numpy(_masks()[case]).to(cuda)
     reset_counts()
-    got = ccl.connected_components(mask)
-    assert counts()["ccl"] == {"kernel": 1, "plain": 0}
+    got = ccl.launch(mask, which)
+    ran = counts()
+    assert ran["ccl" if which == "cluster" else "ccl_grid"] == {"kernel": 1, "plain": 0}
+    assert ran["ccl_grid" if which == "cluster" else "ccl"] == {"kernel": 0, "plain": 0}
     assert torch.equal(got, ccl.connected_components_plain(mask))
+
+
+def test_ccl_routes_by_shape(cuda):
+    """The wrapper takes the cluster route where the frame fits a cluster's
+    shared memory (the kernel's own formula) and the grid route elsewhere; a
+    mask that is no aligned whole words takes the byte-wise read."""
+    from lstm_unet_tpu_torch.ops.kernels import _build
+
+    lib = _build.library()
+    for hw in ((512, 512), (333, 517), (1, 7), (640, 640), (1024, 1024)):
+        assert lib.lut_ccl_cluster_smem(*hw) == ccl.cluster_smem_bytes(*hw)
+    r = np.random.default_rng(5)
+    for (h, w), name in (((512, 512), "ccl"), ((640, 640), "ccl"), ((672, 672), "ccl_grid"),
+                         ((1024, 1024), "ccl_grid")):
+        mask = torch.from_numpy(r.random((h, w)) < 0.5).to(cuda)
+        reset_counts()
+        got = ccl.connected_components(mask)
+        assert counts()[name] == {"kernel": 1, "plain": 0}
+        assert torch.equal(got, ccl.connected_components_plain(mask))
+    with pytest.raises(ValueError, match="cluster"):
+        ccl.launch(torch.zeros(1024, 1024, dtype=torch.bool, device=cuda), "cluster")
+    buf = torch.from_numpy(r.random(1 + 64 * 64) < 0.5).to(cuda)
+    view = buf[1:].view(64, 64)  # contiguous, off the 16-byte alignment
+    assert torch.equal(ccl.connected_components(view), ccl.connected_components_plain(view))
+    as_bytes = (torch.from_numpy(r.integers(0, 3, (64, 64))).to(cuda) * 100).to(torch.uint8)
+    assert torch.equal(ccl.connected_components(as_bytes),
+                       ccl.connected_components_plain(as_bytes))
+
+
+@pytest.mark.parametrize("kw,k3", [
+    (dict(), 1),
+    (dict(instance_split=True, split_method="dist"), 2),
+    (dict(instance_split=True, split_method="prob"), 2),
+    (dict(instance_split=True, split_method="prob", split_min_size=300, size_filter="post",
+          fov=8), 2),
+])
+def test_postprocess_with_split_on_the_card_equals_cpu(cuda, kw, k3):
+    """postprocess_frame on cell-like probabilities: the card (K3 once, twice
+    with the split, no plain version) and the CPU give equal labels."""
+    from lstm_unet_tpu_torch.ops.postprocess import postprocess_frame
+
+    probs = torch.from_numpy(synthetic.cell_like_probs(256, 320, num_cells=100, seed=4)[0])
+    reset_counts()
+    got = postprocess_frame(probs.to(cuda), **kw)
+    ran = counts()
+    assert ran["ccl"]["kernel"] == k3 and all(v["plain"] == 0 for v in ran.values())
+    want = postprocess_frame(probs, **kw)
+    assert int(want.max()) > 20 and torch.equal(got.cpu(), want)
 
 
 def test_golden_masks_on_the_card(cuda, tmp_path):

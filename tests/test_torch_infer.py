@@ -17,6 +17,8 @@ import torch
 
 import jax.numpy as jnp
 
+from lstm_unet_tpu.config import CTCInferenceParams
+from lstm_unet_tpu.engine.infer import run_inference as jax_run_inference
 from lstm_unet_tpu.io import preprocess as jax_pre
 from lstm_unet_tpu.io import synthetic as jax_synth
 from lstm_unet_tpu.io.dataset import CTCInferenceReader as JaxReader
@@ -155,6 +157,7 @@ def test_reader_yields_warm_up_frames_reversed_like_reference(tmp_path):
 
 
 def _golden_cli(tmp_path, *extra):
+    os.makedirs(tmp_path, exist_ok=True)
     root = str(tmp_path / "ctc")
     seq_dir, _ = synthetic.write_ctc_dataset(root, **GOLDEN_DATA)
     out = str(tmp_path / "res")
@@ -187,7 +190,6 @@ def test_cli_digit_4_and_intermediate_probs(tmp_path):
 
 
 @pytest.mark.parametrize("flag", [["--dtype", "int8"], ["--tta"], ["--tta_mode", "d4"],
-                                  ["--instance_split"], ["--split_rel", "0.5"],
                                   ["--reset_on_jump", "0.2"], ["--conv_method", "conv"],
                                   ["--entry_layouts"], ["--calibrate", "2"]])
 def test_cli_rejects_unported_flags(tmp_path, flag):
@@ -197,15 +199,80 @@ def test_cli_rejects_unported_flags(tmp_path, flag):
 
 
 def test_cli_recipe(tmp_path):
-    with pytest.raises(NotImplementedError, match="instance_split"):
+    # the shipped recipe turns the 'prob' instance split on
+    n, _ = _golden_cli(tmp_path / "shipped", "--recipe",
+                       os.path.join(HERE, "..", "configs", "recommended.json"))
+    assert n == 8
+    unported = tmp_path / "u.json"
+    unported.write_text(json.dumps({"tta": True}))
+    with pytest.raises(NotImplementedError, match="tta"):
         cli_main(["--model_path", "m", "--sequence_path", "s", "--output_path",
-                  str(tmp_path), "--device", "cpu", "--recipe",
-                  os.path.join(HERE, "..", "configs", "recommended.json")])
+                  str(tmp_path), "--device", "cpu", "--recipe", str(unported)])
     recipe = tmp_path / "r.json"
     recipe.write_text(json.dumps({"winner": {"fov": 3, "cell_thresh": 0.6,
                                              "class_weights": [1, 2, 3]}}))
     n, out = _golden_cli(tmp_path, "--recipe", str(recipe), "--cell_thresh", "0.5")
     assert n == 8
+
+
+# touching cells (the synthetic overlap knobs), which the golden model merges
+SPLIT_DATA = dict(num_frames=4, height=64, width=64, num_cells=6, seed=1, overlap_frac=0.5,
+                  overlap_gap=(0.6, 0.9), overlap_match_intensity=True)
+SPLIT_CASES = {
+    "dist": dict(split_method="dist", split_window=3, split_min_dist=2, split_rel=0.0),
+    "prob": dict(split_method="prob", split_hi_thresh=0.9, split_erode=0),
+    "prob_defaults": dict(split_method="prob"),
+}
+
+
+def _split_flags(kw):
+    return [a for k, v in kw.items() for a in (f"--{k}", str(v))]
+
+
+@pytest.mark.parametrize("case", sorted(SPLIT_CASES))
+def test_engine_with_instance_split_equals_jax_engine(tmp_path, case):
+    """The streaming engine with the split on, through the CLI's flags,
+    against the JAX engine on the same weights and frames: equal masks. The
+    sequence has touching cells, and the split changes its masks."""
+    kw = SPLIT_CASES[case]
+    seq_dir, _ = synthetic.write_ctc_dataset(str(tmp_path / "ctc"), **SPLIT_DATA)
+    common = dict(sequence_path=seq_dir, pre_sequence_frames=2, min_cell_size=5,
+                  dtype="float32")
+    want_dir = str(tmp_path / "jax")
+    n = jax_run_inference(CTCInferenceParams(
+        model_path=os.path.join(GOLDEN, "ckpt"), output_path=want_dir, instance_split=True,
+        **common, **kw))
+    outs = {}
+    for name, flags in (("split", ["--instance_split", *_split_flags(kw)]), ("plain", [])):
+        outs[name] = str(tmp_path / name)
+        assert n == cli_main(["--model_path", os.path.join(GOLDEN, "torch_ckpt"),
+                              "--sequence_path", seq_dir, "--output_path", outs[name],
+                              "--device", "cpu", "--pre_sequence_frames", "2",
+                              "--min_cell_size", "5", "--dtype", "float32", *flags])
+    changed = 0
+    for p in sorted(glob.glob(os.path.join(want_dir, "mask*.tif"))):
+        got = tiff.read_tiff(os.path.join(outs["split"], os.path.basename(p)))
+        np.testing.assert_array_equal(got, jax_read_tiff(p), err_msg=os.path.basename(p))
+        changed += int((got != tiff.read_tiff(
+            os.path.join(outs["plain"], os.path.basename(p)))).sum())
+    assert n == 4 and changed > 0
+
+
+def test_split_flags_without_instance_split_change_nothing(tmp_path):
+    n, out = _golden_cli(tmp_path, "--split_method", "prob", "--split_hi_thresh", "0.6",
+                         "--split_window", "2")
+    assert n == 8
+    for g in sorted(glob.glob(os.path.join(GOLDEN, "masks", "mask*.tif"))):
+        np.testing.assert_array_equal(
+            tiff.read_tiff(os.path.join(out, os.path.basename(g))), tiff.read_tiff(g))
+
+
+def test_inference_params_split_defaults_are_the_references():
+    ours, ref = InferenceParams(), CTCInferenceParams()
+    for name in ("instance_split", "split_method", "split_window", "split_min_dist",
+                 "split_slack", "split_rel", "split_rel_window", "split_min_size",
+                 "split_hi_thresh", "split_erode"):
+        assert getattr(ours, name) == getattr(ref, name), name
 
 
 def test_cuda_request_without_gpu_raises():

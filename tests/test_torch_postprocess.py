@@ -68,8 +68,3 @@ def test_more_than_uint16_instances_poisons_the_map():
     assert bool((got == INT_MAX).all())
     np.testing.assert_array_equal(
         got.numpy(), np.asarray(jax_postprocess(jnp.asarray(probs), **kw)))
-
-
-def test_instance_split_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        postprocess_frame(torch.zeros(8, 8, 3), instance_split=True)
