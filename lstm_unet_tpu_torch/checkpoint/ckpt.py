@@ -13,9 +13,10 @@ one dir per saved step::
 so ``params.npz`` is the same file a port model dir holds
 (``checkpoint/convert.py``) and ``inference2d --model_path`` reads a step dir,
 a save dir (latest step) or the run dir above it. A step is written to a
-temporary dir and renamed into place; ``max_to_keep`` prunes the oldest.
-Saves are synchronous: the trainer updates its tensors in place, so the
-host copy has to be complete before the next step.
+temporary dir and renamed into place, and a re-save of a step replaces its
+dir only once the new one is complete; ``max_to_keep`` prunes the oldest. The trainer's interval saves may run on a
+thread (``async_checkpoint``), from a device-side copy of its tensors
+(``engine/train.py``).
 """
 
 from __future__ import annotations
@@ -71,14 +72,19 @@ class CheckpointManager:
 
     def save(self, step: int, params: Dict[str, np.ndarray],
              opt_state: Dict[str, np.ndarray]) -> str:
+        """Write step ``step``; an existing dir of that step is replaced
+        once the new one is complete."""
         final = os.path.join(self.directory, str(step))
         tmp = f"{final}.tmp{os.getpid()}"
         shutil.rmtree(tmp, ignore_errors=True)
         os.makedirs(tmp)
         np.savez(os.path.join(tmp, PARAMS_FILE), **params)
         np.savez(os.path.join(tmp, OPT_STATE_FILE), **opt_state)
-        shutil.rmtree(final, ignore_errors=True)  # a re-save of the same step
+        old = f"{final}.old{os.getpid()}"
+        if os.path.exists(final):  # a re-save of the same step
+            os.replace(final, old)
         os.replace(tmp, final)
+        shutil.rmtree(old, ignore_errors=True)
         if self.max_to_keep and self.max_to_keep > 0:
             for old in self.all_steps()[:-self.max_to_keep]:
                 shutil.rmtree(os.path.join(self.directory, str(old)))

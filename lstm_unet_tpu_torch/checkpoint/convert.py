@@ -165,7 +165,13 @@ def load_model(model_path: str, device="cpu", dtype: Optional[str] = None,
     """Build the model of a port model dir on ``device``, weights cast to the
     compute dtype (``dtype`` etc. override ``model_params.json``). The dir
     may be an experiment save dir or run dir of the port's trainer: then
-    ``step`` (default: the latest) picks the saved step."""
+    ``step`` (default: the latest) picks the saved step.
+
+    ``dtype='int8'`` sets ``dtype='bfloat16', quant='int8'``, as the
+    reference does, and keeps the weights as restored (f32): they are
+    quantized from those, not from a bf16 copy, by
+    ``models/ulstm_unet.py::quantize_model_int8``, which the streaming
+    engine runs with the calibrated scales when it is built."""
     model_path = resolve_model_dir(model_path)
     arch_path = os.path.join(model_path, MODEL_PARAMS_FILE)
     params_path = resolve_params_path(model_path, step)
@@ -178,8 +184,8 @@ def load_model(model_path: str, device="cpu", dtype: Optional[str] = None,
     with open(arch_path) as f:
         cfg_kw = dict(json.load(f)["model_config"])
     if dtype == "int8":
-        raise NotImplementedError(
-            "dtype int8 is not ported yet (ROADMAP.md queue 1 item 9)")
+        cfg_kw.update(dtype="bfloat16", quant="int8")
+        dtype = None
     for k, v in (("dtype", dtype), ("state_dtype", state_dtype),
                  ("fused_cell", fused_cell)):
         if v is not None:
@@ -190,4 +196,6 @@ def load_model(model_path: str, device="cpu", dtype: Optional[str] = None,
     with torch.device("meta"):
         model = ULSTMnet2D(cfg)
     model.load_state_dict(sd, strict=True, assign=True)
+    if cfg.quant == "int8":
+        return model.to(device)
     return cast_params_for_inference(model.to(device), cfg.compute_dtype)

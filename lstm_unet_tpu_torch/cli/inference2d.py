@@ -1,9 +1,13 @@
 """Inference CLI of the PyTorch port.
 
 Same flags as ``python -m lstm_unet_tpu.cli.inference2d``, plus ``--device``
-(default ``cuda``; ``cpu`` runs the plain PyTorch path). Flags of features
-not ported yet are accepted by the parser and raise ``NotImplementedError``
-naming where ``ROADMAP.md`` tracks them.
+(default ``cuda``; ``cpu`` runs the plain PyTorch path). ``--dtype int8``
+runs the convs as int8 (dynamic scales, or the calibrated ones of
+``act_scales.json`` in the model dir); ``--calibrate N`` first calibrates
+them on the sequence's first N frames, on the same device;
+``--int8_keep_float`` keeps sites float. Flags of features not ported yet are
+accepted by the parser and raise ``NotImplementedError`` naming where
+``ROADMAP.md`` tracks them.
 
 Usage:
     python -m lstm_unet_tpu_torch.cli.inference2d --model_path MODEL_DIR \
@@ -16,25 +20,22 @@ import argparse
 import dataclasses
 
 from ..config import InferenceParams, load_recipe
-from ..engine.infer import run_inference
+from ..engine.infer import calibrate_model_dir, run_inference
 
-_INT8 = "ROADMAP.md queue 1 item 9 (int8 inference)"
 _SURFACE = "ROADMAP.md queue 1 item 11 (TTA, reset_on_jump)"
 _MESH = "ROADMAP.md queue 1 item 12 (parallelism)"
 _TPU_ONLY = "ROADMAP.md 'Do not port' (a TPU lowering or layout knob)"
 
 # flag -> where the roadmap tracks it; given on the command line, each raises
 _UNPORTED_FLAGS = {
-    "calibrate": _INT8, "int8_keep_float": _INT8,
     "tta": _SURFACE, "tta_mode": _SURFACE, "reset_on_jump": _SURFACE,
     "conv_method": _TPU_ONLY, "entry_layouts": _TPU_ONLY,
 }
 # recipe key -> (value that leaves the feature off, roadmap item)
 _UNPORTED_RECIPE = {
     "tta": (False, _SURFACE),
-    "reset_on_jump": (0.0, _SURFACE), "int8_keep_float": ("", _INT8),
+    "reset_on_jump": (0.0, _SURFACE),
     "conv_method": ("conv", _TPU_ONLY), "entry_layouts": (False, _TPU_ONLY),
-    "mesh_shape": ({}, _MESH),
 }
 
 
@@ -89,9 +90,14 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--entry_layouts", action="store_true", default=None)
     ap.add_argument("--tta", action="store_true", default=None)
     ap.add_argument("--tta_mode", type=str, choices=("flip", "d4"))
-    ap.add_argument("--int8_keep_float", type=str)
     ap.add_argument("--reset_on_jump", type=float)
-    ap.add_argument("--calibrate", type=int, metavar="N")
+    ap.add_argument("--int8_keep_float", type=str,
+                    help="comma-separated site prefixes kept float in an int8 "
+                         "run (e.g. 'encoder/0,head')")
+    ap.add_argument("--calibrate", type=int, metavar="N",
+                    help="first calibrate the int8 activation scales on the "
+                         "sequence's first N frames (writes act_scales.json into "
+                         "--model_path; later int8 runs reuse it)")
     return ap
 
 
@@ -99,11 +105,10 @@ def main(argv=None) -> int:
     args = vars(build_parser().parse_args(argv))
     device = args.pop("device")
     recipe = args.pop("recipe")
+    calibrate = args.pop("calibrate")
     for flag, where in _UNPORTED_FLAGS.items():
         if args.pop(flag) is not None:
             raise NotImplementedError(f"--{flag} is not ported yet: {where}")
-    if args["dtype"] == "int8":
-        raise NotImplementedError(f"--dtype int8 is not ported yet: {_INT8}")
     params = InferenceParams()
     if recipe:
         rec = load_recipe(recipe)
@@ -111,11 +116,17 @@ def main(argv=None) -> int:
             if rec.get(key, off) != off:
                 raise NotImplementedError(
                     f"recipe key {key}={rec[key]!r} is not ported yet: {where}")
-        if rec.get("dtype") == "int8":
-            raise NotImplementedError(f"recipe dtype int8 is not ported yet: {_INT8}")
+        # a mesh of one data shard is no mesh, as the trainer reads it
+        if dict(rec.get("mesh_shape") or {}) not in ({}, {"data": 1}):
+            raise NotImplementedError(
+                f"recipe key mesh_shape={rec['mesh_shape']!r} is not ported yet: {_MESH}")
         known = {f.name for f in dataclasses.fields(params)}
         params.override(**{k: v for k, v in rec.items() if k in known})
     params.override(**args)
+    if calibrate:
+        calibrate_model_dir(params.model_path, params.sequence_path, n_frames=calibrate,
+                            filename_format=params.filename_format,
+                            step=params.ckpt_step or None, device=device)
     return run_inference(params, device=device)
 
 

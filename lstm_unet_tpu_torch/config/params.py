@@ -12,6 +12,7 @@ name. Only the knobs of the streaming-inference slice live in
 from __future__ import annotations
 
 import dataclasses
+import glob
 import json
 import os
 import time
@@ -102,6 +103,18 @@ class ParamsBase:
             os.makedirs(self.experiment_log_dir, exist_ok=True)
             os.makedirs(self.experiment_save_dir, exist_ok=True)
 
+    def resolve_continue_dirs(self) -> bool:
+        """Point the log and save dirs at the latest existing run of this
+        ``experiment_name`` (one with a ``ckpt`` dir; the timestamps sort in
+        time order); False when there is none (then :meth:`resolve_dirs`)."""
+        pattern = os.path.join(self.root_save_dir, f"{self.experiment_name}_*")
+        runs = sorted(d for d in glob.glob(pattern) if os.path.isdir(os.path.join(d, "ckpt")))
+        if not runs:
+            return False
+        self.experiment_log_dir = os.path.join(runs[-1], "logs")
+        self.experiment_save_dir = os.path.join(runs[-1], "ckpt")
+        return True
+
     def to_json(self) -> str:
         def enc(o):
             if isinstance(o, NetKernelParams):
@@ -113,6 +126,26 @@ class ParamsBase:
     def save_json(self, path: str) -> None:
         with open(path, "w") as f:
             f.write(self.to_json())
+
+    @classmethod
+    def from_json(cls, s: str):
+        return cls.from_dict(json.loads(s))
+
+    @classmethod
+    def load_json(cls, path: str):
+        """Read a params file :meth:`save_json` wrote (``train_params.json``)."""
+        with open(path) as f:
+            return cls.from_json(f.read())
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]):
+        """The knobs of ``d`` this class has (others are dropped), with
+        ``net_kernel_params`` rebuilt; other values as JSON gives them."""
+        names = {f.name for f in dataclasses.fields(cls)}
+        kwargs = {k: (NetKernelParams.from_dict(v)
+                      if k == "net_kernel_params" and isinstance(v, dict) else v)
+                  for k, v in d.items() if k in names}
+        return cls(**kwargs)
 
     def override(self, **kwargs):
         """Set each knob that is not None (argparse leaves unset flags None)."""
@@ -227,7 +260,8 @@ class InferenceParams:
     pre_sequence_frames: int = 4   # warm-up: first frames fed reversed
     save_intermediate: bool = False
     save_intermediate_path: str = ""
-    dtype: str = "bfloat16"        # 'float32' | 'bfloat16'
+    dtype: str = "bfloat16"        # 'float32' | 'bfloat16' | 'int8'
+    int8_keep_float: str = ""      # int8: comma-separated site prefixes kept float
     state_dtype: str = "auto"      # LSTM carry dtype; 'auto' follows dtype
     fused_cell: bool = False       # whole-level fused ConvLSTM kernel (K4)
     digit_4: bool = False          # mask%04d.tif instead of mask%03d.tif

@@ -14,24 +14,35 @@ frame t has been dispatched. The state is rebound to the step's output every
 frame and the old tensors are released, so the caching allocator hands their
 memory to the next step: memory stays flat over any sequence length (the
 reference donates the state buffers for the same effect).
+
+``dtype='int8'``: the engine quantizes the model when it is built
+(``models/ulstm_unet.py::quantize_model_int8``, from the weights as
+restored), with the static activation scales of ``act_scales.json`` in the model dir when
+its provenance stamp matches the checkpoint (:func:`load_act_scales`), else
+dynamic per-call scales. :func:`calibrate_model_dir` writes that file.
 """
 
 from __future__ import annotations
 
+import hashlib
+import json
 import os
 import queue
 import threading
-from typing import Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from ..checkpoint.ckpt import MODEL_PARAMS_FILE, resolve_model_dir
 from ..checkpoint.convert import load_model
 from ..config import InferenceParams
 from ..io.dataset import CTCInferenceReader
-from ..io.preprocess import normalize_frame
+from ..io.preprocess import normalize_frame, pad_to_multiple, percentile_normalize_np
 from ..io.tiff import write_tiff
 from ..models import ULSTMnet2D
+from ..models.ulstm_unet import QConv, quantize_model_int8
+from ..ops.convlstm import QConvLSTMCell
 from ..ops.postprocess import UINT16_MAX, postprocess_frame
 from ..utils import StallWatchdog, log_print
 
@@ -47,19 +58,148 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+def _no_tf32(device: torch.device) -> None:
+    """cuDNN runs f32 convs in TF32 by default, which keeps ~3 decimal digits
+    and would break every f32 tolerance against the reference; bf16 math does
+    not use TF32 either way."""
+    if device.type == "cuda":
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+
+# ------------------------------------------------------------ int8 scales
+
+ACT_SCALES_FILE = "act_scales.json"
+
+
+def is_quantized(model: ULSTMnet2D) -> bool:
+    """Whether some site of ``model`` is int8 (``quantize_model_int8`` ran)."""
+    return any(isinstance(m, (QConv, QConvLSTMCell)) for m in model.modules())
+
+
+@torch.inference_mode()
+def calibrate_act_scales(model: ULSTMnet2D, frames: List[np.ndarray]) -> Dict[str, float]:
+    """Each conv site's input abs-max over ``frames`` (raw ``[H, W]``,
+    percentile-normalized and reflect-padded on the host as the reference's
+    calibration does), streamed statefully through the float ``model`` (as
+    :func:`load_model` restores it: the checkpoint's own dtype, not
+    quantized) on its device: the static int8 scales that replace the
+    per-call abs-max."""
+    if is_quantized(model):
+        raise ValueError("calibrate the float model, not a quantized one")
+    device = next(iter(model.parameters())).device
+    _no_tf32(device)
+    mult = 2 ** model.cfg.nkp.depth
+    h, w = frames[0].shape
+    state = model.init_state(1, h + (-h) % mult, w + (-w) % mult, device=device)
+    running: Dict[str, torch.Tensor] = {}
+    for f in frames:
+        x, _ = pad_to_multiple(percentile_normalize_np(f), mult)
+        collected: Dict[str, torch.Tensor] = {}
+        state, _ = model.step(state, torch.from_numpy(np.ascontiguousarray(
+            x, dtype=np.float32)).to(device)[None, ..., None], collect_scales=collected)
+        for k, v in collected.items():
+            running[k] = v if k not in running else torch.maximum(running[k], v)
+    return {k: float(v) for k, v in running.items()}
+
+
+def _scales_provenance(model_path: str, step: Optional[int] = None) -> Dict[str, Any]:
+    """What ``act_scales.json`` was calibrated against: the sha256 of the
+    architecture file and the checkpoint step (``step``, else the latest
+    numbered subdir), as the reference stamps it."""
+    prov: Dict[str, Any] = {}
+    arch_path = os.path.join(model_path, MODEL_PARAMS_FILE)
+    if os.path.exists(arch_path):
+        with open(arch_path, "rb") as f:
+            prov["arch_sha256"] = hashlib.sha256(f.read()).hexdigest()
+    if step is not None:
+        prov["ckpt_step"] = step
+        return prov
+    steps = [int(d) for d in os.listdir(model_path)
+             if d.isdigit() and os.path.isdir(os.path.join(model_path, d))]
+    if steps:
+        prov["ckpt_step"] = max(steps)
+    return prov
+
+
+def save_act_scales(model_path: str, scales: Dict[str, float],
+                    step: Optional[int] = None) -> str:
+    """Write ``act_scales.json`` (with its ``__provenance__`` stamp) into the
+    model dir; returns its path."""
+    model_path = resolve_model_dir(model_path)
+    path = os.path.join(model_path, ACT_SCALES_FILE)
+    out = dict(scales)
+    out["__provenance__"] = _scales_provenance(model_path, step)
+    with open(path, "w") as f:
+        json.dump(out, f, indent=2, sort_keys=True)
+    return path
+
+
+def load_act_scales(model_path: str, step: Optional[int] = None
+                    ) -> Optional[Dict[str, float]]:
+    """The calibrated scales of a model dir, or None. A file whose stamp does
+    not match the model dir now (the checkpoint advanced, the architecture
+    changed, or another ``step`` is restored) is stale: a warning, and None
+    (dynamic scales). A file without a stamp loads with a warning."""
+    model_path = resolve_model_dir(model_path)
+    path = os.path.join(model_path, ACT_SCALES_FILE)
+    if not os.path.exists(path):
+        return None
+    with open(path) as f:
+        scales = json.load(f)
+    stamped = scales.pop("__provenance__", None)
+    if stamped is None:
+        log_print(f"WARNING: {path} has no provenance stamp; cannot verify the "
+                  "scales match the checkpoint: re-calibrate to silence this")
+        return scales
+    current = _scales_provenance(model_path, step)
+    if stamped != current:
+        log_print(f"WARNING: {path} is STALE (calibrated at {stamped}, model dir now "
+                  f"{current}): ignoring the static scales, int8 runs on dynamic "
+                  "scales; re-run calibration")
+        return None
+    return scales
+
+
+def calibrate_model_dir(model_path: str, sequence_path: str, n_frames: int = 8,
+                        filename_format: str = "t*.tif", step: Optional[int] = None,
+                        device="cuda") -> str:
+    """Calibrate on the first ``n_frames`` of a sequence, with the model in
+    its checkpoint's own dtype on ``device``, and write ``act_scales.json``
+    into the model dir (every later int8 run of that dir picks it up)."""
+    model = load_model(model_path, resolve_device(device), step=step)
+    reader = CTCInferenceReader(sequence_path, filename_format, pre_sequence_frames=0,
+                                normalize=False)
+    frames = []
+    for _, frame in reader:
+        frames.append(frame)
+        if len(frames) >= n_frames:
+            break
+    scales = calibrate_act_scales(model, frames)
+    path = save_act_scales(model_path, scales, step=step)
+    log_print(f"calibrated {len(scales)} activation sites over {len(frames)} frames "
+              f"-> {path}")
+    return path
+
+
+# ------------------------------------------------------------ the engine
+
+
 class StreamingInferenceEngine:
-    """Stateful streaming over a sequence of frames of one size."""
+    """Stateful streaming over a sequence of frames of one size. An int8
+    model (``cfg.quant='int8'``) not yet quantized is quantized here, with
+    the calibrated scales of ``ip.model_path`` when they are current."""
 
     def __init__(self, model: ULSTMnet2D, ip: InferenceParams, device):
         self.model = model
         self.ip = ip
         self.device = resolve_device(device)
-        if self.device.type == "cuda":
-            # cuDNN runs f32 convs in TF32 by default, which keeps ~3 decimal
-            # digits and would break every f32 tolerance against the
-            # reference; bf16 math does not use TF32 either way
-            torch.backends.cudnn.allow_tf32 = False
-            torch.backends.cuda.matmul.allow_tf32 = False
+        _no_tf32(self.device)
+        if model.cfg.quant == "int8" and not is_quantized(model):
+            scales = (load_act_scales(ip.model_path, step=ip.ckpt_step or None)
+                      if ip.model_path else None)
+            quantize_model_int8(model, scales, keep_float=ip.int8_keep_float,
+                                float_dtype=model.cfg.compute_dtype)
         self.depth_multiple = 2 ** model.cfg.nkp.depth
         self._state = None
         self._shape: Optional[Tuple[int, int]] = None

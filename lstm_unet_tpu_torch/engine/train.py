@@ -11,7 +11,11 @@ runs K3.
 
 Where the reference passes params and optimizer state through a pure
 function, the port keeps them in the model and the optimizer and updates
-them in place. The reference's TPU-only knobs and the features of
+them in place. So a step that raises part way may leave a half-updated
+iterate: the trainer then skips its final save and keeps the last
+checkpoint. With ``async_checkpoint`` an interval save copies the tensors on
+the device and writes the copies on a thread; the final save waits. The
+reference's TPU-only knobs and the features of
 ROADMAP.md queue 1 item 8b raise ``NotImplementedError`` (:func:`check_ported`).
 """
 
@@ -19,6 +23,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import threading
 import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -170,6 +175,8 @@ class Trainer:
             if params.val_sequence_list else None)
 
         self.ckpt: Optional[CheckpointManager] = None
+        self._saver: Optional[threading.Thread] = None
+        self._save_error: Optional[BaseException] = None
         self.tb = None
         if not params.dry_run:
             self.ckpt = CheckpointManager(params.experiment_save_dir,
@@ -202,10 +209,42 @@ class Trainer:
         return tuple(torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
                      for x in batch)
 
-    def _save_checkpoint(self) -> None:
-        self.ckpt.save(self.global_step,
-                       flatten_tree(params_to_jax(self.model.state_dict())),
-                       opt_state_to_npz(self.optimizer.state_dict()))
+    def _write_checkpoint(self, step: int, params, opt_state) -> None:
+        self.ckpt.save(step, flatten_tree(params_to_jax(params)), opt_state_to_npz(opt_state))
+
+    def _background_write(self, *args) -> None:
+        try:
+            self._write_checkpoint(*args)
+        except BaseException as e:  # raised by the next save or the final one
+            self._save_error = e
+
+    def _wait_for_save(self) -> None:
+        """Wait for a background save; raise its error, if it had one."""
+        if self._saver is not None:
+            self._saver.join()
+            self._saver = None
+        err, self._save_error = self._save_error, None
+        if err is not None:
+            raise err
+
+    def _save_checkpoint(self, final: bool = False) -> None:
+        """Save the current step. With ``async_checkpoint`` an interval save
+        copies params and optimizer state on the device (the next step
+        updates them in place) and moves and writes the copies on a thread;
+        the final save, and a save while one is still running, wait."""
+        self._wait_for_save()
+        params, opt_state = self.model.state_dict(), self.optimizer.state_dict()
+        if final or not self.p.async_checkpoint:
+            self._write_checkpoint(self.global_step, params, opt_state)
+            return
+        with torch.no_grad():
+            params = {k: v.detach().clone() for k, v in params.items()}
+            opt_state = {k: ({n: t.clone() for n, t in v.items()} if isinstance(v, dict)
+                             else v.clone()) for k, v in opt_state.items()}
+        self._saver = threading.Thread(target=self._background_write,
+                                       args=(self.global_step, params, opt_state),
+                                       name="checkpoint", daemon=True)
+        self._saver.start()
 
     def _val_objscores(self, probs: torch.Tensor, inst: np.ndarray,
                        valid: np.ndarray) -> Tuple[float, float]:
@@ -245,6 +284,13 @@ class Trainer:
         if self.tb:
             for k, v in vm.items():
                 self.tb.add_scalar(f"val/{k}", v, self.global_step)
+            # input, GT and prediction of lane 0's last frame, as the reference
+            x = vimg_h[0, -1, :, :, 0].astype(np.float32)
+            x = (x - x.min()) / max(x.max() - x.min(), 1e-6)
+            self.tb.add_image("val/input", x[None], self.global_step)
+            self.tb.add_image("val/gt", np.asarray(vseg_h[0, -1])[None] / 2.0, self.global_step)
+            pred = torch.argmax(vprobs[0, -1], dim=-1).cpu().numpy()
+            self.tb.add_image("val/pred", pred[None] / 2.0, self.global_step)
         return val_state
 
     # ------------------------------------------------------------------
@@ -252,7 +298,8 @@ class Trainer:
     def train(self, num_iterations: Optional[int] = None) -> Dict[str, float]:
         """Run ``num_iterations`` steps (default ``params.num_iterations``);
         returns the last printed metrics. The final checkpoint is written on
-        the way out, also when a step raised."""
+        the way out, also after an error outside the step; after a step that
+        raised (the params may be half updated) it is skipped."""
         p = self.p
         n_iter = p.num_iterations if num_iterations is None else num_iterations
         self.reader.start_queues()
@@ -265,14 +312,17 @@ class Trainer:
         t0, frames_done = time.time(), 0
         watchdog = (StallWatchdog(p.watchdog_secs, label="train").start()
                     if p.watchdog_secs > 0 else None)
+        in_step = False
         try:
             for it in range(n_iter):
                 if watchdog:
                     watchdog.feed()
                 img, seg, valid, full_seg, is_last = self._put(self.reader.get_batch())
+                in_step = True
                 lstm_state, metrics = self.step_fn(lstm_state, img, seg, valid,
                                                    full_seg, is_last)
                 self.global_step += 1
+                in_step = False
                 frames_done += img.shape[0] * img.shape[1]
 
                 if (it + 1) % p.print_to_console_interval == 0 or it == 0:
@@ -305,8 +355,12 @@ class Trainer:
                 self.val_reader.stop()
             if watchdog:
                 watchdog.feed()  # bound the final save separately
-            if self.ckpt:
-                self._save_checkpoint()
+            if self.ckpt and in_step:
+                self._wait_for_save()
+                log_print(f"a train step raised after step {self.global_step}: the params "
+                          "may be half updated, so no final checkpoint is written")
+            elif self.ckpt:
+                self._save_checkpoint(final=True)
             if watchdog:
                 watchdog.stop()
             if self.tb:

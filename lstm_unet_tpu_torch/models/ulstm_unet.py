@@ -12,13 +12,21 @@ logits ``[B,H,W,K]``, state ``[[(h, c) [B,H,W,F]]]`` per level and layer.
 Parameter names follow the reference tree, so ``encoder.0.lstm.0.kernel_x``
 is the reference's ``encoder[0]["lstm"][0]["kernel_x"]``
 (``checkpoint/convert.py``); conv kernels are OIHW.
+
+Under ``quant='int8'`` the model is quantized in place by
+:func:`quantize_model_int8` (the engine does it when it is built):
+each quantized site becomes a :class:`QConv` or ``QConvLSTMCell`` and the
+model dispatches on the module, as the reference on the presence of
+``kernel_q``. ``step(..., collect_scales=d)`` records each conv site's
+input abs-max under the reference's site names, for calibration.
 """
 
 from __future__ import annotations
 
+import itertools
 import json
 from dataclasses import dataclass
-from typing import List, Optional, Tuple, Union
+from typing import Iterable, List, Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -26,7 +34,9 @@ from torch.utils.checkpoint import checkpoint
 
 from ..config import NetKernelParams
 from ..ops.conv import activate, conv2d, init_conv, max_pool_2x2, upsample_2x
-from ..ops.convlstm import ConvLSTMCell
+from ..ops.convlstm import ConvLSTMCell, QConvLSTMCell
+from ..ops.quant import (ActScales, QWeight, _site_kept, conv2d_q, conv2d_q_pair,
+                         parse_keep_float, static_scale)
 
 State = List[List[Tuple[torch.Tensor, torch.Tensor]]]
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -37,11 +47,15 @@ class ModelConfig:
     """Model options; the fields of the reference's ``ModelConfig``, read
     from ``model_params.json``.
 
-    ``use_pallas`` and ``split_skip_convs`` are accepted and have no effect:
-    the first chose between the TPU gate kernel and its XLA twin, and here
-    the tensor's device chooses (the CUDA kernel on a GPU, the plain version
-    on the CPU); the second split a concat conv in two for a TPU layout, with
-    the same math. ``quant`` other than 'none' (int8) is not ported yet.
+    ``use_pallas`` is accepted and has no effect: it chose between the TPU
+    gate kernel and its XLA twin, and here the tensor's device chooses (the
+    CUDA kernel on a GPU, the plain version on the CPU). ``split_skip_convs``
+    has no effect in float (it split a concat conv in two for a TPU layout,
+    with the same math); under ``quant='int8'`` it changes the math as in
+    the reference: the decoder's first convs quantize the upsampled input
+    and the skip each with its own scale (sites ``.a`` and ``.b``).
+    ``quant='int8'`` runs every conv of a quantized site as int8 x int8 ->
+    int32 with an f32 dequant, the rest in ``dtype``.
     """
 
     net_kernel_params_json: str
@@ -59,10 +73,8 @@ class ModelConfig:
     state_dtype: str = "auto"     # LSTM carry dtype; 'auto' follows dtype
 
     def __post_init__(self):
-        if self.quant != "none":
-            raise NotImplementedError(
-                f"quant={self.quant!r} is not ported yet (ROADMAP.md queue 1 "
-                "item 9, int8 inference)")
+        if self.quant not in ("none", "int8"):
+            raise ValueError(f"unknown quant {self.quant!r}")
         if self.dtype not in DTYPES:
             raise ValueError(f"unknown dtype {self.dtype!r}")
         if self.state_dtype != "auto" and self.state_dtype not in DTYPES:
@@ -104,16 +116,62 @@ class Conv(nn.Module):
         self.activation = activation
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = conv2d(x, self.kernel, self.bias)
-        if self.activation is None:
-            return x
-        if hasattr(self, "ln_scale"):
-            x32 = x.float()
-            mu = x32.mean(dim=-1, keepdim=True)
-            var = x32.var(dim=-1, keepdim=True, unbiased=False)
-            x = ((x32 - mu) * torch.rsqrt(var + 1e-6) * self.ln_scale
-                 + self.ln_bias).to(x.dtype)
-        return activate(x, self.activation)
+        return _norm_act(self, conv2d(x, self.kernel, self.bias))
+
+    def forward_pair(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        """``forward(concat([a, b]))``."""
+        return self(torch.cat([a, b], dim=-1))
+
+
+def _norm_act(conv: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """The optional f32 channel LayerNorm, then the activation (none for the
+    head)."""
+    if conv.activation is None:
+        return x
+    if hasattr(conv, "ln_scale"):
+        x32 = x.float()
+        mu = x32.mean(dim=-1, keepdim=True)
+        var = x32.var(dim=-1, keepdim=True, unbiased=False)
+        x = ((x32 - mu) * torch.rsqrt(var + 1e-6) * conv.ln_scale
+             + conv.ln_bias).to(x.dtype)
+    return activate(x, conv.activation)
+
+
+class QConv(nn.Module):
+    """The int8 form of a :class:`Conv`: ``weight`` (``ops/quant.py::QWeight``,
+    with the f32 bias), the static ``x_scale`` (concat input) and
+    ``x_scale_a`` / ``x_scale_b`` (the two operands of :meth:`forward_pair`)
+    of its site, or None (dynamic), and the f32 LayerNorm parameters as they
+    were. Outputs are in the input's dtype."""
+
+    def __init__(self, conv: Conv, act_scales: ActScales = None, site: str = ""):
+        super().__init__()
+        dev = conv.kernel.device
+        self.weight = QWeight(conv.kernel, conv.bias)
+        for name, suffix in (("x_scale", ""), ("x_scale_a", ".a"), ("x_scale_b", ".b")):
+            static_scale(self, name, act_scales, site + suffix, dev)
+        if hasattr(conv, "ln_scale"):
+            self.ln_scale, self.ln_bias = conv.ln_scale, conv.ln_bias
+        self.activation = conv.activation
+
+    @property
+    def kernel_q(self) -> torch.Tensor:
+        return self.weight.kernel_q
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return _norm_act(self, conv2d_q(x, self.weight, self.x_scale, x.dtype))
+
+    def forward_pair(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        """``conv(concat([a, b]))`` with each operand quantized on its own
+        scale (``conv2d_q_pair``)."""
+        y = conv2d_q_pair(a, b, self.weight, self.x_scale_a, self.x_scale_b, a.dtype)
+        return _norm_act(self, y)
+
+
+def _collect(collect: Optional[dict], site: str, x: torch.Tensor) -> None:
+    """Record max|x| (f32, on x's device) for int8 calibration."""
+    if collect is not None:
+        collect[site] = x.float().abs().amax()
 
 
 class _EncoderLevel(nn.Module):
@@ -139,6 +197,36 @@ def cast_params_for_inference(model: "ULSTMnet2D", dtype: torch.dtype
             p.data = p.data.to(dtype)
         if p.dim() == 4:
             p.data = p.data.contiguous(memory_format=torch.channels_last)
+    return model
+
+
+def quantize_model_int8(model: "ULSTMnet2D", act_scales: ActScales = None,
+                        keep_float: Union[str, Iterable[str], None] = (),
+                        float_dtype: Optional[torch.dtype] = None) -> "ULSTMnet2D":
+    """Quantize a ``ULSTMnet2D`` in place (its weights as restored, f32) and
+    return it. Sites are named as the reference's ``collect_scales`` keys
+    (``encoder/{i}/lstm/{j}``, ``encoder/{i}/convs/{j}``,
+    ``decoder/{i}/convs/{j}``, ``head``); a site with a calibrated absmax in
+    ``act_scales`` gets a static scale, the others stay dynamic. Sites
+    matching a ``keep_float`` prefix stay float, cast to ``float_dtype``
+    (LayerNorm parameters stay f32)."""
+    keep = parse_keep_float(keep_float)
+
+    def quantize(modules, i, kind, group, qtype):
+        for j, m in enumerate(modules):
+            site = f"{kind}/{i}/{group}/{j}"
+            if not _site_kept(site, keep):
+                modules[j] = qtype(m, act_scales, site)
+
+    for i, level in enumerate(model.encoder):
+        quantize(level.lstm, i, "encoder", "lstm", QConvLSTMCell)
+        quantize(level.convs, i, "encoder", "convs", QConv)
+    for i, level in enumerate(model.decoder):
+        quantize(level.convs, i, "decoder", "convs", QConv)
+    if not _site_kept("head", keep):
+        model.head = QConv(model.head, act_scales, "head")
+    if float_dtype is not None:
+        cast_params_for_inference(model, float_dtype)
     return model
 
 
@@ -191,7 +279,8 @@ class ULSTMnet2D(nn.Module):
         if height % mult or width % mult:
             raise ValueError(
                 f"H,W must be multiples of 2^depth={mult}, got {height}x{width}")
-        device = device if device is not None else self.head.kernel.device
+        if device is None:
+            device = next(itertools.chain(self.parameters(), self.buffers())).device
         state: State = []
         h, w = height, width
         for level in self.encoder:
@@ -211,9 +300,12 @@ class ULSTMnet2D(nn.Module):
 
     # -- forward ----------------------------------------------------------
 
-    def step(self, state: State, frame: torch.Tensor) -> Tuple[State, torch.Tensor]:
+    def step(self, state: State, frame: torch.Tensor,
+             collect_scales: Optional[dict] = None) -> Tuple[State, torch.Tensor]:
         """One frame ``[B,H,W,C]`` -> (new state, f32 logits ``[B,H,W,K]``).
-        The input state is not modified."""
+        The input state is not modified. ``collect_scales``: a dict the caller
+        owns, which gets every conv site's input abs-max (0-d f32 tensors)
+        under the reference's site names."""
         cfg = self.cfg
         dt = cfg.compute_dtype
         x = frame.to(dt)
@@ -222,12 +314,15 @@ class ULSTMnet2D(nn.Module):
         for lvl, level in enumerate(self.encoder):
             lvl_state = []
             for j, cell in enumerate(level.lstm):
+                _collect(collect_scales, f"encoder/{lvl}/lstm/{j}/x", x)
+                _collect(collect_scales, f"encoder/{lvl}/lstm/{j}/h", state[lvl][j][0])
                 carry, x = cell(state[lvl][j], x,
                                 recurrent_activation=cfg.recurrent_activation,
                                 fused_cell=cfg.fused_cell)
                 lvl_state.append(carry)
                 x = x.to(dt)  # the carry may be f32 under bf16 compute
-            for conv in level.convs:
+            for j, conv in enumerate(level.convs):
+                _collect(collect_scales, f"encoder/{lvl}/convs/{j}", x)
                 x = conv(x)
             skips.append(x)
             new_state.append(lvl_state)
@@ -235,9 +330,19 @@ class ULSTMnet2D(nn.Module):
         for lvl in reversed(range(len(self.decoder))):
             x = upsample_2x(x, cfg.upsample)
             convs = self.decoder[lvl].convs
-            x = convs[0](torch.cat([x, skips[lvl]], dim=-1))
-            for conv in convs[1:]:
+            site = f"decoder/{lvl}/convs/0"
+            if cfg.split_skip_convs:
+                _collect(collect_scales, site + ".a", x)
+                _collect(collect_scales, site + ".b", skips[lvl])
+                x = convs[0].forward_pair(x, skips[lvl])
+            else:
+                x = torch.cat([x, skips[lvl]], dim=-1)
+                _collect(collect_scales, site, x)
+                x = convs[0](x)
+            for j, conv in enumerate(convs[1:], start=1):
+                _collect(collect_scales, f"decoder/{lvl}/convs/{j}", x)
                 x = conv(x)
+        _collect(collect_scales, "head", x)
         return new_state, self.head(x).float()
 
     def apply(self, state: State, x: torch.Tensor, remat: Union[bool, str] = False

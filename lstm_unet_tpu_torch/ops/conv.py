@@ -9,6 +9,7 @@ plain convs are left to cuDNN, as the reference leaves them to XLA.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
@@ -48,9 +49,16 @@ def conv2d(x: torch.Tensor, kernel: torch.Tensor,
     return _nhwc(y)
 
 
+@functools.lru_cache(maxsize=None)
+def _in_dtype(v: float, dtype: torch.dtype) -> float:
+    return float(torch.tensor(v, dtype=dtype))
+
+
 def activate(x: torch.Tensor, kind: str) -> torch.Tensor:
     if kind == "leaky_relu":
-        return F.leaky_relu(x, negative_slope=0.2)  # the reference's slope
+        # the reference's slope 0.2, rounded to x's dtype as jax.nn.leaky_relu
+        # multiplies by it: in bf16 the product then equals the reference's
+        return F.leaky_relu(x, negative_slope=_in_dtype(0.2, x.dtype))
     if kind == "relu":
         return F.relu(x)
     if kind == "tanh":

@@ -15,6 +15,13 @@ the other levels whose h tile fits one block (the tiny model). Otherwise the two
 cuDNN and the gate math in :func:`lstm_gate_update` (forward K1, backward
 K2). On the CPU both routes take the kernels' plain versions. The fused route
 is inference-only, as in the reference: under grad the fused kernel raises.
+
+:class:`QConvLSTMCell` is the int8 cell (``ops/quant.py``), with the
+reference's two routes: fused, ``gx = conv2d_q(x)`` with the bias in x's
+dtype and Wh dequantized to that dtype (h is not quantized), then K4;
+unfused, ``conv2d_q(x) + conv2d_q(h)`` each in x's dtype (the bias in the
+x-conv only), then K1. The two differ by design (the reference holds them
+within 5e-3).
 """
 
 from __future__ import annotations
@@ -28,6 +35,7 @@ from torch import nn
 from .conv import conv2d
 from .kernels.convlstm_cell import fused_convlstm_level, supported
 from .kernels.lstm_gates import lstm_gate_update
+from .quant import ActScales, QWeight, conv2d_q, static_scale
 
 Carry = Tuple[torch.Tensor, torch.Tensor]  # (h, c), each [B,H,W,F]
 
@@ -75,5 +83,57 @@ class ConvLSTMCell(nn.Module):
             return (h_new, c_new), h_new
         gates = conv2d(x, self.kernel_x, self.bias) + conv2d(h.to(x.dtype),
                                                              self.kernel_h)
+        c_new, h_new = lstm_gate_update(gates, c, recurrent_activation)
+        return (h_new, c_new), h_new
+
+
+class QConvLSTMCell(nn.Module):
+    """The int8 form of a :class:`ConvLSTMCell`: ``wx`` (with the f32 bias)
+    and ``wh`` as :class:`quant.QWeight`, and the static ``x_scale`` /
+    ``h_scale`` of sites ``<site>/x`` and ``<site>/h`` (None: dynamic)."""
+
+    def __init__(self, cell: ConvLSTMCell, act_scales: ActScales = None, site: str = ""):
+        super().__init__()
+        dev = cell.kernel_x.device
+        self.filters = cell.filters
+        self.wx = QWeight(cell.kernel_x, cell.bias)
+        self.wh = QWeight(cell.kernel_h, None)
+        static_scale(self, "x_scale", act_scales, site + "/x", dev)
+        static_scale(self, "h_scale", act_scales, site + "/h", dev)
+        self._wh_float = {}
+
+    init_state = ConvLSTMCell.init_state
+
+    @property
+    def kernel_x_q(self) -> torch.Tensor:
+        return self.wx.kernel_q
+
+    @property
+    def kernel_h_q(self) -> torch.Tensor:
+        return self.wh.kernel_q
+
+    def wh_dequantized(self, dtype: torch.dtype) -> torch.Tensor:
+        """HWIO ``kernel_h_q * wh_scale``, a product in ``dtype`` as the
+        reference's fused route forms it; made once per dtype and device."""
+        w = self._wh_float.get(dtype)
+        if w is None or w.device != self.wh.packed.device:
+            scale = self.wh.w_scale.to(dtype)[:, None, None, None]
+            w = (self.kernel_h_q.to(dtype) * scale).permute(2, 3, 1, 0).contiguous()
+            self._wh_float[dtype] = w
+        return w
+
+    def forward(self, carry: Carry, x: torch.Tensor, *,
+                recurrent_activation: str = "sigmoid",
+                fused_cell: bool = False) -> Tuple[Carry, torch.Tensor]:
+        h, c = carry
+        b, hh, ww, _ = x.shape
+        k = self.wh.shape[-1]
+        if fused_cell and supported(hh, ww, self.filters, k, k, b, x.dtype):
+            gx = conv2d_q(x, self.wx, self.x_scale, x.dtype)
+            h_new, c_new = fused_convlstm_level(gx, h, c, self.wh_dequantized(x.dtype),
+                                                recurrent_activation)
+            return (h_new, c_new), h_new
+        gates = (conv2d_q(x, self.wx, self.x_scale, x.dtype)
+                 + conv2d_q(h, self.wh, self.h_scale, x.dtype))
         c_new, h_new = lstm_gate_update(gates, c, recurrent_activation)
         return (h_new, c_new), h_new

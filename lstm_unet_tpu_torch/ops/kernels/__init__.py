@@ -9,7 +9,7 @@ from __future__ import annotations
 
 from typing import Dict
 
-from . import ccl, convlstm_cell, lstm_gates
+from . import ccl, conv_int8, convlstm_cell, lstm_gates
 
 # kernel name -> its launch count (the K numbering of the TPU kernel table)
 KERNELS = {
@@ -20,6 +20,7 @@ KERNELS = {
     "fused_convlstm_level": convlstm_cell.COUNT,    # K4, SIMT route
     "fused_convlstm_level_wgmma": convlstm_cell.WGMMA_COUNT,  # K4, bf16 tensor cores
     "fused_convlstm_level_tf32x3": convlstm_cell.TF32X3_COUNT,  # K4, f32 as 3xTF32
+    "conv2d_int8": conv_int8.COUNT,                 # the int8 conv (no TPU kernel)
 }
 
 

@@ -1,0 +1,147 @@
+"""int8 quantized inference.
+
+Counterpart of ``lstm_unet_tpu/ops/quant.py``. Symmetric, zero point 0, so
+SAME zero padding stays exact:
+
+- weights: per-output-channel scales ``s_w = max|k| / 127`` (at least
+  1e-12), ``q = clip(round(k / s_w), -127, 127)``;
+- activations: one scale per tensor, dynamic ``max(max|x|, 1e-8) / 127`` per
+  call or static from calibration, ``q = clip(round(x_f32 / s_x), -127,
+  127)`` (a true division; rounding half to even, as ``jnp.round``);
+- conv: int8 x int8 -> exact int32 sums, dequantized in f32 as ``acc * (s_x *
+  s_w) + bias`` and rounded once to the output dtype
+  (:func:`kernels.conv_int8.conv2d_int8`: the CUDA kernel on the card, its
+  plain version on the CPU).
+
+Gate math, LayerNorm and softmax stay as in the float model. The activation
+quantize (abs-max, divide, round, clip) is plain tensor code, as the
+reference leaves it to XLA outside any Pallas kernel.
+
+:class:`QWeight` holds one conv's int8 weights, packed once for the
+kernel; ``models/ulstm_unet.py::quantize_model_int8`` builds the model's
+quantized sites from it.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+from torch import nn
+
+from .kernels.conv_int8 import conv2d_int8, pack_weight, unpack_weight
+
+ActScales = Optional[Dict[str, float]]
+
+
+def quantize_weight(kernel: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """OIHW float kernel -> (int8 kernel, per-cout f32 scale)."""
+    k = kernel.float()
+    s = torch.clamp(k.abs().amax(dim=(1, 2, 3)) / 127.0, min=1e-12)
+    q = torch.clamp(torch.round(k / s[:, None, None, None]), -127, 127).to(torch.int8)
+    return q, s
+
+
+def quantize_act(x: torch.Tensor, scale: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-tensor symmetric quantization -> (int8 x, 0-d f32 scale on x's
+    device). ``scale=None`` computes it from ``x`` (max|x| / 127, no host
+    read); a static (calibrated) scale skips the reduction."""
+    if scale is None:  # max|x| is exact in x's dtype: one pass, no f32 copy
+        amax = torch.linalg.vector_norm(x, ord=float("inf")).float()
+        scale = torch.clamp(amax, min=1e-8) / 127.0
+    xf = x.float()  # a new tensor (or x itself when x is f32: not updated in place)
+    xf = xf.div(scale) if xf is x else xf.div_(scale)
+    return xf.round_().clamp_(-127, 127).to(torch.int8), scale
+
+
+def _scale_of(act_scales: ActScales, site: str) -> Optional[torch.Tensor]:
+    """Calibrated absmax of a site -> static scale ``absmax / 127`` (computed
+    in double, then f32, as the reference), or None."""
+    if act_scales is None or site not in act_scales:
+        return None
+    return torch.tensor(max(float(act_scales[site]), 1e-8) / 127.0, dtype=torch.float32)
+
+
+def parse_keep_float(keep_float) -> tuple:
+    """A keep-float spec -> a tuple of site prefixes: a comma-separated string
+    ('encoder/0, encoder/1'), an iterable of prefixes, or None / ''."""
+    if keep_float is None:
+        return ()
+    if isinstance(keep_float, str):
+        keep_float = keep_float.split(",")
+    return tuple(s for s in (p.strip() for p in keep_float) if s)
+
+
+def _site_kept(site: str, keep_float) -> bool:
+    """True when ``site`` matches a keep-float prefix ('encoder/0' matches
+    encoder/0/... but not encoder/01/...)."""
+    for p in keep_float:
+        p = p.strip().strip("/")
+        if p and (site == p or site.startswith(p + "/")):
+            return True
+    return False
+
+
+class QWeight(nn.Module):
+    """One int8 conv's weights: ``packed`` (the kernel's layout, made once),
+    per-cout ``w_scale`` f32 and the optional f32 ``bias``; ``kernel_q`` is
+    the OIHW int8 kernel."""
+
+    def __init__(self, kernel: torch.Tensor, bias: Optional[torch.Tensor]):
+        super().__init__()
+        q, s = quantize_weight(kernel.detach())
+        self.shape = tuple(q.shape)  # (cout, cin, kh, kw)
+        self.register_buffer("packed", pack_weight(q))
+        self.register_buffer("w_scale", s)
+        self.register_buffer("bias", None if bias is None else bias.detach().float())
+        self._slices: Dict[Tuple[int, int], torch.Tensor] = {}
+
+    @property
+    def kernel_q(self) -> torch.Tensor:
+        return unpack_weight(self.packed, *self.shape)
+
+    def packed_slice(self, c0: int, c1: int) -> torch.Tensor:
+        """The pack of input channels ``c0:c1`` (for :func:`conv2d_q_pair`),
+        made on first use and kept."""
+        p = self._slices.get((c0, c1))
+        if p is None or p.device != self.packed.device:
+            p = self._slices[(c0, c1)] = pack_weight(self.kernel_q[:, c0:c1].contiguous())
+        return p
+
+
+def conv2d_q(x: torch.Tensor, weight: QWeight, x_scale: Optional[torch.Tensor] = None,
+             out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """NHWC int8 conv of ``x`` (quantized here, dynamic or with the static
+    ``x_scale``) with the f32 dequant epilogue, in ``out_dtype``."""
+    qx, s_x = quantize_act(x, x_scale)
+    _, _, kh, kw = weight.shape
+    return conv2d_int8(qx, s_x, weight.packed, weight.w_scale, weight.bias, kh, kw, out_dtype)
+
+
+def conv2d_q_pair(a: torch.Tensor, b: torch.Tensor, weight: QWeight,
+                  scale_a: Optional[torch.Tensor] = None,
+                  scale_b: Optional[torch.Tensor] = None,
+                  out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Quantized ``conv(concat([a, b]), W)`` as two channel-sliced convs, each
+    operand with its own scale: ``acc_a * (s_a * w) + acc_b * (s_b * w)``, then
+    the bias, in f32 (the reference's order), then ``out_dtype``. Two launches
+    of the int8 conv, each writing its f32 product."""
+    _, cin, kh, kw = weight.shape
+    ca = a.shape[-1]
+    ys = []
+    for x, c0, c1, scale in ((a, 0, ca, scale_a), (b, ca, cin, scale_b)):
+        qx, s_x = quantize_act(x, scale)
+        ys.append(conv2d_int8(qx, s_x, weight.packed_slice(c0, c1), weight.w_scale, None,
+                              kh, kw, torch.float32))
+    y = ys[0] + ys[1]
+    if weight.bias is not None:
+        y = y + weight.bias
+    return y.to(out_dtype)
+
+
+def static_scale(module: nn.Module, name: str, act_scales: ActScales, site: str,
+                 device) -> None:
+    """Register buffer ``name``: the static scale of ``site``, or None."""
+    scale = _scale_of(act_scales, site)
+    module.register_buffer(name, None if scale is None else scale.to(device))

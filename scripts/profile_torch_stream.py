@@ -1,8 +1,9 @@
 """Steady-state time per frame and device breakdown of the port's flagship
 stream (``lstm_unet_tpu_torch``, 512², B = 1, random weights from a seed) on
-one NVIDIA GPU, for f32 and bf16 with the fused cell off and on.
+one NVIDIA GPU, for bf16, int8 (dynamic scales: the engine quantizes the
+f32 weights) and f32, with the fused cell off and on.
 
-    python scripts/profile_torch_stream.py
+    python scripts/profile_torch_stream.py [--dtypes bfloat16,int8,float32]
 
 Per configuration: 3 warm-up frames, then the median of 8 frames timed on
 the host clock around ``StreamingInferenceEngine.process_frame`` (which ends
@@ -13,6 +14,7 @@ top kernels. The last line is the same as JSON.
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import subprocess
@@ -36,6 +38,8 @@ WARM, TIMED, PROFILED = 3, 8, 3
 
 
 def kind(name: str) -> str:
+    if "conv_int8" in name:
+        return "int8 conv"
     if "Tf32x3" in name:
         return "K4 tf32x3"
     if "convlstm_wgmma" in name:
@@ -55,10 +59,12 @@ def kind(name: str) -> str:
 
 
 def profile_config(frames, dtype: str, fused: bool) -> dict:
-    cfg = ModelConfig.make(default_net_kernel_params(), dtype=dtype, fused_cell=fused)
+    quant = dict(dtype="bfloat16", quant="int8") if dtype == "int8" else dict(dtype=dtype)
+    cfg = ModelConfig.make(default_net_kernel_params(), fused_cell=fused, **quant)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    model = cast_params_for_inference(ULSTMnet2D(cfg, generator=gen, device="cuda"),
-                                      cfg.compute_dtype)
+    model = ULSTMnet2D(cfg, generator=gen, device="cuda")
+    if dtype != "int8":  # int8: the engine quantizes the f32 weights
+        cast_params_for_inference(model, cfg.compute_dtype)
     engine = StreamingInferenceEngine(model, InferenceParams(dtype=dtype), "cuda")
     for f in frames[:WARM]:
         engine.process_frame(f)
@@ -89,6 +95,9 @@ def profile_config(frames, dtype: str, fused: bool) -> dict:
 
 
 def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--dtypes", default="bfloat16,int8,float32")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("needs an NVIDIA GPU")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -98,7 +107,7 @@ def main() -> None:
     frames, _ = make_cell_sequence(num_frames=WARM + TIMED + PROFILED, height=512,
                                    width=512, num_cells=40, seed=0)
     out = {"card": card}
-    for dtype in ("bfloat16", "float32"):
+    for dtype in args.dtypes.split(","):
         for fused in (False, True):
             r = profile_config(frames, dtype, fused)
             out[f"{dtype} fused={fused}"] = r

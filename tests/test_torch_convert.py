@@ -61,8 +61,12 @@ def test_load_model_builds_the_golden_model():
                     fused_cell=True)
     assert bf.cfg.fused_cell and bf.head.kernel.dtype == torch.bfloat16
     assert bf.cfg.carry_dtype == torch.float32
-    with pytest.raises(NotImplementedError, match="int8"):
-        load_model(TORCH_CKPT, "cpu", dtype="int8")
+    # int8 as the reference's load_model: bf16 compute, int8 convs, and the
+    # weights kept as restored (f32) for the engine to quantize
+    q = load_model(TORCH_CKPT, "cpu", dtype="int8")
+    assert (q.cfg.dtype, q.cfg.quant) == ("bfloat16", "int8")
+    assert q.head.kernel.dtype == torch.float32
+    torch.testing.assert_close(q.head.kernel, model.head.kernel, atol=0, rtol=0)
     with pytest.raises(FileNotFoundError, match="params.npz"):
         load_model(os.path.join(GOLDEN, "ckpt"), "cpu")
 

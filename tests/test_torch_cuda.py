@@ -425,3 +425,53 @@ def test_golden_masks_fused_f32_on_the_card(cuda, tmp_path):
         got = read_tiff(os.path.join(out, os.path.basename(p)))
         assert len(np.unique(got)) == len(np.unique(want))
         assert int((got != want).sum()) <= 3
+
+
+# ---------------------------------------------------------------- int8 conv
+
+
+@pytest.mark.parametrize("b,h,w,cin,k,cout", [
+    (1, 64, 64, 1, 5, 512),     # level 0 x-conv: cin = 1, the byte gather
+    (1, 32, 48, 128, 5, 512),   # an h-conv, 16-byte chunks
+    (2, 17, 23, 24, 3, 8),      # ragged frame, cin 24 (tiny decoder), cout 8
+    (1, 16, 16, 1024, 3, 512),  # cin 1024 (decoder level 3's first conv)
+    (1, 40, 40, 128, 1, 3),     # the 1x1 head: cout 3, odd
+])
+@pytest.mark.parametrize("bias", [True, False])
+def test_conv2d_int8_equals_plain(cuda, b, h, w, cin, k, cout, bias):
+    from lstm_unet_tpu_torch.ops.kernels import conv_int8
+
+    g = torch.Generator(device=cuda).manual_seed(cin + cout)
+    xq = torch.randint(-127, 128, (b, h, w, cin), device=cuda, generator=g,
+                       dtype=torch.int32).to(torch.int8)
+    kq = torch.randint(-127, 128, (cout, cin, k, k), device=cuda, generator=g,
+                       dtype=torch.int32).to(torch.int8)
+    args = (xq, torch.tensor(0.02, device=cuda), conv_int8.pack_weight(kq),
+            torch.rand(cout, device=cuda, generator=g) * 1e-3,
+            torch.randn(cout, device=cuda, generator=g) if bias else None, k, k)
+    for dt in (torch.float32, torch.bfloat16):
+        got = conv_int8.conv2d_int8(*args, dt)
+        want = conv_int8.conv2d_int8_plain(*args, dt)
+        assert got.dtype == dt and torch.equal(got, want)  # exact sums, same epilogue
+
+
+def test_int8_model_on_the_card_equals_cpu(cuda):
+    """A tiny int8 model's logits on the card (int8 kernel, K1, K4) against
+    the CPU's (plain versions): the int8 convs agree bit for bit, the gate
+    math's f32 sigmoid / tanh by an ulp, which a bf16 rounding can carry."""
+    from lstm_unet_tpu_torch.models import quantize_model_int8
+
+    for fused in (False, True):
+        cfg = ModelConfig.make(tiny_net_kernel_params(), dtype="bfloat16", quant="int8",
+                               fused_cell=fused)
+        model = ULSTMnet2D(cfg, generator=torch.Generator().manual_seed(0))
+        quantize_model_int8(model, float_dtype=torch.bfloat16)
+        frame = torch.rand(1, 32, 32, 1, generator=torch.Generator().manual_seed(1))
+        with torch.no_grad():
+            _, want = model.step(model.init_state(1, 32, 32), frame)
+            model.to(cuda)
+            reset_counts()
+            _, got = model.step(model.init_state(1, 32, 32), frame.to(cuda))
+        ran = counts()
+        assert ran["conv2d_int8"] == {"kernel": 7 if fused else 9, "plain": 0}
+        assert float((got.cpu() - want).abs().max() / want.abs().max()) < 2.0 ** -5

@@ -9,6 +9,7 @@ bit for bit.
 import glob
 import json
 import os
+import shutil
 import struct
 
 import numpy as np
@@ -189,13 +190,34 @@ def test_cli_digit_4_and_intermediate_probs(tmp_path):
     np.testing.assert_allclose(probs.sum(-1), 1.0, rtol=1e-5)
 
 
-@pytest.mark.parametrize("flag", [["--dtype", "int8"], ["--tta"], ["--tta_mode", "d4"],
+@pytest.mark.parametrize("flag", [["--tta_mode", "flip"], ["--tta"], ["--tta_mode", "d4"],
                                   ["--reset_on_jump", "0.2"], ["--conv_method", "conv"],
-                                  ["--entry_layouts"], ["--calibrate", "2"]])
+                                  ["--entry_layouts"], ["--conv_method", "dots"]])
 def test_cli_rejects_unported_flags(tmp_path, flag):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         cli_main(["--model_path", "m", "--sequence_path", "s", "--output_path",
                   str(tmp_path), "--device", "cpu", *flag])
+
+
+@pytest.mark.parametrize("flags", [["--dtype", "int8"], ["--dtype", "int8", "--calibrate", "2"]])
+def test_cli_int8_and_calibrate_are_ported(tmp_path, flags):
+    """The two flags this test file once rejected: --dtype int8 streams the
+    golden model with int8 convs, --calibrate N writes act_scales.json into
+    the model dir first (a copy here) and the run then uses its static
+    scales (tests/test_torch_quant.py holds both to the reference)."""
+    model_dir = str(tmp_path / "model")
+    shutil.copytree(os.path.join(GOLDEN, "torch_ckpt"), model_dir)
+    seq_dir, _ = synthetic.write_ctc_dataset(str(tmp_path / "ctc"), **GOLDEN_DATA)
+    n = cli_main(["--model_path", model_dir, "--sequence_path", seq_dir, "--output_path",
+                  str(tmp_path / "res"), "--device", "cpu", "--pre_sequence_frames", "2",
+                  "--min_cell_size", "5", *flags])
+    assert n == 8
+    scales = infer.load_act_scales(model_dir)
+    if "--calibrate" in flags:
+        assert len(scales) == 9 and all(v > 0 for k, v in scales.items()
+                                        if not k.endswith("/h"))
+    else:
+        assert scales is None
 
 
 def test_cli_recipe(tmp_path):

@@ -132,5 +132,6 @@ def test_config_state_dtype_and_bf16_step():
                                    torch.rand(1, 16, 16, 1))
     assert logits.dtype == torch.float32 and bool(torch.isfinite(logits).all())
     assert state[0][0][0].dtype == torch.float32
-    with pytest.raises(NotImplementedError, match="int8"):
-        dataclasses.replace(cfg, quant="int8")
+    assert dataclasses.replace(cfg, quant="int8").quant == "int8"  # ported
+    with pytest.raises(ValueError, match="quant"):
+        dataclasses.replace(cfg, quant="int4")
