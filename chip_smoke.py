@@ -19,12 +19,16 @@ Phases, each of which raises (exit != 0) when it fails:
      random, ragged, degenerate and cell-like masks and timed two ways: CUDA
      events around the calls, and the kernel's own device time from
      torch.profiler (one launch per call);
-  c3. the int8 conv kernel (``conv2d_int8``) against its plain version at
-     every distinct int8 conv shape of the flagship at 512^2 (5x5 x- and
-     h-convs, 3x3 encoder and decoder convs up to cin = 1024, the 1x1 head):
-     bit-equal outputs (exact s32 sums, the same f32 epilogue); the kernel's,
-     the plain version's and cuDNN's bf16 conv's times at each shape, and the
-     bound;
+  c3. the int8 conv's two routes at every distinct int8 conv shape of the
+     flagship at 512^2 (5x5 x- and h-convs, 3x3 encoder and decoder convs up
+     to cin = 1024, the 1x1 head): the wgmma kernel (``conv2d_int8_wgmma``,
+     float x quantized as it is staged) bit-equal to its plain version at its
+     15 shapes from bf16 x (and f32 x at the h-conv shapes), dynamic and
+     static scales; the route the model takes bit-equal to the plain quantize
+     + conv at all 16; PR 6's mma_sync kernel (``conv2d_int8``, int8 x)
+     bit-equal to its plain version at all 16 (exact s32 sums, the same f32
+     epilogue); per shape the wgmma kernel's time, PR 6's route (eager
+     quantize + mma_sync), cuDNN's bf16 conv, the bound and its share;
   c2. ``postprocess_frame`` on cell-like 512^2 probabilities (made from a
      seed, no model) with the instance split off, 'dist' and 'prob': equal to
      the same call on the CPU, 1, 2 and 2 K3 launches a frame, ms per frame
@@ -43,12 +47,13 @@ Phases, each of which raises (exit != 0) when it fails:
   d2. int8 (a path of its own, counted from 0): the golden sequence through
      the inference CLI with ``--dtype int8``, fused cell off and on, dynamic
      scales, then ``--calibrate 4`` into a copy of the model dir, each against
-     the same run on the CPU (equal instance count, <= 3 px per frame);
+     the same run on the CPU (equal instance count, <= 3 px per frame), each
+     launching both int8 routes (6 mma_sync + 3 wgmma a frame, fused 5 + 2);
   e2. the flagship at 512^2 through ``run_inference`` with ``dtype='int8'``,
-     fused cell off and on: per frame 25 int8 convs, 4 K1, 1 K3 (unfused) or
-     21 int8 convs, 4 K4 bf16 tensor-core launches, 1 K3 (fused), no plain
-     call; frames/s; one int8 frame's logits within 0.15 of the bf16 frame's
-     largest |logit|;
+     fused cell off and on: per frame 24 wgmma + 1 mma_sync int8 convs, 4 K1,
+     1 K3 (unfused) or 20 + 1 int8 convs, 4 K4 bf16 tensor-core launches, 1
+     K3 (fused), no plain call; frames/s; one int8 frame's logits within 0.15
+     of the bf16 frame's largest |logit|;
   f. K2 (the gate backward) against its plain version at the flagship
      training shapes (B = 5, 256^2 crops), with K2's time;
   g. the flagship trained through ``cli/train2d.main`` (B = 5, T = 7, 256^2
@@ -59,9 +64,11 @@ Phases, each of which raises (exit != 0) when it fails:
   h. one f32 flagship training step (loss and grads) with the kernels
      against the same step with the plain versions patched in.
 The last two lines are a JSON kernel summary (K3's two routes as ``ccl`` and
-``ccl_grid``; ``conv2d_int8`` summed over one unfused int8 frame's 25 convs,
-with each shape beside) and the device JSON. The build
-fails if ptxas reports spills for K4's tensor-core kernel (bf16 or 3xTF32).
+``ccl_grid``; ``conv2d_int8_wgmma`` summed over the 24 convs of one unfused
+int8 frame it takes, with each shape beside; ``conv2d_int8`` at the cin = 1
+site it keeps) and the device JSON. The build
+fails if ptxas reports spills for a tensor-core kernel (K4's bf16 and 3xTF32
+entries, the int8 conv's wgmma entries).
 """
 
 from __future__ import annotations
@@ -734,98 +741,233 @@ def phase_fused_vs_unfused(torch, dtype):
         raise AssertionError(f"fused and unfused {dtype} steps disagree")
 
 
-def flagship_int8_convs():
-    """The int8 convs of one unfused flagship frame at 512^2, by site:
-    ``{(H = W, cin, K, cout): sites}``; fused, the four h-convs
-    (5x5, cin = F) run in K4 instead."""
-    from lstm_unet_tpu_torch.config import default_net_kernel_params
-
-    nkp = default_net_kernel_params()
-    shapes, hw, cin, skips = {}, 512, 1, []
-
-    def add(*key):
-        shapes[key] = shapes.get(key, 0) + 1
-
+def int8_conv_sites(nkp, hw):
+    """The int8 conv sites of one unfused frame of a model of ``nkp`` at
+    ``hw`` x ``hw``, in the model's order: ``[(site, H = W, cin, K, cout)]``
+    with the reference's site names (a ConvLSTM cell's x- and h-convs as
+    ``<cell>/x`` and ``<cell>/h``); fused, the h-convs run in K4 instead."""
+    sites, cin, skips = [], 1, []
     for lvl in range(nkp.depth):
-        for k, f in nkp.lstm_kernels[lvl]:
-            add(hw, cin, k, 4 * f)   # x-conv
-            add(hw, f, k, 4 * f)     # h-conv
+        for j, (k, f) in enumerate(nkp.lstm_kernels[lvl]):
+            sites.append((f"encoder/{lvl}/lstm/{j}/x", hw, cin, k, 4 * f))
+            sites.append((f"encoder/{lvl}/lstm/{j}/h", hw, f, k, 4 * f))
             cin = f
-        for k, f in nkp.down_conv_kernels[lvl]:
-            add(hw, cin, k, f)
+        for j, (k, f) in enumerate(nkp.down_conv_kernels[lvl]):
+            sites.append((f"encoder/{lvl}/convs/{j}", hw, cin, k, f))
             cin = f
         skips.append((hw, cin))
         hw //= 2
     for lvl in reversed(range(nkp.depth)):
         hw, skip = skips[lvl]
-        for k, f in nkp.up_conv_kernels[lvl]:
-            add(hw, cin + skip, k, f)
+        for j, (k, f) in enumerate(nkp.up_conv_kernels[lvl]):
+            sites.append((f"decoder/{lvl}/convs/{j}", hw, cin + skip, k, f))
             cin, skip = f, 0
-    add(512, cin, 1, 3)  # the head
+    sites.append(("head", hw, cin, 1, 3))
+    return sites
+
+
+def flagship_int8_convs():
+    """The int8 convs of one unfused flagship frame at 512^2, by shape:
+    ``{(H = W, cin, K, cout): sites}``."""
+    from lstm_unet_tpu_torch.config import default_net_kernel_params
+
+    shapes = {}
+    for _, *key in int8_conv_sites(default_net_kernel_params(), 512):
+        shapes[tuple(key)] = shapes.get(tuple(key), 0) + 1
     return shapes
 
 
-def phase_conv_int8(torch):
-    """(c3): the int8 conv against its plain version at every flagship
-    shape, bit-equal; times; returns its summary (summed over one frame)."""
-    from lstm_unet_tpu_torch.ops.kernels import conv_int8
+H_CONV_SHAPES = {(512, 128, 5, 512), (256, 256, 5, 1024), (128, 256, 5, 1024),
+                 (64, 512, 5, 2048)}  # the flagship's h-convs: (H = W, cin, K, cout)
 
+
+def conv_bound(m, cin, k, cout, x_bytes):
+    """(ms, by) of an int8 conv: 2*M*N*K operations at the int8 peak against
+    x read once (``x_bytes`` a value), the int8 weights, bf16 y and the
+    per-column scale and bias."""
+    ops = 2.0 * m * cout * k * k * cin
+    nbytes = m * cin * x_bytes + cout * k * k * cin + 2 * m * cout + 8 * cout
+    t_ops, t_bytes = ops / INT8_OPS * 1e3, nbytes / HBM_BPS * 1e3
+    return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
+
+
+def phase_conv_int8(torch):
+    """(c3): both int8 conv routes at every flagship shape. The wgmma route
+    (float x, quantize folded in) bit-equal to its plain version from bf16 x
+    (dynamic and static scale, bf16 and f32 out) at its 15 shapes, from f32 x
+    at the h-conv shapes too; the route the model takes bit-equal to the
+    plain quantize + conv at all 16; PR 6's mma_sync kernel bit-equal to its
+    plain version at all 16 (int8 x). Times per shape: the wgmma kernel
+    (static scale), the op as the stream runs it (dynamic: abs-max + kernel),
+    PR 6's route (eager quantize_act + mma_sync, what the stream ran before),
+    PR 6's kernel alone, cuDNN's bf16 conv, the bound for the bytes each
+    route reads and its share; at the shapes that take 128-column tiles, the
+    256-column tile beside them. Returns the two routes' summaries."""
+    from lstm_unet_tpu_torch.ops import quant
+    from lstm_unet_tpu_torch.ops.kernels import _build, conv_int8
+
+    lib = _build.library()
+    for k in conv_int8.WG_KERNEL_SIZES:
+        for tn in conv_int8.WG_STAGES:
+            for xb in (2, 4):
+                if lib.lut_conv2d_int8_wgmma_smem(k, tn, xb) != conv_int8.wgmma_smem_bytes(k, tn,
+                                                                                          xb):
+                    raise AssertionError(f"int8 wgmma smem formula differs at {k}x{k} N {tn} "
+                                         f"x {xb} bytes")
     g = torch.Generator(device="cuda").manual_seed(11)
     shapes = flagship_int8_convs()
     if sum(shapes.values()) != 25:
         raise AssertionError(f"expected 25 int8 convs a flagship frame, got {shapes}")
-    rows, total = [], dict(ms=0.0, plain_ms=0.0, cudnn_ms=0.0, ops_ms=0.0, bytes_ms=0.0)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    keys = ("wgmma_ms", "wgmma_dyn_ms", "pr6_ms", "pr6_kernel_ms", "plain_ms", "cudnn_ms",
+            "bound_ms", "pr6_bound_ms")
+    rows, frame = [], {k: 0.0 for k in keys}
+    wg_sum = {k: 0.0 for k in ("ms", "plain_ms", "ops_ms", "bytes_ms", "cudnn_ms")}
+    mma = None
     for (hw, cin, k, cout), sites in shapes.items():
-        xq = torch.randint(-127, 128, (1, hw, hw, cin), device="cuda", generator=g,
-                           dtype=torch.int32).to(torch.int8)
+        rt = conv_int8.route(hw, hw, cin, k, cout)
         kq = torch.randint(-127, 128, (cout, cin, k, k), device="cuda", generator=g,
                            dtype=torch.int32).to(torch.int8)
-        packed = conv_int8.pack_weight(kq)
-        s_x = torch.tensor(3.0 / 127, device="cuda")
+        kq[:, 0, 0, 0] = 127  # each row's max |k| is 127: quantize_weight keeps kq as it is
         w_scale = torch.rand(cout, device="cuda", generator=g) * 1e-3
         bias = torch.randn(cout, device="cuda", generator=g)
-        args = (xq, s_x, packed, w_scale, bias, k, k)
+        static = torch.tensor(3.0 / 127, device="cuda")
+        x = (torch.randn(1, hw, hw, cin, device="cuda", generator=g) * 1.5).to(torch.bfloat16)
+        m = hw * hw
+        row = dict(shape=f"{hw}^2 {cin}->{cout} {k}x{k}", sites=sites, route=rt)
+
+        # PR 6's kernel on int8 x, bit-equal (as before), and its route
+        packed6 = conv_int8.pack_weight(kq)
+        xq = torch.randint(-127, 128, (1, hw, hw, cin), device="cuda", generator=g,
+                           dtype=torch.int32).to(torch.int8)
+        args6 = (xq, static, packed6, w_scale, bias, k, k)
         for dt in (torch.bfloat16, torch.float32):
-            got = conv_int8.conv2d_int8(*args, dt)
-            want = conv_int8.conv2d_int8_plain(*args, dt)
+            got = conv_int8.conv2d_int8(*args6, dt)
+            want = conv_int8.conv2d_int8_plain(*args6, dt)
             torch.cuda.synchronize()
             if not torch.equal(got, want):
-                raise AssertionError(
-                    f"conv2d_int8 {hw}^2 {cin}->{cout} {k}x{k} {dt}: "
-                    f"{int((got != want).sum())} outputs differ, max {max_err(got, want)}")
-        ms = time_ms(lambda: conv_int8.conv2d_int8(*args, torch.bfloat16), 20)
-        plain = time_ms(lambda: conv_int8.conv2d_int8_plain(*args, torch.bfloat16), 2)
-        # the yardstick the int8 path replaces (not called by the port):
-        # cuDNN's bf16 conv of the same shape, NHWC, with the bias
-        xb = (torch.randn(1, hw, hw, cin, device="cuda", generator=g)
-              .to(torch.bfloat16).permute(0, 3, 1, 2))
+                raise AssertionError(f"conv2d_int8 {row['shape']} {dt}: "
+                                     f"{int((got != want).sum())} outputs differ")
+
+        def pr6_route():
+            qx, s_x = quant.quantize_act(x)
+            return conv_int8.conv2d_int8(qx, s_x, packed6, w_scale, bias, k, k, torch.bfloat16)
+
+        row["pr6_kernel_ms"] = time_ms(lambda: conv_int8.conv2d_int8(*args6, torch.bfloat16), 20)
+        row["pr6_ms"] = time_ms(pr6_route, 20)
+        row["pr6_bound_ms"] = conv_bound(m, cin, k, cout, 1)[0]
+
+        # the route the model takes, from bf16 x, against the plain quantize + conv
+        weight = quant.QWeight(kq.float(), bias)
+        weight.w_scale.copy_(w_scale)
+        if not torch.equal(weight.kernel_q, kq) or (weight.packed.dim() == 7) != (rt == "wgmma"):
+            raise AssertionError(f"int8 site {row['shape']}: the weights or route changed")
+        got = quant.conv2d_q(x, weight, None, torch.bfloat16)
+        qx, s_x = quant.quantize_act(x)
+        want = conv_int8.conv2d_int8_plain(qx, s_x, packed6, w_scale, bias, k, k, torch.bfloat16)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"conv2d_q {row['shape']} ({rt} route): "
+                                 f"{int((got != want).sum())} outputs differ from the plain "
+                                 f"quantize + conv")
+
+        xb = x.permute(0, 3, 1, 2)  # cuDNN's bf16 conv, NHWC, with the bias
         wb = kq.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
         bb = bias.to(torch.bfloat16)
-        cudnn = time_ms(lambda: torch.nn.functional.conv2d(xb, wb, bb, padding=k // 2), 20)
-        m, kdim = hw * hw, k * k * cin
-        ops = 2.0 * m * cout * kdim
-        nbytes = m * cin + cout * kdim + 2 * m * cout + 8 * cout  # x, w, y bf16, scales
-        t_ops, t_bytes = ops / INT8_OPS * 1e3, nbytes / HBM_BPS * 1e3
-        row = dict(shape=f"{hw}^2 {cin}->{cout} {k}x{k}", sites=sites, ms=ms, plain_ms=plain,
-                   cudnn_bf16_ms=cudnn, bound_ms=max(t_ops, t_bytes),
-                   bound_by="operations" if t_ops > t_bytes else "bytes")
+        row["cudnn_ms"] = time_ms(lambda: torch.nn.functional.conv2d(xb, wb, bb, padding=k // 2),
+                                  20)
+        if rt == "wgmma":
+            packed = weight.packed
+            # bit-equal to the plain version: bf16 x dynamic and static, bf16
+            # and f32 out; f32 x at the h-conv shapes
+            cases = [(x, sc, dt) for sc in (None, static) for dt in (torch.bfloat16, torch.float32)]
+            if (hw, cin, k, cout) in H_CONV_SHAPES:
+                cases += [(x.float(), sc, torch.bfloat16) for sc in (None, static)]
+            for xx, sc, dt in cases:
+                a = (xx, sc, packed, w_scale, bias, k, dt)
+                got = conv_int8.conv2d_int8_wgmma(*a)
+                want = conv_int8.conv2d_int8_wgmma_plain(*a)
+                torch.cuda.synchronize()
+                if not torch.equal(got, want):
+                    raise AssertionError(
+                        f"conv2d_int8_wgmma {row['shape']} x {xx.dtype} "
+                        f"{'dynamic' if sc is None else 'static'} -> {dt}: "
+                        f"{int((got != want).sum())} outputs differ, max {max_err(got, want)}")
+            # timed with a static scale as calibration makes one (an absmax
+            # seen on other frames, / 127); 3 / 127 above has few significant
+            # bits, so it sends more values to the division
+            calib = torch.tensor(float(x.abs().max()) * 1.0137 / 127, device="cuda")
+            kern = (x, calib, packed, w_scale, bias, k, torch.bfloat16)
+            row["tile_n"] = conv_int8.kernel_tile_n(1, hw, hw, cout, sms)
+            row["wgmma_ms"] = time_ms(lambda: conv_int8.conv2d_int8_wgmma(*kern), 20)
+            row["wgmma_dyn_ms"] = time_ms(
+                lambda: conv_int8.conv2d_int8_wgmma(x, None, *kern[2:]), 20)
+            row["plain_ms"] = time_ms(lambda: conv_int8.conv2d_int8_wgmma_plain(*kern), 2)
+            if row["tile_n"] != conv_int8.pack_tile_n(cout):
+                row["wgmma_ms_tile256"] = time_ms(
+                    lambda: conv_int8.conv2d_int8_wgmma(*kern, tile_n=256), 20)
+            if (hw, cin, k, cout) in H_CONV_SHAPES:
+                kern32 = (x.float(),) + kern[1:]
+                row["wgmma_f32x_ms"] = time_ms(lambda: conv_int8.conv2d_int8_wgmma(*kern32), 20)
+                row["f32x_bound_ms"] = conv_bound(m, cin, k, cout, 4)[0]
+            row["bound_ms"], row["bound_by"] = conv_bound(m, cin, k, cout, 2)
+            row["share"] = row["bound_ms"] / row["wgmma_ms"]
+            ops = 2.0 * m * cout * k * k * cin
+            for key, v in (("ms", row["wgmma_ms"]), ("plain_ms", row["plain_ms"]),
+                           ("ops_ms", ops / INT8_OPS * 1e3),
+                           ("bytes_ms", (m * cin * 2 + cout * k * k * cin + 2 * m * cout
+                                         + 8 * cout) / HBM_BPS * 1e3),
+                           ("cudnn_ms", row["cudnn_ms"])):
+                wg_sum[key] += sites * v
+            frame_ms, frame_dyn = row["wgmma_ms"], row["wgmma_dyn_ms"]
+            extra = (f"; tile 256: {row['wgmma_ms_tile256']:.4f} ms"
+                     if "wgmma_ms_tile256" in row else "")
+            if "wgmma_f32x_ms" in row:
+                extra += (f"; f32 x {row['wgmma_f32x_ms']:.4f} ms "
+                          f"({100 * row['f32x_bound_ms'] / row['wgmma_f32x_ms']:.1f}% of "
+                          f"{row['f32x_bound_ms']:.4f})")
+            log(f"conv2d_int8_wgmma {row['shape']} (x{sites} a frame, tile N {row['tile_n']}): "
+                f"bit-equal to the plain version ({len(cases)} cases); kernel "
+                f"{row['wgmma_ms']:.4f} ms ({ops / row['wgmma_ms'] / 1e9:.1f} TOP/s, "
+                f"{100 * row['share']:.1f}% of the {row['bound_ms']:.4f} ms bound, "
+                f"{row['bound_by']}), with the abs-max {row['wgmma_dyn_ms']:.4f} ms; PR 6's "
+                f"route {row['pr6_ms']:.4f} ms (kernel {row['pr6_kernel_ms']:.4f}); cuDNN bf16 "
+                f"{row['cudnn_ms']:.4f} ms; plain {row['plain_ms']:.3f} ms{extra}")
+        else:
+            # the mma_sync route keeps this site (cin = 1): its summary
+            row["plain_ms"] = time_ms(lambda: conv_int8.conv2d_int8_plain(*args6, torch.bfloat16),
+                                      2)
+            row["bound_ms"], row["bound_by"] = conv_bound(m, cin, k, cout, 1)
+            mma = summary(row["pr6_kernel_ms"], row["plain_ms"], 0.0,
+                          (row["bound_ms"], row["bound_by"]))
+            mma.update(shape=row["shape"], route_ms=row["pr6_ms"], cudnn_bf16_ms=row["cudnn_ms"])
+            frame_ms, frame_dyn = row["pr6_kernel_ms"], row["pr6_ms"]
+            log(f"conv2d_int8 (mma_sync route) {row['shape']} (x{sites} a frame): bit-equal "
+                f"to the plain version; kernel {row['pr6_kernel_ms']:.4f} ms "
+                f"({100 * row['bound_ms'] / row['pr6_kernel_ms']:.1f}% of the "
+                f"{row['bound_ms']:.4f} ms bound, {row['bound_by']}), with quantize_act "
+                f"{row['pr6_ms']:.4f} ms; cuDNN bf16 {row['cudnn_ms']:.4f} ms")
         rows.append(row)
-        for key, v in (("ms", ms), ("plain_ms", plain), ("cudnn_ms", cudnn),
-                       ("ops_ms", t_ops), ("bytes_ms", t_bytes)):
-            total[key] += sites * v
-        log(f"conv2d_int8 {row['shape']} (x{sites} a frame): bit-equal to the plain version "
-            f"(bf16 and f32 out); kernel {ms:.4f} ms ({ops / ms / 1e9:.1f} TOP/s, "
-            f"{100 * row['bound_ms'] / ms:.1f}% of the {row['bound_ms']:.4f} ms bound, "
-            f"{row['bound_by']}), plain {plain:.3f} ms, cuDNN bf16 conv {cudnn:.4f} ms")
-        del xq, kq, packed, xb, wb
+        for key, v in (("wgmma_ms", frame_ms), ("wgmma_dyn_ms", frame_dyn),
+                       ("pr6_ms", row["pr6_ms"]), ("pr6_kernel_ms", row["pr6_kernel_ms"]),
+                       ("plain_ms", row["plain_ms"]), ("cudnn_ms", row["cudnn_ms"]),
+                       ("bound_ms", row["bound_ms"]), ("pr6_bound_ms", row["pr6_bound_ms"])):
+            frame[key] += sites * v
+        del kq, packed6, xq, x, xb, wb, weight
         torch.cuda.empty_cache()
-    bound_ms = max(total["ops_ms"], total["bytes_ms"])
-    log(f"conv2d_int8 over one unfused flagship frame (25 convs): kernel {total['ms']:.4f} ms, "
-        f"plain {total['plain_ms']:.3f} ms, cuDNN bf16 {total['cudnn_ms']:.4f} ms, bound "
-        f"{bound_ms:.4f} ms")
-    return dict(max_abs_err=0.0, ms=total["ms"], plain_ms=total["plain_ms"], bound_ms=bound_ms,
-                bound_by="operations" if total["ops_ms"] > total["bytes_ms"] else "bytes",
-                library_ms=None, yardstick_cudnn_bf16_ms=total["cudnn_ms"], shapes=rows)
+    log(f"int8 convs over one unfused flagship frame (25: 24 wgmma + 1 mma_sync), bf16 x: "
+        f"kernels {frame['wgmma_ms']:.4f} ms, as the stream runs them (dynamic scales) "
+        f"{frame['wgmma_dyn_ms']:.4f} ms; PR 6's route {frame['pr6_ms']:.4f} ms (its kernels "
+        f"{frame['pr6_kernel_ms']:.4f} ms); cuDNN bf16 {frame['cudnn_ms']:.4f} ms; bound "
+        f"{frame['bound_ms']:.4f} ms (PR 6's int8-x bound {frame['pr6_bound_ms']:.4f} ms); "
+        f"plain {frame['plain_ms']:.3f} ms")
+    wg_bound = max(wg_sum["ops_ms"], wg_sum["bytes_ms"])
+    wgmma = dict(max_abs_err=0.0, ms=wg_sum["ms"], plain_ms=wg_sum["plain_ms"],
+                 bound_ms=wg_bound,
+                 bound_by="operations" if wg_sum["ops_ms"] > wg_sum["bytes_ms"] else "bytes",
+                 library_ms=None, yardstick_cudnn_bf16_ms=wg_sum["cudnn_ms"], frame=frame,
+                 shapes=rows)
+    return {"conv2d_int8_wgmma": wgmma, "conv2d_int8": mma}
 
 
 def phase_golden(torch, work):
@@ -980,11 +1122,15 @@ def phase_golden_int8(torch, work):
                           "--min_cell_size", "5", "--dtype", "int8", *extra])
             after = kernels.counts()
             if device == "cuda":
+                # a frame of the tiny model: cin 1, 8 and 24 on mma_sync,
+                # cin 16 and 32 on wgmma (fused: the h-convs run in K4)
                 ran = {k: after[k]["kernel"] - before[k]["kernel"] for k in after}
-                want = (n + 2) * (7 if extra == ["--fused_cell"] else 9)
-                if n != 8 or ran["conv2d_int8"] != want:
+                per = (5, 2) if extra == ["--fused_cell"] else (6, 3)
+                want = {"conv2d_int8": (n + 2) * per[0], "conv2d_int8_wgmma": (n + 2) * per[1]}
+                got = {k: ran[k] for k in want}
+                if n != 8 or got != want:
                     raise AssertionError(f"golden int8 {tag}: {n} masks, int8 conv launches "
-                                         f"{ran['conv2d_int8']}, expected {want}")
+                                         f"{got}, expected {want}")
             else:  # the CPU run's plain calls are no part of the path's count
                 for k in after:
                     kernels.KERNELS[k].plain = before[k]["plain"]
@@ -1038,7 +1184,7 @@ def phase_flagship_int8(torch, work, card):
         after = kernels.counts()
         d = {k: {s: after[k][s] - before[k][s] for s in ("kernel", "plain")} for k in after}
         steps = n + 2
-        want = {"conv2d_int8": (21 if fused else 25) * steps,
+        want = {"conv2d_int8": steps, "conv2d_int8_wgmma": (20 if fused else 24) * steps,
                 "fused_convlstm_level_wgmma": (4 if fused else 0) * steps,
                 "lstm_gate_update": (0 if fused else 4) * steps, "ccl": steps,
                 "fused_convlstm_level": 0, "fused_convlstm_level_tf32x3": 0, "ccl_grid": 0}
@@ -1103,23 +1249,30 @@ def main() -> int:
         f"{os.path.relpath(_build.library_path(), HERE)})")
     with open(os.path.join(_build.BUILD_DIR, "build.log")) as f:
         ptxas = f.read().splitlines()
-    entry, tensor_core = None, set()
+    entry, tensor_core, int8_wgmma = None, set(), set()
     for line in ptxas:
         if "Compiling entry function" in line:
             entry = line.split("'")[1]
         if "registers" in line or "spill" in line:
             log("  ptxas:", line.strip())
-            if entry and "convlstm_wgmma_kernel" in entry and "spill" in line:
-                tensor_core.add("Tf32x3" if "Tf32x3" in entry else "Bf16")
+            if entry and "wgmma_kernel" in entry and "spill" in line:
+                if "convlstm_wgmma_kernel" in entry:
+                    tensor_core.add("Tf32x3" if "Tf32x3" in entry else "Bf16")
+                elif "conv_int8_wgmma_kernel" in entry:
+                    int8_wgmma.add(entry)
                 if "0 bytes spill stores, 0 bytes spill loads" not in line:
-                    raise AssertionError(f"K4's tensor-core kernel spills: {entry}: "
+                    raise AssertionError(f"a tensor-core kernel spills: {entry}: "
                                          f"{line.strip()}")
     if tensor_core != {"Bf16", "Tf32x3"}:
         raise AssertionError(f"ptxas reported no spill line for K4's {tensor_core} entries")
+    # x bf16 / f32, y bf16 / f32, N tile 256 / 128 / 8
+    if len(int8_wgmma) != 12:
+        raise AssertionError(f"ptxas reported spill lines for {len(int8_wgmma)} of the 12 "
+                             f"int8 wgmma entries")
 
     # (c) kernels vs plain versions; (f) K2
     kernel_summary = phase_kernels(torch)
-    kernel_summary["conv2d_int8"] = phase_conv_int8(torch)
+    kernel_summary.update(phase_conv_int8(torch))
     phase_postprocess(torch)
     phase_fused_vs_unfused(torch, "float32")
     phase_fused_vs_unfused(torch, "bfloat16")
@@ -1144,7 +1297,8 @@ def main() -> int:
         phase_golden_int8(torch, work)
         phase_flagship_int8(torch, work, smi)
         int8 = kernels.counts()
-        for k in ("conv2d_int8", "lstm_gate_update", "ccl", "fused_convlstm_level_wgmma"):
+        for k in ("conv2d_int8", "conv2d_int8_wgmma", "lstm_gate_update", "ccl",
+                  "fused_convlstm_level_wgmma"):
             if int8[k]["kernel"] == 0:
                 raise AssertionError(f"int8 path: {k} never launched: {int8}")
         if any(v["plain"] for v in int8.values()):
@@ -1173,7 +1327,10 @@ def main() -> int:
                "fused_convlstm_level_tf32x3": ("lstm_unet_tpu_torch/csrc/convlstm_wgmma.cu",
                                                "lstm_unet_tpu/ops/pallas/convlstm_cell.py:140"),
                "conv2d_int8": ("lstm_unet_tpu_torch/csrc/conv_int8.cu",
-                               "lstm_unet_tpu/ops/quant.py:91 (XLA int8 conv; no pallas_call)")}
+                               "lstm_unet_tpu/ops/quant.py:91 (XLA int8 conv; no pallas_call)"),
+               "conv2d_int8_wgmma": ("lstm_unet_tpu_torch/csrc/conv_int8_wgmma.cu",
+                                     "lstm_unet_tpu/ops/quant.py:91 (XLA int8 conv; no "
+                                     "pallas_call)")}
     log(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": sources[k][0], "replaces": sources[k][1],
          "launches": launched[k]["kernel"], **kernel_summary[k]} for k in sources]}))

@@ -20,7 +20,8 @@ KERNELS = {
     "fused_convlstm_level": convlstm_cell.COUNT,    # K4, SIMT route
     "fused_convlstm_level_wgmma": convlstm_cell.WGMMA_COUNT,  # K4, bf16 tensor cores
     "fused_convlstm_level_tf32x3": convlstm_cell.TF32X3_COUNT,  # K4, f32 as 3xTF32
-    "conv2d_int8": conv_int8.COUNT,                 # the int8 conv (no TPU kernel)
+    "conv2d_int8": conv_int8.COUNT,                 # the int8 conv (no TPU kernel), mma_sync
+    "conv2d_int8_wgmma": conv_int8.WGMMA_COUNT,     # the int8 conv, wgmma, quantize folded in
 }
 
 

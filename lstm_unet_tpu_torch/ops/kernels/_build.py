@@ -55,6 +55,9 @@ _SIGNATURES = {
     "lut_ccl_grid": ([_P, _P, _I, _I, _P], _I),
     "lut_conv2d_int8": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
                         _I),
+    "lut_conv2d_int8_wgmma": ([_P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                               _I, _I, _P], _I),
+    "lut_conv2d_int8_wgmma_smem": ([_I, _I, _I], _LL),
     "lut_error_string": ([_I], ctypes.c_char_p),
 }
 

@@ -1,4 +1,4 @@
-"""The int8 conv: s8 x s8 -> s32 implicit GEMM (CUDA kernel + plain version).
+"""The int8 conv: s8 x s8 -> s32 implicit GEMM, two CUDA routes + plain versions.
 
 Replaces the int8 conv of ``lstm_unet_tpu/ops/quant.py::conv2d_q`` (the XLA
 conv of ``_conv_int8``, ``quant.py:91``; the JAX package wrote no Pallas
@@ -12,35 +12,88 @@ their per-output-channel f32 scales ``w_scale [N]``::
 then ``y`` is rounded once to ``out_dtype`` (float32 or bfloat16). With no
 bias the add is skipped, as the reference skips it.
 
-The weights go in packed once (:func:`pack_weight`, made when the model is
-quantized): ``[N_pad, K_pad]`` int8, K ordered (tap, input channel), N padded
-to a multiple of 128 and K to one of 64 with zeros, the layout
-``csrc/conv_int8.cu`` reads as the GEMM's B.
+:func:`route` picks one of two kernels by shape alone, each with its own
+launch count:
 
-:func:`conv2d_int8` takes the plain version for CPU tensors and launches the
-kernel for CUDA tensors; both are counted in :data:`COUNT`. The plain version
-is exact on both devices, so the two are compared bit for bit: on the CPU
-``F.conv2d`` on int32 tensors; on the card a float64 conv with cuDNN off
+- ``"wgmma"`` (``csrc/conv_int8_wgmma.cu``, :func:`conv2d_int8_wgmma`,
+  :data:`WGMMA_COUNT`): ``cin % 16 == 0`` and a square kernel of 1, 3 or 5.
+  It takes the float activation and its scale (static, or None: dynamic)
+  and folds the reference's activation quantize (:func:`quantize_act`) into
+  its staging, so no int8 activation reaches device memory; with a dynamic
+  scale one abs-max pass stays outside it. Weights go in packed once by
+  :func:`pack_weight_wgmma`. It takes 24 of the flagship's 25 int8 sites.
+- ``"mma_sync"`` (``csrc/conv_int8.cu``, :func:`conv2d_int8`,
+  :data:`COUNT`): every other shape (the flagship's cin = 1 x-conv, the
+  tiny model's cin 8 and 24), on an int8 ``xq`` from :func:`quantize_act`;
+  weights packed once by :func:`pack_weight`.
+
+Each wrapper takes its plain version for CPU tensors and launches its kernel
+for CUDA tensors. The plain versions are exact on both devices, so kernels
+and plain versions are compared bit for bit: the sums by ``F.conv2d`` on
+int32 tensors on the CPU, on the card by a float64 conv with cuDNN off
 (every partial sum is an integer below 2^53, so any order of summation is
-exact), rounded back to int32.
+exact), rounded back to int32. The wgmma route's plain version is
+:func:`quantize_act` followed by the mma_sync route's plain arithmetic.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from . import _build
 
-COUNT = _build.LaunchCount()
+COUNT = _build.LaunchCount()        # the mma_sync route
+WGMMA_COUNT = _build.LaunchCount()  # the wgmma route (quantize folded in)
 
 BLOCK_N, BLOCK_K = 128, 64  # tile of csrc/conv_int8.cu: N and K padding
+
+# csrc/conv_int8_wgmma.cu: 128-channel chunks of 8 planes of 16 bytes, tiles
+# of 2 rows x 64 pixels, N tiles of 256, 128 or 8 columns
+WG_CHUNK, WG_PLANES, WG_ROWS, WG_COLS = 128, 8, 2, 64
+WG_KERNEL_SIZES = (1, 3, 5)
+WG_STAGES = {256: 3, 128: 6, 8: 8}  # the weight ring's depth per N tile
+WG_RAW = 3  # slabs of the raw x ring
+SMEM_LIMIT = 232_448  # bytes of shared memory one Hopper block may use
 
 
 def _ceil_to(v: int, m: int) -> int:
     return -(-v // m) * m
+
+
+def quantize_act(x: torch.Tensor, scale: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-tensor symmetric quantization -> (int8 x, 0-d f32 scale on x's
+    device): ``clip(round(x_f32 / s), -127, 127)``, a true division rounded
+    half to even. ``scale=None`` computes it from ``x`` (``max(max|x|, 1e-8)
+    / 127``, no host read); a static (calibrated) scale skips the reduction."""
+    if scale is None:  # max|x| is exact in x's dtype: one pass, no f32 copy
+        amax = torch.linalg.vector_norm(x, ord=float("inf")).float()
+        scale = torch.clamp(amax, min=1e-8) / 127.0
+    xf = x.float()  # a new tensor (or x itself when x is f32: not updated in place)
+    xf = xf.div(scale) if xf is x else xf.div_(scale)
+    return xf.round_().clamp_(-127, 127).to(torch.int8), scale
+
+
+def route(h: int, w: int, cin: int, k: int, cout: int) -> Optional[str]:
+    """The int8 conv kernel of a site with a square ``k`` x ``k`` kernel:
+    ``"wgmma"``, ``"mma_sync"``, or None for an empty one. Shape alone."""
+    if min(h, w, cin, k, cout) <= 0:
+        return None
+    if cin % 16 == 0 and k in WG_KERNEL_SIZES:
+        return "wgmma"
+    return "mma_sync"
+
+
+def weight_route(kernel_q: torch.Tensor) -> str:
+    """The route of an OIHW kernel's site (the frame's size does not matter)."""
+    n, cin, kh, kw = kernel_q.shape
+    return route(1, 1, cin, kh, n) if kh == kw else "mma_sync"
+
+
+# ---------------------------------------------------------------- mma_sync route
 
 
 def pack_weight(kernel_q: torch.Tensor) -> torch.Tensor:
@@ -77,19 +130,36 @@ def conv_acc_plain(xq: torch.Tensor, kernel_q: torch.Tensor) -> torch.Tensor:
     return acc.permute(0, 2, 3, 1)
 
 
+def _dequant_plain(xq, s_x, kernel_q, w_scale, bias, out_dtype):
+    """The exact sums, then ``acc * (s_x * w_scale) [+ bias]`` in f32, in the
+    reference's order, then ``out_dtype``."""
+    y = conv_acc_plain(xq, kernel_q).float() * (s_x * w_scale)
+    return (y if bias is None else y + bias).to(out_dtype)
+
+
 def conv2d_int8_plain(xq: torch.Tensor, s_x: torch.Tensor, packed: torch.Tensor,
                       w_scale: torch.Tensor, bias: Optional[torch.Tensor], kh: int,
                       kw: int, out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """Plain PyTorch version of the kernel (same arguments): the exact sums,
-    then ``acc * (s_x * w_scale) [+ bias]`` in f32, in the reference's order."""
+    """Plain PyTorch version of the mma_sync kernel (same arguments)."""
     COUNT.plain += 1
     kq = unpack_weight(packed, w_scale.shape[0], xq.shape[-1], kh, kw)
-    y = conv_acc_plain(xq, kq).float() * (s_x * w_scale)
-    return (y if bias is None else y + bias).to(out_dtype)
+    return _dequant_plain(xq, s_x, kq, w_scale, bias, out_dtype)
 
 
 def _present(*ts):
     return [t for t in ts if t is not None]
+
+
+def _check_common(s_x, w_scale, bias, out_dtype, name) -> None:
+    n = w_scale.shape[0]
+    if s_x is not None and (s_x.numel() != 1 or s_x.dtype != torch.float32):
+        raise TypeError(f"{name}: the scale must be a 0-d float32 tensor")
+    if w_scale.dtype != torch.float32:
+        raise TypeError(f"{name}: w_scale must be float32")
+    if bias is not None and (bias.shape != w_scale.shape or bias.dtype != torch.float32):
+        raise ValueError(f"bias must be float32 [{n}]")
+    if out_dtype not in _build.DTYPES:
+        raise TypeError(f"out_dtype must be float32 or bfloat16, got {out_dtype}")
 
 
 def _check(xq, s_x, packed, w_scale, bias, kh, kw, out_dtype) -> None:
@@ -102,20 +172,35 @@ def _check(xq, s_x, packed, w_scale, bias, kh, kw, out_dtype) -> None:
     if packed.dtype != torch.int8 or tuple(packed.shape) != want:
         raise ValueError(f"packed weight {tuple(packed.shape)} {packed.dtype} is not the "
                          f"pack of a {kh}x{kw} kernel, Cin={cin}, N={n}: want {want}")
-    if s_x.numel() != 1 or s_x.dtype != torch.float32 or w_scale.dtype != torch.float32:
-        raise TypeError("s_x (0-d) and w_scale must be float32")
-    if bias is not None and (bias.shape != w_scale.shape or bias.dtype != torch.float32):
-        raise ValueError(f"bias must be float32 [{n}]")
-    if out_dtype not in _build.DTYPES:
-        raise TypeError(f"out_dtype must be float32 or bfloat16, got {out_dtype}")
+    if s_x is None:
+        raise TypeError("conv2d_int8: s_x is required")
+    _check_common(s_x, w_scale, bias, out_dtype, "conv2d_int8")
     if len({t.device for t in _present(xq, s_x, packed, w_scale, bias)}) != 1:
         raise ValueError("xq, s_x, the weights and the bias must be on one device")
+
+
+def _call(fn, x: torch.Tensor, args, name: str) -> None:
+    """Call a C entry on x's device and raise on the error it reports."""
+    if x.device.index == torch.cuda.current_device():
+        err = fn(*args)
+    else:
+        with torch.cuda.device(x.device):
+            err = fn(*args)
+    _build.check(err, name)
+
+
+def _cuda_inputs_ok(x: torch.Tensor, packed: torch.Tensor, *rest) -> None:
+    if not all(t.is_contiguous() for t in _present(x, packed, *rest)):
+        raise ValueError("the int8 conv kernels need contiguous inputs, weights and bias")
+    if x.data_ptr() % 16 or packed.data_ptr() % 16:
+        raise ValueError("the int8 conv kernels need 16-byte aligned inputs and weights")
 
 
 def conv2d_int8(xq: torch.Tensor, s_x: torch.Tensor, packed: torch.Tensor,
                 w_scale: torch.Tensor, bias: Optional[torch.Tensor], kh: int, kw: int,
                 out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """``y [B,H,W,N]`` in ``out_dtype`` of the int8 conv described above.
+    """``y [B,H,W,N]`` in ``out_dtype`` of the int8 conv described above, on
+    the mma_sync route.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel (any
     other device raises). ``xq`` must be contiguous and 16-byte aligned.
@@ -125,24 +210,153 @@ def conv2d_int8(xq: torch.Tensor, s_x: torch.Tensor, packed: torch.Tensor,
         return conv2d_int8_plain(xq, s_x, packed, w_scale, bias, kh, kw, out_dtype)
     if xq.device.type != "cuda":
         raise ValueError(f"no int8 conv kernel for device {xq.device}")
-    if not all(t.is_contiguous() for t in _present(xq, s_x, packed, w_scale, bias)):
-        raise ValueError("the int8 conv kernel needs contiguous xq, weights and bias")
-    if xq.data_ptr() % 16 or packed.data_ptr() % 16:
-        raise ValueError("the int8 conv kernel needs 16-byte aligned xq and weights")
+    _cuda_inputs_ok(xq, packed, s_x, w_scale, bias)
     b, h, w, cin = xq.shape
     n = w_scale.shape[0]
     y = torch.empty(b, h, w, n, dtype=out_dtype, device=xq.device)
     if y.numel() == 0:
         return y
-    fn = _build.library().lut_conv2d_int8
-    args = (xq.data_ptr(), packed.data_ptr(), s_x.data_ptr(), w_scale.data_ptr(),
-            None if bias is None else bias.data_ptr(), y.data_ptr(), b, h, w, cin, kh, kw,
-            n, packed.shape[1], _build.DTYPES[out_dtype], _build.stream_handle(xq))
-    if xq.device.index == torch.cuda.current_device():
-        err = fn(*args)
-    else:
-        with torch.cuda.device(xq.device):
-            err = fn(*args)
-    _build.check(err, "lut_conv2d_int8")
+    _call(_build.library().lut_conv2d_int8, xq,
+          (xq.data_ptr(), packed.data_ptr(), s_x.data_ptr(), w_scale.data_ptr(),
+           None if bias is None else bias.data_ptr(), y.data_ptr(), b, h, w, cin, kh, kw,
+           n, packed.shape[1], _build.DTYPES[out_dtype], _build.stream_handle(xq)),
+          "lut_conv2d_int8")
     COUNT.kernel += 1
+    return y
+
+
+# ---------------------------------------------------------------- wgmma route
+#
+# The weights are packed once as [N_pad/T column tiles][Cin_pad/128 chunks]
+# [K, K taps][8 planes][T columns][16 channels]: stage (tile, chunk, tap) is
+# one contiguous block in the no-swizzle K-major layout wgmma reads from
+# shared memory (plane p of a stage holds channels 16p .. 16p + 15 of the
+# chunk for T output columns). T is the pack's tile: 8 for cout <= 8 (the
+# head, N padded to wgmma's smallest s8 N), 128 for cout <= 128, else 256.
+# Padding (columns >= cout, channels >= cin) is zero.
+
+
+def pack_tile_n(cout: int) -> int:
+    """Columns of one tile of :func:`pack_weight_wgmma`'s pack."""
+    return 8 if cout <= 8 else 128 if cout <= 128 else 256
+
+
+def pack_weight_wgmma(kernel_q: torch.Tensor) -> torch.Tensor:
+    """OIHW int8 ``kernel_q [N,Cin,K,K]`` (Cin % 16 == 0) -> the wgmma
+    route's pack ``[N_pad/T, Cin_pad/128, K, K, 8, T, 16]``, in one copy."""
+    if kernel_q.dtype != torch.int8 or kernel_q.dim() != 4:
+        raise ValueError(f"pack_weight_wgmma takes an OIHW int8 kernel, got "
+                         f"{tuple(kernel_q.shape)} {kernel_q.dtype}")
+    n, cin, kh, kw = kernel_q.shape
+    if weight_route(kernel_q) != "wgmma":
+        raise ValueError(f"the wgmma route takes Cin % 16 == 0 and a square 1, 3 or 5 "
+                         f"kernel, got Cin={cin} {kh}x{kw}")
+    t = pack_tile_n(n)
+    npad, cpad = _ceil_to(n, t), _ceil_to(cin, WG_CHUNK)
+    w = torch.zeros(npad, kh, kw, cpad, dtype=torch.int8, device=kernel_q.device)
+    w[:n, :, :, :cin] = kernel_q.permute(0, 2, 3, 1)
+    w = w.reshape(npad // t, t, kh, kw, cpad // WG_CHUNK, WG_PLANES, 16)
+    return w.permute(0, 4, 2, 3, 5, 1, 6).contiguous()
+
+
+def unpack_weight_wgmma(packed: torch.Tensor, n: int, cin: int) -> torch.Tensor:
+    """Inverse of :func:`pack_weight_wgmma`: the OIHW int8 kernel ``[n, cin,
+    K, K]``."""
+    tiles, chunks, kh, kw, _, t, _ = packed.shape
+    w = packed.permute(0, 5, 2, 3, 1, 4, 6).reshape(tiles * t, kh, kw, chunks * WG_CHUNK)
+    return w[:n, :, :, :cin].permute(0, 3, 1, 2)
+
+
+def wgmma_smem_bytes(k: int, tile_n: int, x_bytes: int = 2) -> int:
+    """Shared memory one block of the wgmma route needs for x elements of
+    ``x_bytes``: the weight ring, two quantized x tiles of one chunk (each
+    plane padded to an odd number of 16-byte units), the ring of WG_RAW raw x
+    slabs (16 KB of x each, or 8 KB where that does not fit; each pixel
+    padded by 16 bytes) and the mbarriers."""
+    plane = (((WG_ROWS + k - 1) * (WG_COLS + k - 1)) | 1) * 16
+    stages = WG_STAGES[tile_n]
+    raw_off = stages * WG_PLANES * tile_n * 16 + 2 * WG_PLANES * plane
+    bars = (2 * stages + 4) * 8
+    pix = WG_CHUNK * x_bytes
+    slab_pix = 16384 // pix
+    if raw_off + WG_RAW * slab_pix * (pix + 16) + bars > SMEM_LIMIT:
+        slab_pix = 8192 // pix
+    return raw_off + WG_RAW * slab_pix * (pix + 16) + bars
+
+
+def kernel_tile_n(b: int, h: int, w: int, cout: int, sms: int) -> int:
+    """The wgmma kernel's N tile for a frame: the pack's tile, except that a
+    frame with fewer 256-column tiles than the card has SMs (the flagship's
+    64^2 and 128^2 3x3 sites) takes 128-column tiles, twice as many."""
+    t = pack_tile_n(cout)
+    tiles = -(-w // WG_COLS) * -(-h // WG_ROWS) * b * (_ceil_to(cout, t) // t)
+    return 128 if t == 256 and tiles < sms else t
+
+
+def conv2d_int8_wgmma_plain(x: torch.Tensor, scale: Optional[torch.Tensor],
+                            packed: torch.Tensor, w_scale: torch.Tensor,
+                            bias: Optional[torch.Tensor], k: int,
+                            out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Plain PyTorch version of the wgmma kernel (same arguments):
+    :func:`quantize_act`, then the exact sums and the dequant."""
+    WGMMA_COUNT.plain += 1
+    xq, s_x = quantize_act(x, scale)
+    kq = unpack_weight_wgmma(packed, w_scale.shape[0], x.shape[-1])
+    return _dequant_plain(xq, s_x, kq, w_scale, bias, out_dtype)
+
+
+def _check_wgmma(x, scale, packed, w_scale, bias, k, out_dtype) -> None:
+    if x.dim() != 4 or x.dtype not in _build.DTYPES:
+        raise ValueError(f"x must be float32 or bfloat16 [B,H,W,Cin], got "
+                         f"{tuple(x.shape)} {x.dtype}")
+    n, cin = w_scale.shape[0], x.shape[-1]
+    if route(1, 1, cin, k, n) != "wgmma":
+        raise ValueError(f"the wgmma route takes Cin % 16 == 0 and k in {WG_KERNEL_SIZES}, "
+                         f"got Cin={cin} k={k}")
+    t = pack_tile_n(n)
+    want = (_ceil_to(n, t) // t, -(-cin // WG_CHUNK), k, k, WG_PLANES, t, 16)
+    if packed.dtype != torch.int8 or tuple(packed.shape) != want:
+        raise ValueError(f"packed weight {tuple(packed.shape)} {packed.dtype} is not the "
+                         f"wgmma pack of a {k}x{k} kernel, Cin={cin}, N={n}: want {want}")
+    _check_common(scale, w_scale, bias, out_dtype, "conv2d_int8_wgmma")
+    if len({t.device for t in _present(x, scale, packed, w_scale, bias)}) != 1:
+        raise ValueError("x, the scale, the weights and the bias must be on one device")
+
+
+def conv2d_int8_wgmma(x: torch.Tensor, scale: Optional[torch.Tensor], packed: torch.Tensor,
+                      w_scale: torch.Tensor, bias: Optional[torch.Tensor], k: int,
+                      out_dtype: torch.dtype = torch.float32,
+                      tile_n: Optional[int] = None) -> torch.Tensor:
+    """``y [B,H,W,N]`` in ``out_dtype`` of the int8 conv of float ``x``
+    (bf16 or f32) quantized with ``scale`` (0-d f32), or dynamically with
+    ``scale=None``: ``quantize_act`` and the conv in one kernel.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel (any
+    other device raises). ``tile_n`` overrides :func:`kernel_tile_n` (a
+    divisor of the pack's tile among 256, 128, 8), for measurements.
+    """
+    _check_wgmma(x, scale, packed, w_scale, bias, k, out_dtype)
+    if x.device.type == "cpu":
+        return conv2d_int8_wgmma_plain(x, scale, packed, w_scale, bias, k, out_dtype)
+    if x.device.type != "cuda":
+        raise ValueError(f"no int8 conv kernel for device {x.device}")
+    _cuda_inputs_ok(x, packed, scale, w_scale, bias)
+    b, h, w, cin = x.shape
+    n = w_scale.shape[0]
+    y = torch.empty(b, h, w, n, dtype=out_dtype, device=x.device)
+    if y.numel() == 0:
+        return y
+    dynamic = scale is None
+    if dynamic:  # max|x|, exact in x's dtype; the kernel forms the scale from it
+        scale = torch.linalg.vector_norm(x, ord=float("inf"))
+    if tile_n is None:
+        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+        tile_n = kernel_tile_n(b, h, w, n, sms)
+    _call(_build.library().lut_conv2d_int8_wgmma, x,
+          (x.data_ptr(), packed.data_ptr(), scale.data_ptr(), int(dynamic),
+           w_scale.data_ptr(), None if bias is None else bias.data_ptr(), y.data_ptr(),
+           b, h, w, cin, k, n, packed.shape[5], tile_n, _build.DTYPES[x.dtype],
+           _build.DTYPES[out_dtype], _build.stream_handle(x)),
+          "lut_conv2d_int8_wgmma")
+    WGMMA_COUNT.kernel += 1
     return y

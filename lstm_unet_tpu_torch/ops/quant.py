@@ -9,15 +9,19 @@ SAME zero padding stays exact:
   call or static from calibration, ``q = clip(round(x_f32 / s_x), -127,
   127)`` (a true division; rounding half to even, as ``jnp.round``);
 - conv: int8 x int8 -> exact int32 sums, dequantized in f32 as ``acc * (s_x *
-  s_w) + bias`` and rounded once to the output dtype
-  (:func:`kernels.conv_int8.conv2d_int8`: the CUDA kernel on the card, its
-  plain version on the CPU).
+  s_w) + bias`` and rounded once to the output dtype.
 
-Gate math, LayerNorm and softmax stay as in the float model. The activation
-quantize (abs-max, divide, round, clip) is plain tensor code, as the
-reference leaves it to XLA outside any Pallas kernel.
+:func:`conv2d_q` takes one of two kernels by the site's shape
+(``kernels/conv_int8.py::route``): the ``wgmma`` route quantizes the float
+activation inside the conv kernel (with a dynamic scale one abs-max pass
+stays outside it); the ``mma_sync`` route (cin not a multiple of 16, such as
+the flagship's first x-conv) runs :func:`quantize_act` as plain tensor code,
+as the reference leaves it to XLA outside any Pallas kernel, then its
+kernel. On the CPU both take the plain versions: :func:`quantize_act`, then
+the exact conv and the dequant.
 
-:class:`QWeight` holds one conv's int8 weights, packed once for the
+Gate math, LayerNorm and softmax stay as in the float model.
+:class:`QWeight` holds one conv's int8 weights, packed once for its route's
 kernel; ``models/ulstm_unet.py::quantize_model_int8`` builds the model's
 quantized sites from it.
 """
@@ -29,7 +33,9 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch import nn
 
-from .kernels.conv_int8 import conv2d_int8, pack_weight, unpack_weight
+from .kernels.conv_int8 import (conv2d_int8, conv2d_int8_wgmma, pack_weight,
+                                 pack_weight_wgmma, quantize_act, route, unpack_weight,
+                                 unpack_weight_wgmma, weight_route)
 
 ActScales = Optional[Dict[str, float]]
 
@@ -40,19 +46,6 @@ def quantize_weight(kernel: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     s = torch.clamp(k.abs().amax(dim=(1, 2, 3)) / 127.0, min=1e-12)
     q = torch.clamp(torch.round(k / s[:, None, None, None]), -127, 127).to(torch.int8)
     return q, s
-
-
-def quantize_act(x: torch.Tensor, scale: Optional[torch.Tensor] = None
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per-tensor symmetric quantization -> (int8 x, 0-d f32 scale on x's
-    device). ``scale=None`` computes it from ``x`` (max|x| / 127, no host
-    read); a static (calibrated) scale skips the reduction."""
-    if scale is None:  # max|x| is exact in x's dtype: one pass, no f32 copy
-        amax = torch.linalg.vector_norm(x, ord=float("inf")).float()
-        scale = torch.clamp(amax, min=1e-8) / 127.0
-    xf = x.float()  # a new tensor (or x itself when x is f32: not updated in place)
-    xf = xf.div(scale) if xf is x else xf.div_(scale)
-    return xf.round_().clamp_(-127, 127).to(torch.int8), scale
 
 
 def _scale_of(act_scales: ActScales, site: str) -> Optional[torch.Tensor]:
@@ -83,40 +76,65 @@ def _site_kept(site: str, keep_float) -> bool:
     return False
 
 
+def _pack(kernel_q: torch.Tensor) -> torch.Tensor:
+    """The pack of an OIHW int8 kernel for its route's kernel."""
+    if weight_route(kernel_q) == "wgmma":
+        return pack_weight_wgmma(kernel_q)
+    return pack_weight(kernel_q)
+
+
+def _unpack(packed: torch.Tensor, n: int, cin: int, kh: int, kw: int) -> torch.Tensor:
+    if packed.dim() == 2:  # pack_weight's [N_pad, K_pad]
+        return unpack_weight(packed, n, cin, kh, kw)
+    return unpack_weight_wgmma(packed, n, cin)
+
+
 class QWeight(nn.Module):
-    """One int8 conv's weights: ``packed`` (the kernel's layout, made once),
-    per-cout ``w_scale`` f32 and the optional f32 ``bias``; ``kernel_q`` is
-    the OIHW int8 kernel."""
+    """One int8 conv's weights: ``packed`` (the layout of its route's kernel,
+    made once), per-cout ``w_scale`` f32 and the optional f32 ``bias``;
+    ``kernel_q`` is the OIHW int8 kernel."""
 
     def __init__(self, kernel: torch.Tensor, bias: Optional[torch.Tensor]):
         super().__init__()
         q, s = quantize_weight(kernel.detach())
         self.shape = tuple(q.shape)  # (cout, cin, kh, kw)
-        self.register_buffer("packed", pack_weight(q))
+        self.register_buffer("packed", _pack(q))
         self.register_buffer("w_scale", s)
         self.register_buffer("bias", None if bias is None else bias.detach().float())
         self._slices: Dict[Tuple[int, int], torch.Tensor] = {}
 
     @property
     def kernel_q(self) -> torch.Tensor:
-        return unpack_weight(self.packed, *self.shape)
+        return _unpack(self.packed, *self.shape)
 
     def packed_slice(self, c0: int, c1: int) -> torch.Tensor:
         """The pack of input channels ``c0:c1`` (for :func:`conv2d_q_pair`),
-        made on first use and kept."""
+        for that slice's route, made on first use and kept."""
         p = self._slices.get((c0, c1))
         if p is None or p.device != self.packed.device:
-            p = self._slices[(c0, c1)] = pack_weight(self.kernel_q[:, c0:c1].contiguous())
+            p = self._slices[(c0, c1)] = _pack(self.kernel_q[:, c0:c1].contiguous())
         return p
+
+
+def _conv(x: torch.Tensor, scale: Optional[torch.Tensor], packed: torch.Tensor,
+          w_scale: torch.Tensor, bias: Optional[torch.Tensor], kh: int, kw: int,
+          out_dtype: torch.dtype) -> torch.Tensor:
+    """The int8 conv of float ``x`` on its site's route (``packed`` is the
+    pack :class:`QWeight` made for that route)."""
+    b, h, w, cin = x.shape
+    if kh == kw and route(h, w, cin, kh, w_scale.shape[0]) == "wgmma":
+        # the kernel quantizes x as it stages it
+        return conv2d_int8_wgmma(x, scale, packed, w_scale, bias, kh, out_dtype)
+    qx, s_x = quantize_act(x, scale)
+    return conv2d_int8(qx, s_x, packed, w_scale, bias, kh, kw, out_dtype)
 
 
 def conv2d_q(x: torch.Tensor, weight: QWeight, x_scale: Optional[torch.Tensor] = None,
              out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """NHWC int8 conv of ``x`` (quantized here, dynamic or with the static
+    """NHWC int8 conv of ``x`` (quantized dynamically, or with the static
     ``x_scale``) with the f32 dequant epilogue, in ``out_dtype``."""
-    qx, s_x = quantize_act(x, x_scale)
     _, _, kh, kw = weight.shape
-    return conv2d_int8(qx, s_x, weight.packed, weight.w_scale, weight.bias, kh, kw, out_dtype)
+    return _conv(x, x_scale, weight.packed, weight.w_scale, weight.bias, kh, kw, out_dtype)
 
 
 def conv2d_q_pair(a: torch.Tensor, b: torch.Tensor, weight: QWeight,
@@ -126,14 +144,13 @@ def conv2d_q_pair(a: torch.Tensor, b: torch.Tensor, weight: QWeight,
     """Quantized ``conv(concat([a, b]), W)`` as two channel-sliced convs, each
     operand with its own scale: ``acc_a * (s_a * w) + acc_b * (s_b * w)``, then
     the bias, in f32 (the reference's order), then ``out_dtype``. Two launches
-    of the int8 conv, each writing its f32 product."""
+    of the int8 conv (each on its slice's route), each writing its f32
+    product."""
     _, cin, kh, kw = weight.shape
     ca = a.shape[-1]
-    ys = []
-    for x, c0, c1, scale in ((a, 0, ca, scale_a), (b, ca, cin, scale_b)):
-        qx, s_x = quantize_act(x, scale)
-        ys.append(conv2d_int8(qx, s_x, weight.packed_slice(c0, c1), weight.w_scale, None,
-                              kh, kw, torch.float32))
+    ys = [_conv(x, scale, weight.packed_slice(c0, c1), weight.w_scale, None, kh, kw,
+                torch.float32)
+          for x, c0, c1, scale in ((a, 0, ca, scale_a), (b, ca, cin, scale_b))]
     y = ys[0] + ys[1]
     if weight.bias is not None:
         y = y + weight.bias

@@ -1,0 +1,336 @@
+"""The int8 conv's wgmma route (``csrc/conv_int8_wgmma.cu``) on the CPU.
+
+The kernel runs only on the card; what surrounds it is held here: its weight
+pack (round trip and element layout), the route table over the flagship's
+and the tiny model's int8 sites, an emulation of the kernel's tile, chunk,
+tap and plane addressing and of its quantize arithmetic (a multiply by
+``1/s``, with the division where that could differ) against the exact plain
+versions, and its plain version (``quantize_act`` + the exact conv) against
+the JAX reference's ``conv2d_q``, bit for bit.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+import chip_smoke
+from lstm_unet_tpu.ops import quant as jq
+from lstm_unet_tpu_torch.config import default_net_kernel_params, tiny_net_kernel_params
+from lstm_unet_tpu_torch.models import ModelConfig, ULSTMnet2D, quantize_model_int8
+from lstm_unet_tpu_torch.ops import quant
+from lstm_unet_tpu_torch.ops.kernels import conv_int8, convlstm_cell, counts, reset_counts
+
+
+def _kernel(cout, cin, k, seed):
+    r = np.random.default_rng(seed)
+    return torch.from_numpy(r.normal(0, 0.1, (cout, cin, k, k)).astype(np.float32))
+
+
+# ---------------------------------------------------------------- the pack
+
+
+@pytest.mark.parametrize("cout", [3, 128, 256, 512])
+@pytest.mark.parametrize("k", [1, 3, 5])
+@pytest.mark.parametrize("cin", [16, 128, 1024])
+def test_wgmma_pack_round_trips_and_layout(cin, k, cout):
+    w = quant.QWeight(_kernel(cout, cin, k, cin + 7 * k + cout), None)
+    q, _ = quant.quantize_weight(_kernel(cout, cin, k, cin + 7 * k + cout))
+    t = conv_int8.pack_tile_n(cout)
+    assert t == (8 if cout == 3 else 128 if cout == 128 else 256)
+    assert tuple(w.packed.shape) == (-(-cout // t), -(-cin // 128), k, k, 8, t, 16)
+    assert w.packed.dtype == torch.int8
+    assert torch.equal(w.kernel_q, q)
+    # element by element at sampled positions, independent of the unpack:
+    # stage (tile, chunk, ky, kx), plane p, column c, byte e holds
+    # q[tile * t + c, 128 * chunk + 16 * p + e, ky, kx], 0 past cout and cin
+    r = np.random.default_rng(1)
+    idx = [torch.from_numpy(r.integers(0, d, 4096)) for d in w.packed.shape]
+    tile, chunk, ky, kx, p, c, e = idx
+    n, ci = tile * t + c, 128 * chunk + 16 * p + e
+    inside = (n < cout) & (ci < cin)
+    want = torch.zeros(4096, dtype=torch.int8)
+    want[inside] = q[n[inside], ci[inside], ky[inside], kx[inside]]
+    assert torch.equal(w.packed[tile, chunk, ky, kx, p, c, e], want)
+    assert inside.any()
+
+
+# ---------------------------------------------------------------- the routes
+
+
+def _model_sites(model):
+    """{site: (cin, k, cout, route of its pack)} of a quantized model."""
+    out = {}
+
+    def add(site, qw):
+        cout, cin, k, _ = qw.shape
+        out[site] = (cin, k, cout, "wgmma" if qw.packed.dim() == 7 else "mma_sync")
+
+    for i, level in enumerate(model.encoder):
+        for j, cell in enumerate(level.lstm):
+            add(f"encoder/{i}/lstm/{j}/x", cell.wx)
+            add(f"encoder/{i}/lstm/{j}/h", cell.wh)
+        for j, conv in enumerate(level.convs):
+            add(f"encoder/{i}/convs/{j}", conv.weight)
+    for i, level in enumerate(model.decoder):
+        for j, conv in enumerate(level.convs):
+            add(f"decoder/{i}/convs/{j}", conv.weight)
+    add("head", model.head.weight)
+    return out
+
+
+def _routes(nkp, hw):
+    sites = chip_smoke.int8_conv_sites(nkp, hw)
+    return sites, {s: conv_int8.route(h, h, cin, k, cout) for s, h, cin, k, cout in sites}
+
+
+def test_route_takes_24_of_the_flagships_25_int8_sites():
+    sites, routes = _routes(default_net_kernel_params(), 512)
+    assert len(sites) == 25
+    assert [s for s, r in routes.items() if r != "wgmma"] == ["encoder/0/lstm/0/x"]
+    # fused: the four h-convs run in K4 (its bf16 tensor-core route) instead
+    fused = [s for s in routes if not s.endswith("/h")]
+    assert len(fused) == 21 and sum(routes[s] == "wgmma" for s in fused) == 20
+    for s, h, cin, k, _ in sites:
+        if s.endswith("/h"):
+            assert convlstm_cell.route(h, h, cin, k, 1, torch.bfloat16) == "wgmma"
+    # the quantized flagship (on the meta device: shapes only) packs each
+    # site for the route the table gives it
+    cfg = ModelConfig.make(default_net_kernel_params(), dtype="bfloat16", quant="int8")
+    model = quantize_model_int8(ULSTMnet2D(cfg, device="meta"))
+    assert _model_sites(model) == {s: (cin, k, cout, routes[s])
+                                   for s, _, cin, k, cout in sites}
+
+
+def test_route_of_the_tiny_models_int8_sites():
+    # cin 1, 8 and 24 take the mma_sync kernel; cin 16 and 32 the wgmma one
+    sites, routes = _routes(tiny_net_kernel_params(), 32)
+    assert routes == {
+        "encoder/0/lstm/0/x": "mma_sync",   # cin 1
+        "encoder/0/lstm/0/h": "mma_sync",   # cin 8
+        "encoder/0/convs/0": "mma_sync",    # cin 8
+        "encoder/1/lstm/0/x": "mma_sync",   # cin 8
+        "encoder/1/lstm/0/h": "wgmma",      # cin 16
+        "encoder/1/convs/0": "wgmma",       # cin 16
+        "decoder/1/convs/0": "wgmma",       # cin 16 + 16
+        "decoder/0/convs/0": "mma_sync",    # cin 16 + 8
+        "head": "mma_sync",                 # cin 8
+    }
+    cfg = ModelConfig.make(tiny_net_kernel_params(), dtype="bfloat16", quant="int8")
+    model = quantize_model_int8(ULSTMnet2D(cfg, generator=torch.Generator().manual_seed(0)))
+    assert _model_sites(model) == {s: (cin, k, cout, routes[s])
+                                   for s, _, cin, k, cout in sites}
+
+
+@pytest.mark.parametrize("args,want", [
+    ((8, 8, 16, 3, 5), "wgmma"), ((8, 8, 32, 1, 3), "wgmma"), ((8, 8, 1024, 5, 2048), "wgmma"),
+    ((8, 8, 8, 3, 16), "mma_sync"), ((8, 8, 24, 3, 8), "mma_sync"),
+    ((8, 8, 1, 5, 512), "mma_sync"), ((8, 8, 16, 7, 16), "mma_sync"),
+    ((0, 8, 16, 3, 16), None), ((8, 8, 16, 3, 0), None),
+])
+def test_route_edges(args, want):
+    assert conv_int8.route(*args) == want
+
+
+def test_kernel_tile_n_and_smem():
+    # 132 SMs (H100 SXM): the frames with fewer 256-column tiles than SMs
+    # take 128-column tiles
+    split = {(h, cin, k, cout)
+             for _, h, cin, k, cout in chip_smoke.int8_conv_sites(default_net_kernel_params(), 512)
+             if conv_int8.route(h, h, cin, k, cout) == "wgmma"
+             and conv_int8.kernel_tile_n(1, h, h, cout, 132) != conv_int8.pack_tile_n(cout)}
+    assert split == {(128, 256, 3, 256), (128, 768, 3, 256), (64, 512, 3, 512),
+                     (64, 1024, 3, 512)}
+    assert conv_int8.kernel_tile_n(1, 512, 512, 3, 132) == 8
+    assert conv_int8.kernel_tile_n(1, 512, 512, 128, 132) == 128
+    assert conv_int8.kernel_tile_n(2, 128, 128, 256, 132) == 256  # B = 2: 256 tiles
+    # K = 5 at 256 columns: K4's bf16 budget and three raw x slabs of 8 KB of
+    # x (bf16: 32 pixels of 256 + 16 bytes); 16 KB of x elsewhere; all
+    # within a block's 227 KB
+    assert conv_int8.wgmma_smem_bytes(5, 256) == convlstm_cell.wgmma_smem_bytes(5) + 3 * 32 * 272
+    assert conv_int8.wgmma_smem_bytes(5, 256, 4) == convlstm_cell.wgmma_smem_bytes(5) + 3 * 16 * 528
+    assert conv_int8.wgmma_smem_bytes(3, 256) == 98_304 + 67_840 + 3 * 64 * 272 + 80
+    assert max(conv_int8.wgmma_smem_bytes(k, t, xb) for k in (1, 3, 5)
+               for t in (256, 128, 8) for xb in (2, 4)) <= convlstm_cell.SMEM_LIMIT
+
+
+# ---------------------------------------------------------------- the kernel's arithmetic
+
+
+def _kernel_quantize(x, s, fallback=True):
+    """csrc/conv_int8_wgmma.cu::quantize16 in torch: q = rint(x * fl(1/s)) of
+    the exact product (the kernel's FMA with 1.5 * 2^23), rounded half to even
+    and clamped to [-127, 127]; each value whose product lies within 2^-14 of
+    a half-integer (every value, with a subnormal 1/s) takes the true
+    division instead. The float64 product of two f32 values is exact."""
+    xf = x.float()
+    r = torch.tensor(1.0, dtype=torch.float32) / s
+    prod = xf.double() * r.double()
+    q = torch.round(prod)
+    if fallback:
+        near = (prod - q).abs() >= 0.5 - 2.0 ** -14
+        if float(r) < 2.0 ** -126:
+            near[...] = True
+        q = torch.where(near, torch.round(xf / s).double(), q)
+    return q.clamp(-127, 127).to(torch.int8)
+
+
+def _adversarial(s, n=4096, seed=0):
+    """Values next to the exact halves (k + 0.5) * s: within a few f32 ulps."""
+    r = np.random.default_rng(seed)
+    k = r.integers(-127, 128, n).astype(np.float32) + np.float32(0.5)
+    v = (k * np.float32(s)).astype(np.float32)
+    for _ in range(3):
+        step = r.integers(-1, 2, n)
+        v = np.where(step > 0, np.nextafter(v, np.float32(np.inf)),
+                     np.where(step < 0, np.nextafter(v, np.float32(-np.inf)), v))
+    return torch.from_numpy(v.astype(np.float32)).reshape(-1, 16)
+
+
+@pytest.mark.parametrize("s", [0.0123, 3.0 / 127, 1.0 / 127, 0.1, 7.7e-4])
+def test_kernel_quantize_equals_the_division(s):
+    s_t = torch.tensor(s, dtype=torch.float32)
+    r = np.random.default_rng(2)
+    rand = torch.from_numpy(r.normal(0, 60 * s, (8192, 16)).astype(np.float32))
+    adv = _adversarial(float(s_t))
+    for x in (rand, adv, rand.bfloat16()):
+        want, _ = quant.quantize_act(x, s_t)
+        assert torch.equal(_kernel_quantize(x, s_t), want)
+    # without the division fallback the multiply alone misses some of them
+    assert not all(torch.equal(_kernel_quantize(adv, torch.tensor(v, dtype=torch.float32),
+                                                fallback=False),
+                               quant.quantize_act(adv, torch.tensor(v, dtype=torch.float32))[0])
+                   for v in (s, float(s_t) * 1.37, float(s_t) * 0.61))
+
+
+def _emulate_sums(xq, packed, k, tile_n):
+    """The s32 sums [B,H,W,N_pad] as the wgmma kernel forms them: per tile
+    (b, column tile, 2 rows, 64 pixels) and 128-channel chunk the halo'd x
+    tile as 8 planes of [HP*WP, 16]; per tap the 64 pixels from (wg + ky)*WP
+    + kx of each plane against the weight stage read from the pack's flat
+    bytes at the kernel's offsets; K in the order wgmma reads it (plane
+    pairs of 16 bytes)."""
+    b, h, w, cin = xq.shape
+    tiles_p, nchunks, _, _, _, pack_tn, _ = packed.shape
+    npad, rad = tiles_p * pack_tn, k // 2
+    hp, wp = 2 + k - 1, 64 + k - 1
+    ny, nx = -(-h // 2), -(-w // 64)
+    x = torch.zeros(b, ny * 2 + 2 * rad, nx * 64 + 2 * rad, nchunks * 128, dtype=torch.int64)
+    x[:, rad:rad + h, rad:rad + w, :cin] = xq
+    flat = packed.reshape(-1).to(torch.int64)
+    out = torch.zeros(b, ny * 2, nx * 64, npad, dtype=torch.int64)
+    for bi in range(b):
+        for nt in range(npad // tile_n):
+            col = nt * tile_n
+            for y0 in range(0, ny * 2, 2):
+                for x0 in range(0, nx * 64, 64):
+                    acc = torch.zeros(2, 64, tile_n, dtype=torch.int64)
+                    for ch in range(nchunks):
+                        t = x[bi, y0:y0 + hp, x0:x0 + wp, ch * 128:(ch + 1) * 128]
+                        planes = t.reshape(hp * wp, 8, 16).permute(1, 0, 2)
+                        for tap in range(k * k):
+                            ky, kx = divmod(tap, k)
+                            base = (((col // pack_tn) * nchunks + ch) * k * k + tap) * 8
+                            bmat = torch.cat([
+                                flat[(base + p) * pack_tn * 16 + (col % pack_tn) * 16:][
+                                    :tile_n * 16].reshape(tile_n, 16) for p in range(8)], 1)
+                            for wg in range(2):
+                                rows = (wg + ky) * wp + kx + torch.arange(64)
+                                amat = torch.cat([planes[p, rows] for p in range(8)], 1)
+                                acc[wg] += amat @ bmat.T
+                    out[bi, y0:y0 + 2, x0:x0 + 64, col:col + tile_n] = acc
+    return out[:, :h, :w]
+
+
+@pytest.mark.parametrize("b,h,w,cin,k,cout,tile_n", [
+    (1, 5, 70, 144, 3, 300, 256),   # ragged frame, two chunks (the second partial)
+    (1, 5, 70, 144, 3, 300, 128),   # 128-column tiles over a 256-column pack
+    (2, 3, 9, 16, 5, 40, 128),      # cin 16, one plane of a chunk
+    (1, 4, 66, 128, 1, 3, 8),       # the head: 1x1, N padded to 8
+])
+def test_tile_emulation_equals_the_exact_sums(b, h, w, cin, k, cout, tile_n):
+    r = np.random.default_rng(cin + cout)
+    xq = torch.from_numpy(r.integers(-127, 128, (b, h, w, cin)).astype(np.int8))
+    kq = torch.from_numpy(r.integers(-127, 128, (cout, cin, k, k)).astype(np.int8))
+    packed = conv_int8.pack_weight_wgmma(kq)
+    got = _emulate_sums(xq, packed, k, tile_n)
+    want = conv_int8.conv_acc_plain(xq, kq)
+    assert torch.equal(got[..., :cout], want.to(torch.int64))
+    assert not got[..., cout:].any()
+
+
+# ---------------------------------------------------------------- against the reference
+
+
+def _jdt(dt):
+    return jnp.bfloat16 if dt == torch.bfloat16 else jnp.float32
+
+
+def _edge_input(edge, shape, r):
+    """x (f32 numpy) and a static absmax for each edge case."""
+    x = r.normal(0, 1.0, shape).astype(np.float32)
+    if edge == "halves":  # max|x| = 127/8: s = 1/8 exactly, x / s = k + 0.5
+        x = ((r.integers(-127, 127, shape) + 0.5) / 8).astype(np.float32)
+        x.flat[0] = 127 / 8
+        return x, 127 / 8
+    if edge == "clamp":  # a static scale below max|x|: the clamp engages
+        return x * 4, 1.5
+    if edge == "zeros":  # max|x| = 0: the 1e-8 floor
+        return np.zeros(shape, np.float32), 0.0
+    if edge == "negzero":
+        x[..., ::3] = -0.0
+        return x, 2.0
+    return x, 2.5
+
+
+@pytest.mark.parametrize("scale", ["dynamic", "static"])
+@pytest.mark.parametrize("in_dt,out_dt", [(torch.float32, torch.float32),
+                                          (torch.bfloat16, torch.bfloat16),
+                                          (torch.float32, torch.bfloat16)])
+@pytest.mark.parametrize("edge", ["random", "halves", "clamp", "zeros", "negzero"])
+def test_wgmma_plain_equals_reference_conv2d_q(edge, in_dt, out_dt, scale):
+    r = np.random.default_rng(9)
+    x, absmax = _edge_input(edge, (1, 6, 9, 32), r)
+    kern = r.normal(0, 0.2, (3, 3, 32, 24)).astype(np.float32)
+    bias = r.normal(0, 0.5, (24,)).astype(np.float32)
+    qk, sk = jq.quantize_weight(jnp.asarray(kern))
+    qd = {"kernel_q": qk, "w_scale": sk, "bias": jnp.asarray(bias)}
+    static = quant._scale_of({"s": absmax}, "s") if scale == "static" else None
+    if static is not None:
+        qd["x_scale"] = jq._scale_of({"s": absmax}, "s")
+    xj = jnp.asarray(x).astype(_jdt(in_dt))
+    want = np.asarray(jq.conv2d_q(xj, qd, out_dtype=_jdt(out_dt)).astype(jnp.float32))
+    weight = quant.QWeight(torch.from_numpy(np.ascontiguousarray(kern.transpose(3, 2, 0, 1))),
+                           torch.from_numpy(bias))
+    assert weight.packed.dim() == 7  # cin 32: the wgmma route's pack
+    xt = torch.from_numpy(x).to(in_dt)
+    reset_counts()
+    got = conv_int8.conv2d_int8_wgmma(xt, static, weight.packed, weight.w_scale, weight.bias,
+                                      3, out_dt)
+    assert counts()["conv2d_int8_wgmma"] == {"kernel": 0, "plain": 1}
+    assert got.dtype == out_dt
+    np.testing.assert_array_equal(got.float().numpy(), want)
+    # conv2d_q takes the same route and gives the same bits
+    assert torch.equal(quant.conv2d_q(xt, weight, static, out_dt), got)
+    if edge == "clamp" and scale == "static":
+        assert int(quant.quantize_act(xt, static)[0].abs().max()) == 127
+
+
+def test_wgmma_wrapper_checks():
+    kq = torch.randint(-127, 128, (24, 32, 3, 3), dtype=torch.int32).to(torch.int8)
+    packed = conv_int8.pack_weight_wgmma(kq)
+    x = torch.zeros(1, 4, 4, 32)
+    ws = torch.ones(24)
+    with pytest.raises(ValueError, match="pack"):
+        conv_int8.conv2d_int8_wgmma(x, None, packed[:, :, :1], ws, None, 3)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        conv_int8.conv2d_int8_wgmma(x.to(torch.int8), None, packed, ws, None, 3)
+    with pytest.raises(ValueError, match="Cin % 16"):
+        conv_int8.conv2d_int8_wgmma(x[..., :24], None, packed, ws, None, 3)
+    with pytest.raises(TypeError, match="scale"):
+        conv_int8.conv2d_int8_wgmma(x, torch.tensor(1.0).double(), packed, ws, None, 3)
+    with pytest.raises(ValueError, match="device"):
+        conv_int8.conv2d_int8_wgmma(x.to("meta"), None, packed, ws, None, 3)
+    with pytest.raises(ValueError, match="wgmma route"):
+        conv_int8.pack_weight_wgmma(kq[:, :24])

@@ -13,7 +13,8 @@ K4's tensor-core routes (bf16, and f32 as 3xTF32: f32 sums in another
 order than cuDNN's) 2e-5 with f32 state and 1e-5 plus one bf16 ulp with bf16 state, up
 to K*K*F = 3200 summed products (flagship level 0), scaled linearly with
 the summation length above that (a sum's worst-case rounding error grows
-with its length: x4 at level 3's 12800); K3 (both routes) and the postprocess
+with its length: x4 at level 3's 12800); K3 (both routes), the int8 conv (both
+routes) and the postprocess
 with the instance split equal; the tiny model's grads
 with the kernels against the same model with the plain versions 1e-5
 relative (deterministic cuDNN, same formulas).
@@ -455,10 +456,58 @@ def test_conv2d_int8_equals_plain(cuda, b, h, w, cin, k, cout, bias):
         assert got.dtype == dt and torch.equal(got, want)  # exact sums, same epilogue
 
 
+@pytest.mark.parametrize("b,h,w,cin,k,cout", [
+    (2, 17, 70, 16, 3, 40),      # ragged frame (W > 64, odd H), cin 16, N tile 128
+    (1, 32, 48, 128, 5, 512),    # an h-conv: N tile 256
+    (1, 16, 16, 1024, 3, 512),   # cin 1024, 8 chunks; 128-column tiles (few tiles)
+    (1, 24, 40, 384, 3, 128),    # cout 128: N tile 128, three chunks
+    (1, 40, 40, 128, 1, 3),      # the 1x1 head: N padded to 8
+])
+@pytest.mark.parametrize("bias", [True, False])
+def test_conv2d_int8_wgmma_equals_plain(cuda, b, h, w, cin, k, cout, bias):
+    from lstm_unet_tpu_torch.ops.kernels import conv_int8
+
+    g = torch.Generator(device=cuda).manual_seed(cin + cout)
+    kq = torch.randint(-127, 128, (cout, cin, k, k), device=cuda, generator=g,
+                       dtype=torch.int32).to(torch.int8)
+    packed = conv_int8.pack_weight_wgmma(kq)
+    w_scale = torch.rand(cout, device=cuda, generator=g) * 1e-3
+    bias_t = torch.randn(cout, device=cuda, generator=g) if bias else None
+    x32 = torch.randn(b, h, w, cin, device=cuda, generator=g) * 3
+    x32[0, 0, 0, :4] = torch.tensor([0.0, -0.0, 1.5, -2.5])
+    for xdt in (torch.bfloat16, torch.float32):
+        x = x32.to(xdt)
+        for scale in (None, torch.tensor(2.5 / 127, device=cuda)):  # dynamic, static (clamps)
+            for dt in (torch.float32, torch.bfloat16):
+                args = (x, scale, packed, w_scale, bias_t, k, dt)
+                got = conv_int8.conv2d_int8_wgmma(*args)
+                want = conv_int8.conv2d_int8_wgmma_plain(*args)
+                assert got.dtype == dt and torch.equal(got, want), (xdt, scale, dt)
+        if conv_int8.pack_tile_n(cout) == 256:  # both N tiles over the same pack
+            for tn in (256, 128):
+                got = conv_int8.conv2d_int8_wgmma(x, None, packed, w_scale, bias_t, k,
+                                                  torch.bfloat16, tile_n=tn)
+                want = conv_int8.conv2d_int8_wgmma_plain(x, None, packed, w_scale, bias_t, k,
+                                                         torch.bfloat16)
+                assert torch.equal(got, want), tn
+
+
+def test_conv2d_int8_wgmma_smem_formula_matches_the_kernel(cuda):
+    from lstm_unet_tpu_torch.ops.kernels import _build, conv_int8
+
+    lib = _build.library()
+    for k in conv_int8.WG_KERNEL_SIZES:
+        for tn in conv_int8.WG_STAGES:
+            for xb in (2, 4):
+                assert (lib.lut_conv2d_int8_wgmma_smem(k, tn, xb)
+                        == conv_int8.wgmma_smem_bytes(k, tn, xb))
+
+
 def test_int8_model_on_the_card_equals_cpu(cuda):
-    """A tiny int8 model's logits on the card (int8 kernel, K1, K4) against
-    the CPU's (plain versions): the int8 convs agree bit for bit, the gate
-    math's f32 sigmoid / tanh by an ulp, which a bf16 rounding can carry."""
+    """A tiny int8 model's logits on the card (both int8 kernels, K1, K4)
+    against the CPU's (plain versions): the int8 convs agree bit for bit, the
+    gate math's f32 sigmoid / tanh by an ulp, which a bf16 rounding can
+    carry. cin 1, 8 and 24 take the mma_sync kernel, cin 16 and 32 wgmma."""
     from lstm_unet_tpu_torch.models import quantize_model_int8
 
     for fused in (False, True):
@@ -473,5 +522,6 @@ def test_int8_model_on_the_card_equals_cpu(cuda):
             reset_counts()
             _, got = model.step(model.init_state(1, 32, 32), frame.to(cuda))
         ran = counts()
-        assert ran["conv2d_int8"] == {"kernel": 7 if fused else 9, "plain": 0}
+        assert ran["conv2d_int8"] == {"kernel": 5 if fused else 6, "plain": 0}
+        assert ran["conv2d_int8_wgmma"] == {"kernel": 2 if fused else 3, "plain": 0}
         assert float((got.cpu() - want).abs().max() / want.abs().max()) < 2.0 ** -5
