@@ -58,15 +58,41 @@ Phases, each of which raises (exit != 0) when it fails:
      training shapes (B = 5, 256^2 crops), with K2's time;
   g. the flagship trained through ``cli/train2d.main`` (B = 5, T = 7, 256^2
      crops of a synthetic 512^2 sequence) in float32 and bfloat16: a few
-     steps, one validation, one checkpoint, then the port's ``inference2d``
+     steps, one validation, the final checkpoint (bf16: also one at step 4,
+     out of the timed steps), then the port's ``inference2d``
      from the trained run dir; K1, K2 and K3 must launch and no plain version
      run, and every parameter must get a nonzero gradient;
   h. one f32 flagship training step (loss and grads) with the kernels
-     against the same step with the plain versions patched in.
+     against the same step with the plain versions patched in;
+  j (kernels). the kernels at the lane counts of TTA and batched streams:
+     K4's bf16 and 3xTF32 routes at B = 8 at the four flagship levels, the
+     int8 conv's two routes at B = 4 at every flagship int8 shape (the wgmma
+     route with the N tile it picks at B = 4, a static scale and the dynamic
+     scale shared by the lanes), each against its plain version, timed, with
+     its bound;
+  i. (a path counted from 0 with j) the golden model through the inference
+     CLI with ``--tta``, ``--tta --tta_mode d4`` and ``--reset_on_jump 0.4``
+     (on the golden sequence with an inverted frame spliced in) in f32
+     against the same run on the CPU (0 px per frame), and int8 ``--tta``
+     with the fused cell off and on (<= 3 px, equal instance counts);
+  j. the flagship at 512^2: steady ms/frame of B = 1, TTA 'flip' (4 lanes)
+     and 'd4' (8 lanes) in bf16 fused and int8 unfused; ``run_inference``
+     with 'd4' in bf16 fused (4 K4 wgmma launches a step at 8 lanes) and
+     'flip' in int8 unfused (24 wgmma + 1 mma_sync int8 convs a step at 4
+     lanes), counted, no plain call;
+  k. (counted from 0) ``ctc_sweep`` in bf16 at ``--max_batch 4`` over four
+     512^2 sequences (one chunk of 4 lanes) and a 384 x 512 one (a group of
+     its own), with SEG and DET; each lane within 3 px per frame of its
+     sequence streamed alone; the steady ms per step of a bf16 stream of 1,
+     2 and 4 lanes; ``ctc_score`` on the output; ``ckpt_avg`` over
+     the bf16 run of (g) (steps 4, 5) and ``inference2d`` from the soup;
+     ``import_tf`` of phase e's flagship weights exported as a TF bundle,
+     bit-equal.
 The last two lines are a JSON kernel summary (K3's two routes as ``ccl`` and
 ``ccl_grid``; ``conv2d_int8_wgmma`` summed over the 24 convs of one unfused
 int8 frame it takes, with each shape beside; ``conv2d_int8`` at the cin = 1
-site it keeps) and the device JSON. The build
+site it keeps; K4's tensor-core routes and the int8 routes with their rows
+at B > 1 under ``batched``) and the device JSON. The build
 fails if ptxas reports spills for a tensor-core kernel (K4's bf16 and 3xTF32
 entries, the int8 conv's wgmma entries).
 """
@@ -176,6 +202,27 @@ def check_close(name, got, want, atol, rtol):
             raise AssertionError(f"{name}: {int(bad.sum())} elements outside "
                                  f"atol={atol} rtol={rtol}, max err {max_err(g, w)}")
     return max(max_err(g, w) for g, w in zip(got, want))
+
+
+def compare_dirs(name, got_dir, want_dir, max_px):
+    """Masks of ``got_dir`` against ``want_dir``, frame by frame: equal
+    instance counts and at most ``max_px`` differing pixels; returns the
+    differing pixels per frame."""
+    from lstm_unet_tpu_torch.io.tiff import read_tiff
+
+    paths = sorted(glob.glob(os.path.join(want_dir, "mask*.tif")))
+    if not paths:
+        raise AssertionError(f"{name}: no masks in {want_dir}")
+    diffs = []
+    for p in paths:
+        want = read_tiff(p)
+        got = read_tiff(os.path.join(got_dir, os.path.basename(p)))
+        diffs.append(int((got != want).sum()))
+        if len(np.unique(got)) != len(np.unique(want)) or diffs[-1] > max_px:
+            raise AssertionError(f"{name} {os.path.basename(p)}: {diffs[-1]} px differ, "
+                                 f"instances {len(np.unique(got)) - 1} vs "
+                                 f"{len(np.unique(want)) - 1}")
+    return diffs
 
 
 def phase_kernels(torch):
@@ -535,20 +582,23 @@ def phase_k2(torch):
     return summary(timing[0], timing[1], max(errs), bound(5 * 256 * 256 * 128 * 12 * 4))
 
 
-def train_args(root, save_root, dtype, steps):
+def train_args(root, save_root, dtype, steps, save_every=10 ** 9):
     return ["--device", "cuda", "--root_data_dir", root,
             "--train_sequence_list", "Synth-N2DH-SIM:01",
             "--val_sequence_list", "Synth-N2DH-SIM:01",
             "--crop_size", "256", "256", "--batch_size", "5", "--unroll_len", "7",
             "--dtype", dtype, "--num_iterations", str(steps),
             "--print_to_console_interval", "1", "--validation_interval", str(steps),
-            "--save_checkpoint_iteration", str(10 ** 9),
+            "--save_checkpoint_iteration", str(save_every),
             "--root_save_dir", save_root, "--experiment_name", f"flagship_{dtype}"]
 
 
 def phase_train(torch, work, card, launched):
     """(g): flagship training through the CLI, then inference from its run
-    dir; adds each main-path run's launch counts to ``launched``."""
+    dir; adds each main-path run's launch counts to ``launched``. The bf16
+    run also saves at step 4 (and 5, the final save); returns its run dir
+    (phase k averages its steps). The steady frames/s leaves out the first
+    step and the step after an interval save, which holds the save."""
     import lstm_unet_tpu_torch.engine.train as engine_train
     from lstm_unet_tpu_torch.cli.inference2d import main as infer_main
     from lstm_unet_tpu_torch.cli.train2d import main as train_main
@@ -576,7 +626,9 @@ def phase_train(torch, work, card, launched):
             seen.clear()
             torch.cuda.reset_peak_memory_stats()
             kernels.reset_counts()
-            trainer = train_main(train_args(root, os.path.join(work, "runs"), dtype, steps))
+            save_every = 4 if dtype == "bfloat16" else 10 ** 9
+            trainer = train_main(train_args(root, os.path.join(work, "runs"), dtype, steps,
+                                            save_every))
             torch.cuda.synchronize()
             ran = kernels.counts()
             add_counts(launched, ran)
@@ -596,14 +648,17 @@ def phase_train(torch, work, card, launched):
             if not all(np.isfinite(vm[k]) for k in ("loss", "seg", "det")):
                 raise AssertionError(f"train {dtype}: validation {vm}")
             save_dir = trainer.p.experiment_save_dir
-            if not os.path.exists(os.path.join(save_dir, str(steps), "params.npz")):
-                raise AssertionError(f"train {dtype}: no checkpoint in {save_dir}")
-            steady = hist[1:]
+            saved = sorted(int(d) for d in os.listdir(save_dir) if d.isdigit())
+            if saved != ([4, steps] if dtype == "bfloat16" else [steps]):
+                raise AssertionError(f"train {dtype}: saved steps {saved} in {save_dir}")
+            # a step's seconds run from the previous step's print, so they
+            # hold an interval save made after the previous step
+            steady = [h for h in hist[1:] if (h["step"] - 1) % save_every]
             fps = sum(h["frames"] for h in steady) / sum(h["seconds"] for h in steady)
             log(f"train flagship B5 T7 256^2 {dtype}: {steps} steps, losses "
                 f"{[round(h['loss'], 5) for h in hist]}, gnorm {hist[-1]['grad_norm']:.4g}; "
                 f"step 1 {hist[0]['seconds']:.3f} s; steady {fps:.3f} frames/s "
-                f"({len(steady)} steps, first excluded) [{card}]; peak memory "
+                f"(steps {[h['step'] for h in steady]}) [{card}]; peak memory "
                 f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; val loss "
                 f"{vm['loss']:.4f} seg {vm['seg']:.4f} det {vm['det']:.4f}; launches "
                 f"{ {k: v['kernel'] for k, v in ran.items()} }")
@@ -625,6 +680,7 @@ def phase_train(torch, work, card, launched):
             torch.cuda.empty_cache()
     finally:
         engine_train.loss_and_grads = loss_and_grads
+    return os.path.dirname(save_dir)
 
 
 def phase_train_vs_plain(torch):
@@ -994,16 +1050,8 @@ def phase_golden(torch, work):
             raise AssertionError(f"golden: wrote {n} masks, expected {len(want_paths)}")
         if simt != (2 * (n + 2) if fused else 0):
             raise AssertionError(f"golden fused_cell={fused}: {simt} SIMT K4 launches")
-        diffs = []
-        for p in want_paths:
-            want = read_tiff(p)
-            got = read_tiff(os.path.join(out, os.path.basename(p)))
-            d = int((got != want).sum())
-            diffs.append(d)
-            if d:  # f32 is held to the golden masks exactly
-                raise AssertionError(f"golden fused_cell={fused} {os.path.basename(p)}: {d} "
-                                     f"px differ, instances {len(np.unique(got)) - 1} vs "
-                                     f"{len(np.unique(want)) - 1}")
+        # f32 is held to the golden masks exactly
+        diffs = compare_dirs(f"golden fused_cell={fused}", out, os.path.join(GOLDEN, "masks"), 0)
         log(f"golden masks on the card, f32 fused_cell={fused}: differing px per frame "
             f"{diffs} (bar: 0 px); SIMT K4 launches {simt}")
 
@@ -1027,20 +1075,13 @@ def phase_golden(torch, work):
         else:  # the plain versions the CPU run calls are no part of the path's count
             for k in after:
                 kernels.KERNELS[k].plain = before[k]["plain"]
-    diffs = []
-    for p in sorted(glob.glob(os.path.join(outs["cpu"], "mask*.tif"))):
-        want = read_tiff(p)
-        got = read_tiff(os.path.join(outs["cuda"], os.path.basename(p)))
-        diffs.append(int((got != want).sum()))
-        # 1024 times the golden frames' pixels: the same bar of equal counts,
-        # and 64 px for pixels whose f32 probability sits at a threshold
-        if len(np.unique(got)) != len(np.unique(want)) or diffs[-1] > 64:
-            raise AssertionError(f"1024^2 {os.path.basename(p)}: {diffs[-1]} px differ from "
-                                 f"the CPU run, instances {len(np.unique(got)) - 1} vs "
-                                 f"{len(np.unique(want)) - 1}")
+    # 1024 times the golden frames' pixels: the same bar of equal counts,
+    # and 64 px for pixels whose f32 probability sits at a threshold
+    diffs = compare_dirs("1024^2 sequence", outs["cuda"], outs["cpu"], 64)
+    last = read_tiff(sorted(glob.glob(os.path.join(outs["cuda"], "mask*.tif")))[-1])
     log(f"1024^2 sequence, tiny model f32: K3 grid route {n + 1} launches; differing px per "
         f"frame against the CPU run {diffs} (bar: equal instance count, <= 64 px), "
-        f"instances in the last frame {len(np.unique(got)) - 1}")
+        f"instances in the last frame {len(np.unique(last)) - 1}")
 
 
 def phase_flagship(torch, work, card):
@@ -1105,7 +1146,6 @@ def phase_golden_int8(torch, work):
     import shutil
 
     from lstm_unet_tpu_torch.cli.inference2d import main as cli_main
-    from lstm_unet_tpu_torch.io.tiff import read_tiff
     from lstm_unet_tpu_torch.ops import kernels
 
     seq = os.path.join(work, "golden", "Synth-N2DH-SIM", "01")
@@ -1134,15 +1174,7 @@ def phase_golden_int8(torch, work):
             else:  # the CPU run's plain calls are no part of the path's count
                 for k in after:
                     kernels.KERNELS[k].plain = before[k]["plain"]
-        diffs = []
-        for p in sorted(glob.glob(os.path.join(outs["cpu"], "mask*.tif"))):
-            want = read_tiff(p)
-            got = read_tiff(os.path.join(outs["cuda"], os.path.basename(p)))
-            diffs.append(int((got != want).sum()))
-            if len(np.unique(got)) != len(np.unique(want)) or diffs[-1] > 3:
-                raise AssertionError(f"golden int8 {tag} {os.path.basename(p)}: {diffs[-1]} px "
-                                     f"differ from the CPU run, instances "
-                                     f"{len(np.unique(got)) - 1} vs {len(np.unique(want)) - 1}")
+        diffs = compare_dirs(f"golden int8 {tag}", outs["cuda"], outs["cpu"], 3)
         log(f"golden int8 {tag}: differing px per frame against the CPU run {diffs} (bar: "
             f"equal instance count, <= 3 px)")
 
@@ -1215,6 +1247,403 @@ def phase_flagship_int8(torch, work, card):
         raise AssertionError(f"flagship int8 logits differ from bf16 by {rel}")
 
 
+def phase_batched_kernels(torch):
+    """(j, kernels): the kernels at the lane counts of TTA and batched streams,
+    against their plain versions. K4's two tensor-core routes at B = 8 (TTA
+    'd4') at the four flagship levels: bf16 with bf16 and f32 state, 3xTF32
+    with f32 state, to K4's tolerances; the int8 conv at B = 4 (TTA 'flip', a
+    batched sweep) at every flagship int8 shape: the wgmma route bit-equal
+    from bf16 x with a static scale and with the dynamic scale (one abs-max
+    over all four lanes) and with the N tile ``kernel_tile_n`` picks for
+    B = 4, the mma_sync route bit-equal on int8 x. Returns, per kernel, the
+    batched rows for the summary line."""
+    from lstm_unet_tpu_torch.ops.kernels import conv_int8, convlstm_cell
+
+    g = torch.Generator(device="cuda").manual_seed(21)
+    out = {"fused_convlstm_level_wgmma": [], "fused_convlstm_level_tf32x3": [],
+           "conv2d_int8_wgmma": [], "conv2d_int8": []}
+    b = 8
+    for name, dt, sdts in (("fused_convlstm_level_wgmma", torch.bfloat16,
+                            (torch.float32, torch.bfloat16)),
+                           ("fused_convlstm_level_tf32x3", torch.float32, (torch.float32,))):
+        for hw, feat in FLAGSHIP_LEVELS:
+            rt = convlstm_cell.route(hw, hw, feat, 5, b, dt)
+            if rt != ("wgmma" if dt == torch.bfloat16 else "tf32x3"):
+                raise AssertionError(f"K4 route at B={b} {hw}^2 F={feat} {dt}: {rt}")
+            errs = []
+            for sdt in sdts:
+                ins = k4_inputs(torch, g, b, hw, feat, 5, dt, sdt)
+                got = convlstm_cell.fused_convlstm_level(*ins)
+                want = convlstm_cell.fused_convlstm_level_plain(*ins)
+                errs.append(check_close(f"K4 {rt} B={b} {hw}^2 F={feat} state {sdt}", got,
+                                        want, *k4_tolerance(torch, 5, feat, sdt)))
+            gx, h, c, wh = ins  # state in the compute dtype: the model's
+            ms = time_ms(lambda: convlstm_cell.fused_convlstm_level(gx, h, c, wh), 5)
+            plain = time_ms(lambda: convlstm_cell.fused_convlstm_level_plain(gx, h, c, wh), 1)
+            flops = 2 * b * hw * hw * 25 * feat * 4 * feat
+            el = 2 if dt == torch.bfloat16 else 4
+            wbytes = el * 25 * feat * 4 * feat * (1 if dt == torch.bfloat16 else 2)
+            bd = (bound(el * b * hw * hw * 8 * feat + wbytes, flops) if dt == torch.bfloat16
+                  else bound(el * b * hw * hw * 8 * feat + wbytes, 3 * flops, TF32_FLOPS))
+            row = dict(shape=f"B{b} {hw}^2 F={feat} 5x5", max_abs_err=max(errs), ms=ms,
+                       plain_ms=plain, bound_ms=bd[0], bound_by=bd[1])
+            out[name].append(row)
+            log(f"K4 {rt} B={b} {hw}^2 F={feat} 5x5 {str(dt)[6:]}: max_abs_err "
+                f"{row['max_abs_err']:.3g}; kernel {ms:.4f} ms (with its Wh pack; "
+                f"{100 * bd[0] / ms:.1f}% of the {bd[0]:.4f} ms bound, {bd[1]}), plain "
+                f"{plain:.3f} ms")
+            del ins, gx, h, c, wh, got, want
+            torch.cuda.empty_cache()
+
+    from lstm_unet_tpu_torch.ops import quant
+
+    b = 4
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for (hw, cin, k, cout), sites in flagship_int8_convs().items():
+        kq = torch.randint(-127, 128, (cout, cin, k, k), device="cuda", generator=g,
+                           dtype=torch.int32).to(torch.int8)
+        kq[:, 0, 0, 0] = 127
+        w_scale = torch.rand(cout, device="cuda", generator=g) * 1e-3
+        bias = torch.randn(cout, device="cuda", generator=g)
+        shape = f"B{b} {hw}^2 {cin}->{cout} {k}x{k}"
+        m = b * hw * hw
+        if conv_int8.route(hw, hw, cin, k, cout) == "wgmma":
+            weight = quant.QWeight(kq.float(), bias)
+            weight.w_scale.copy_(w_scale)
+            # lanes of unequal ranges: a per-lane scale would differ from the shared one
+            x = (torch.randn(b, hw, hw, cin, device="cuda", generator=g)
+                 * torch.tensor([1.5, 0.5, 3.0, 1.0], device="cuda")[:, None, None, None]
+                 ).to(torch.bfloat16)
+            calib = torch.tensor(float(x.abs().max()) * 1.0137 / 127, device="cuda")
+            tile = conv_int8.kernel_tile_n(b, hw, hw, cout, sms)
+            for sc in (calib, None):
+                a = (x, sc, weight.packed, w_scale, bias, k, torch.bfloat16)
+                got = conv_int8.conv2d_int8_wgmma(*a)
+                want = conv_int8.conv2d_int8_wgmma_plain(*a)
+                torch.cuda.synchronize()
+                if not torch.equal(got, want):
+                    raise AssertionError(f"conv2d_int8_wgmma {shape} tile N {tile} "
+                                         f"{'dynamic' if sc is None else 'static'}: "
+                                         f"{int((got != want).sum())} outputs differ")
+            # lane 0 alone takes its own abs-max: its output must differ
+            lane0 = conv_int8.conv2d_int8_wgmma(x[:1].contiguous(), None, *a[2:])
+            if torch.equal(lane0, got[:1]):
+                raise AssertionError(f"conv2d_int8_wgmma {shape}: the dynamic scale is not "
+                                     f"shared by the lanes")
+            kern = (x, calib) + a[2:]
+            ms = time_ms(lambda: conv_int8.conv2d_int8_wgmma(*kern), 10)
+            dyn = time_ms(lambda: conv_int8.conv2d_int8_wgmma(x, None, *kern[2:]), 10)
+            plain = time_ms(lambda: conv_int8.conv2d_int8_wgmma_plain(*kern), 1)
+            bd = conv_bound(m, cin, k, cout, 2)
+            out["conv2d_int8_wgmma"].append(dict(shape=shape, sites=sites, tile_n=tile,
+                                                 max_abs_err=0.0, ms=ms, dynamic_ms=dyn,
+                                                 plain_ms=plain, bound_ms=bd[0],
+                                                 bound_by=bd[1]))
+            log(f"conv2d_int8_wgmma {shape} (x{sites} a step, tile N {tile}): bit-equal to the "
+                f"plain version, static and shared dynamic scale (lane 0 alone "
+                f"differs); kernel {ms:.4f} ms "
+                f"({100 * bd[0] / ms:.1f}% of the {bd[0]:.4f} ms bound, {bd[1]}), with the "
+                f"abs-max {dyn:.4f} ms, plain {plain:.3f} ms")
+            del weight, x, got, want, lane0
+        else:
+            packed = conv_int8.pack_weight(kq)
+            xq = torch.randint(-127, 128, (b, hw, hw, cin), device="cuda", generator=g,
+                               dtype=torch.int32).to(torch.int8)
+            a = (xq, torch.tensor(3.0 / 127, device="cuda"), packed, w_scale, bias, k, k,
+                 torch.bfloat16)
+            got = conv_int8.conv2d_int8(*a)
+            want = conv_int8.conv2d_int8_plain(*a)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(f"conv2d_int8 {shape}: {int((got != want).sum())} "
+                                     f"outputs differ")
+            ms = time_ms(lambda: conv_int8.conv2d_int8(*a), 10)
+            plain = time_ms(lambda: conv_int8.conv2d_int8_plain(*a), 1)
+            bd = conv_bound(m, cin, k, cout, 1)
+            out["conv2d_int8"].append(dict(shape=shape, sites=sites, max_abs_err=0.0, ms=ms,
+                                           plain_ms=plain, bound_ms=bd[0], bound_by=bd[1]))
+            log(f"conv2d_int8 (mma_sync) {shape}: bit-equal to the plain version; kernel "
+                f"{ms:.4f} ms ({100 * bd[0] / ms:.1f}% of the {bd[0]:.4f} ms bound), plain "
+                f"{plain:.3f} ms")
+            del packed, xq, got, want
+        torch.cuda.empty_cache()
+    rows = out["conv2d_int8_wgmma"]
+    log(f"int8 wgmma convs of one B=4 step (24 sites): kernels "
+        f"{sum(r['sites'] * r['ms'] for r in rows):.4f} ms, with the abs-max "
+        f"{sum(r['sites'] * r['dynamic_ms'] for r in rows):.4f} ms, bound "
+        f"{sum(r['sites'] * r['bound_ms'] for r in rows):.4f} ms")
+    return out
+
+
+def splice_cut(src, dst, at):
+    """Copy the frames of sequence dir ``src`` to ``dst`` with an
+    intensity-inverted copy of frame ``at`` inserted before it (two scene
+    cuts), renumbered; returns ``dst``."""
+    from lstm_unet_tpu_torch.io.tiff import read_tiff, write_tiff
+
+    frames = [read_tiff(p) for p in sorted(glob.glob(os.path.join(src, "t*.tif")))]
+    inverted = (60000 - frames[at].astype(np.int64)).astype(np.uint16)
+    os.makedirs(dst, exist_ok=True)
+    for t, f in enumerate(frames[:at] + [inverted] + frames[at:]):
+        write_tiff(os.path.join(dst, f"t{t:03d}.tif"), f)
+    return dst
+
+
+def phase_golden_surface(torch, work):
+    """(i): the golden model through the inference CLI with ``--tta``, ``--tta
+    --tta_mode d4`` and ``--reset_on_jump 0.4`` (on the golden sequence with
+    an inverted frame spliced in) in f32 on the card against the same run on
+    the CPU, 0 px; then int8 ``--tta``, fused cell off and on, <= 3 px and
+    equal instance counts. On the card the model runs 4 or 8 lanes a step."""
+    from lstm_unet_tpu_torch.cli.inference2d import main as cli_main
+    from lstm_unet_tpu_torch.ops import kernels
+
+    golden_seq = os.path.join(work, "golden", "Synth-N2DH-SIM", "01")
+    cut_seq = splice_cut(golden_seq, os.path.join(work, "golden_cut", "01"), 4)
+    runs = (("tta flip", golden_seq, ["--tta"], "float32", 0, 8),
+            ("tta d4", golden_seq, ["--tta", "--tta_mode", "d4"], "float32", 0, 8),
+            ("reset_on_jump 0.4", cut_seq, ["--reset_on_jump", "0.4"], "float32", 0, 9),
+            ("int8 tta", golden_seq, ["--tta"], "int8", 3, 8),
+            ("int8 tta fused", golden_seq, ["--tta", "--fused_cell"], "int8", 3, 8))
+    for tag, seq, extra, dtype, max_px, frames in runs:
+        outs = {}
+        for device in ("cuda", "cpu"):
+            outs[device] = os.path.join(work, f"surface_{tag.replace(' ', '_')}_{device}")
+            before = kernels.counts()
+            n = cli_main(["--model_path", os.path.join(GOLDEN, "torch_ckpt"), "--sequence_path",
+                          seq, "--output_path", outs[device], "--device", device,
+                          "--pre_sequence_frames", "2", "--min_cell_size", "5", "--dtype", dtype,
+                          *extra])
+            after = kernels.counts()
+            ran = {k: after[k]["kernel"] - before[k]["kernel"] for k in after}
+            steps = n + 2
+            if device == "cuda":
+                # per step: K1 at both levels (unfused) and K3 once (one lane
+                # of averaged probabilities); int8: 6 mma_sync + 3 wgmma convs
+                # (fused: 5 + 2)
+                if dtype == "float32":
+                    want = {"lstm_gate_update": 2 * steps, "ccl": steps}
+                else:
+                    per = (5, 2) if "--fused_cell" in extra else (6, 3)
+                    want = {"conv2d_int8": per[0] * steps, "conv2d_int8_wgmma": per[1] * steps,
+                            "ccl": steps}
+                got = {k: ran[k] for k in want}
+                if n != frames or got != want:
+                    raise AssertionError(f"golden {tag}: {n} masks, launches {got}, "
+                                         f"expected {want}")
+            else:  # the CPU run's plain calls are no part of the path's count
+                for k in after:
+                    kernels.KERNELS[k].plain = before[k]["plain"]
+        diffs = compare_dirs(f"golden {tag}", outs["cuda"], outs["cpu"], max_px)
+        log(f"golden {tag} ({dtype}): differing px per frame against the CPU run {diffs} "
+            f"(bar: {max_px} px, equal instance counts)")
+
+
+def step_ms(torch, model, ip, frames, lanes=1, warm=2):
+    """Median host ms of one engine step (it ends in copying the labels to
+    the host) over ``lanes`` lanes, each frame of ``frames`` stacked
+    ``lanes`` times, after ``warm`` steps."""
+    from lstm_unet_tpu_torch.engine.infer import StreamingInferenceEngine
+
+    eng = StreamingInferenceEngine(model, ip, "cuda")
+    times = []
+    for i, f in enumerate(frames):
+        t0 = time.perf_counter()
+        eng.step_batch_async(np.stack([f] * lanes))[0].cpu()
+        if i >= warm:
+            times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def phase_flagship_tta(torch, work, card):
+    """(j): the flagship at 512^2 with TTA. Steady ms/frame of the engine for
+    B = 1, 'flip' (4 lanes) and 'd4' (8 lanes) in bf16 fused and int8
+    unfused; then ``run_inference`` with 'd4' in bf16 fused (K4 wgmma 4
+    launches a step at 8 lanes) and 'flip' in int8 unfused (24 wgmma + 1
+    mma_sync int8 convs, 4 K1 a step at 4 lanes), counted, no plain call."""
+    from lstm_unet_tpu_torch.config import InferenceParams
+    from lstm_unet_tpu_torch.engine.infer import run_inference
+    from lstm_unet_tpu_torch.io.tiff import read_tiff
+    from lstm_unet_tpu_torch.ops import kernels
+
+    seq_dir = os.path.join(work, "flagship", "Synth-N2DH-SIM", "01")
+    frames = [read_tiff(p) for p in sorted(glob.glob(os.path.join(seq_dir, "t*.tif")))]
+    times = {}
+    for dtype, fused, make in (("bfloat16", True, lambda: flagship_model(torch, "bfloat16", True)),
+                               ("int8", False, lambda: flagship_int8_model(torch, False))):
+        model = make()
+        for lanes, kw in ((1, {}), (4, dict(tta=True)), (8, dict(tta=True, tta_mode="d4"))):
+            ip = InferenceParams(dtype=dtype, fused_cell=fused, **kw)
+            times[(dtype, lanes)] = step_ms(torch, model, ip, frames)
+        log(f"flagship 512^2 {dtype} fused_cell={fused}, steady ms/frame (median of 6 after "
+            f"2) [{card}]: B=1 {times[(dtype, 1)]:.3f}, TTA flip (4 lanes) "
+            f"{times[(dtype, 4)]:.3f}, TTA d4 (8 lanes) {times[(dtype, 8)]:.3f}")
+        mode, lanes = ("d4", 8) if dtype == "bfloat16" else ("flip", 4)
+        out = os.path.join(work, f"flagship_tta_{dtype}")
+        ip = InferenceParams(sequence_path=seq_dir, output_path=out, pre_sequence_frames=2,
+                             dtype=dtype, fused_cell=fused, tta=True, tta_mode=mode)
+        before = kernels.counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n = run_inference(ip, device="cuda", model=model)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        after = kernels.counts()
+        d = {k: {s: after[k][s] - before[k][s] for s in ("kernel", "plain")} for k in after}
+        steps = n + 2
+        if dtype == "bfloat16":
+            want = {"fused_convlstm_level_wgmma": 4 * steps, "lstm_gate_update": 0,
+                    "conv2d_int8": 0, "conv2d_int8_wgmma": 0}
+        else:
+            want = {"conv2d_int8_wgmma": 24 * steps, "conv2d_int8": steps,
+                    "lstm_gate_update": 4 * steps, "fused_convlstm_level_wgmma": 0}
+        want.update(ccl=steps, ccl_grid=0, fused_convlstm_level=0, fused_convlstm_level_tf32x3=0)
+        got = {k: d[k]["kernel"] for k in want}
+        if n != 8 or got != want or any(v["plain"] for v in d.values()):
+            raise AssertionError(f"flagship TTA {mode} {dtype}: {n} masks, launches {d}, "
+                                 f"expected {want} and no plain call")
+        log(f"flagship 512^2 {dtype} fused_cell={fused} TTA {mode} ({lanes} lanes) through "
+            f"run_inference: {steps} frames in {secs:.3f} s incl. set-up; launches per frame "
+            f"{ {k: v // steps for k, v in got.items() if v} }")
+        del model
+        torch.cuda.empty_cache()
+    return times
+
+
+def save_flagship_dir(torch, path):
+    """A port model dir of the flagship with phase e's weights (seed 0, f32);
+    returns its param tree (reference layout, numpy)."""
+    from lstm_unet_tpu_torch.checkpoint.ckpt import PARAMS_FILE, save_model_params
+    from lstm_unet_tpu_torch.checkpoint.convert import flatten_tree, params_to_jax
+
+    model = flagship_model(torch, "float32", False)
+    tree = params_to_jax(model.state_dict())
+    os.makedirs(path, exist_ok=True)
+    np.savez(os.path.join(path, PARAMS_FILE), **flatten_tree(tree))
+    save_model_params(path, {"model_config": dataclasses.asdict(model.cfg)})
+    del model
+    return tree
+
+
+def phase_sweep(torch, work, card, run_dir):
+    """(k): ``ctc_sweep`` over four 512^2 sequences (6, 8, 8, 10 frames: one
+    chunk of 4 lanes) and a 384 x 512 one (a group of its own) in bf16 with
+    the scores, each lane within 3 px per frame of the sequence streamed
+    alone, and the steady step time of B = 1, 2 and 4 lanes; ``ctc_score``
+    on its output; ``ckpt_avg`` over phase g's bf16 run (steps 4, 5) and
+    ``inference2d`` from the soup; ``import_tf`` of the flagship weights
+    exported as a TF bundle, bit-equal."""
+    from lstm_unet_tpu_torch.checkpoint.tf_import import export_tf_bundle
+    from lstm_unet_tpu_torch.cli.ckpt_avg import main as avg_main
+    from lstm_unet_tpu_torch.cli.ctc_score import main as score_main
+    from lstm_unet_tpu_torch.cli.ctc_sweep import main as sweep_main
+    from lstm_unet_tpu_torch.cli.import_tf import main as import_main
+    from lstm_unet_tpu_torch.cli.inference2d import main as infer_main
+    from lstm_unet_tpu_torch.checkpoint.convert import flatten_tree, load_model
+    from lstm_unet_tpu_torch.config import default_net_kernel_params
+    from lstm_unet_tpu_torch.config import InferenceParams
+    from lstm_unet_tpu_torch.engine.infer import run_inference
+    from lstm_unet_tpu_torch.io.synthetic import write_ctc_dataset
+    from lstm_unet_tpu_torch.io.tiff import read_tiff
+    from lstm_unet_tpu_torch.ops import kernels
+
+    root = os.path.join(work, "sweep_data")
+    seqs = (("01", 6, 512), ("02", 8, 512), ("03", 8, 512), ("04", 10, 512), ("05", 6, 384))
+    for seq, n, h in seqs:
+        write_ctc_dataset(root, seq=seq, num_frames=n, height=h, width=512, num_cells=40,
+                          seed=10 + int(seq))
+    model_dir = os.path.join(work, "flagship_model")
+    tree = save_flagship_dir(torch, model_dir)
+    out_root = os.path.join(work, "sweep_res")
+    before = kernels.counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    total = sweep_main(["--model_path", model_dir, "--root_data_dir", root, "--output_root",
+                        out_root, "--device", "cuda", "--dtype", "bfloat16", "--max_batch", "4",
+                        "--pre_sequence_frames", "2", "--score_seg", "--score_det"])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    after = kernels.counts()
+    d = {k: {s: after[k][s] - before[k][s] for s in ("kernel", "plain")} for k in after}
+    steps_512, steps_384 = 10 + 2, 6 + 2  # one chunk of 4 lanes; one lane
+    want = {"lstm_gate_update": 4 * (steps_512 + steps_384),
+            "ccl": 4 * steps_512 + steps_384, "ccl_grid": 0}
+    got = {k: d[k]["kernel"] for k in want}
+    if total != 38 or got != want or any(v["plain"] for v in d.values()):
+        raise AssertionError(f"ctc_sweep: {total} masks, launches {d}, expected {want}")
+    log(f"ctc_sweep bf16 --max_batch 4: {total} masks in {secs:.3f} s incl. loading the model "
+        f"and set-up [{card}]; launches {got}")
+    model = load_model(model_dir, "cuda", dtype="bfloat16")
+    diffs = {}
+    for seq, n, h in seqs:
+        single = os.path.join(work, f"sweep_single_{seq}")
+        ip = InferenceParams(sequence_path=os.path.join(root, "Synth-N2DH-SIM", seq),
+                             output_path=single, pre_sequence_frames=2, dtype="bfloat16")
+        run_inference(ip, device="cuda", model=model)
+        diffs[seq] = compare_dirs(f"ctc_sweep lane {seq}",
+                                  os.path.join(out_root, "Synth-N2DH-SIM", f"{seq}_RES"),
+                                  single, 3)
+    log(f"ctc_sweep lanes against each sequence streamed alone: differing px per frame "
+        f"{diffs} (bar: 3 px, equal instance counts)")
+    frames = [read_tiff(p) for p in sorted(glob.glob(os.path.join(
+        root, "Synth-N2DH-SIM", "04", "t*.tif")))]
+    fps = {}
+    for lanes in (1, 2, 4):
+        ms = step_ms(torch, model, InferenceParams(dtype="bfloat16"), frames, lanes)
+        fps[lanes] = (ms, 1e3 / ms, lanes * 1e3 / ms)
+    log(f"batched bf16 stream at 512^2, steady (median of 8 steps after 2) [{card}]: "
+        + "; ".join(f"B={b}: {ms:.3f} ms/step, {per:.2f} frames/s per lane, {tot:.2f} in all"
+                    for b, (ms, per, tot) in fps.items()))
+    del model
+    torch.cuda.empty_cache()
+
+    scores_path = os.path.join(work, "scores.json")
+    scores = score_main(["--pred_root", out_root, "--gt_root", root, "--json", scores_path])
+    per_seq = [k for k in scores if not k.startswith("mean_")]
+    if len(per_seq) != 5 or not all(0.0 <= scores[f"mean_{m}"] <= 1.0 for m in ("seg", "det")):
+        raise AssertionError(f"ctc_score: {scores}")
+    log(f"ctc_score: mean SEG {scores['mean_seg']:.4f}, mean DET {scores['mean_det']:.4f} "
+        f"over {len(per_seq)} sequences (random weights)")
+
+    soup = os.path.join(work, "soup")
+    if avg_main(["--model_path", run_dir, "--output_dir", soup]) != 5:
+        raise AssertionError("ckpt_avg: the soup is not at the newest step")
+    save_dir = os.path.join(run_dir, "ckpt")
+    npz = [np.load(os.path.join(save_dir, str(s), "params.npz")) for s in (4, 5)]
+    avg = np.load(os.path.join(soup, "5", "params.npz"))
+    for key in avg.files:
+        want_v = ((npz[0][key].astype(np.float32) + npz[1][key])
+                  * np.float32(1 / 2)).astype(npz[0][key].dtype)
+        if not np.array_equal(avg[key], want_v):
+            raise AssertionError(f"ckpt_avg: {key} is not the mean of steps 4, 5")
+    soup_out = os.path.join(work, "soup_res")
+    before = kernels.counts()
+    n = infer_main(["--model_path", soup, "--sequence_path",
+                    os.path.join(work, "flagship", "Synth-N2DH-SIM", "01"),
+                    "--output_path", soup_out, "--device", "cuda", "--pre_sequence_frames", "2"])
+    after = kernels.counts()
+    if n != 8 or any(after[k]["plain"] != before[k]["plain"] for k in after):
+        raise AssertionError(f"inference2d from the soup: {n} masks")
+    log(f"ckpt_avg over the bf16 run's steps 4, 5: {len(avg.files)} arrays, each the f32 "
+        f"mean; inference2d from the soup: {n} masks")
+
+    prefix = os.path.join(work, "tf_export", "model.ckpt")
+    t0 = time.perf_counter()
+    export_tf_bundle(prefix, tree)
+    export_s = time.perf_counter() - t0
+    imported = os.path.join(work, "imported")
+    import_main(["--tf_prefix", prefix, "--output_dir", imported, "--net_kernel_params",
+                 json.dumps(default_net_kernel_params().to_dict())])
+    got = np.load(os.path.join(imported, "params.npz"))
+    flat = flatten_tree(tree)
+    bad = sorted(k for k in flat if not np.array_equal(got[k], flat[k]))
+    if sorted(got.files) != sorted(flat) or bad:
+        raise AssertionError(f"import_tf: {len(bad)} flagship tensors differ: {bad[:4]}")
+    log(f"import_tf of the flagship weights exported as a TF bundle ({len(flat)} tensors, "
+        f"{sum(v.nbytes for v in flat.values()) / 2**20:.1f} MiB, exported in {export_s:.2f} "
+        f"s): bit-equal")
+
+
 def main() -> int:
     try:
         import torch
@@ -1277,6 +1706,8 @@ def main() -> int:
     phase_fused_vs_unfused(torch, "float32")
     phase_fused_vs_unfused(torch, "bfloat16")
     kernel_summary["lstm_gate_update_bwd"] = phase_k2(torch)
+    for kname, rows in phase_batched_kernels(torch).items():
+        kernel_summary[kname]["batched"] = rows
 
     # (d) + (e): the inference path, counted; (g): the training path, counted
     launched = {}
@@ -1304,7 +1735,29 @@ def main() -> int:
         if any(v["plain"] for v in int8.values()):
             raise AssertionError(f"int8 path: plain versions ran: {int8}")
         add_counts(launched, int8)
-        phase_train(torch, work, smi, launched)
+        run_dir = phase_train(torch, work, smi, launched)
+        # (i) + (j): TTA and reset_on_jump, 4 and 8 lanes a step, counted from 0
+        kernels.reset_counts()
+        phase_golden_surface(torch, work)
+        tta_ms = phase_flagship_tta(torch, work, smi)
+        surface = kernels.counts()
+        for k in ("lstm_gate_update", "ccl", "fused_convlstm_level_wgmma", "conv2d_int8",
+                  "conv2d_int8_wgmma"):
+            if surface[k]["kernel"] == 0:
+                raise AssertionError(f"TTA path: {k} never launched: {surface}")
+        if any(v["plain"] for v in surface.values()):
+            raise AssertionError(f"TTA path: plain versions ran: {surface}")
+        add_counts(launched, surface)
+        # (k): the sweep, score, soup and import CLIs, counted from 0
+        kernels.reset_counts()
+        phase_sweep(torch, work, smi, run_dir)
+        sweep = kernels.counts()
+        for k in ("lstm_gate_update", "ccl"):
+            if sweep[k]["kernel"] == 0:
+                raise AssertionError(f"sweep path: {k} never launched: {sweep}")
+        if any(v["plain"] for v in sweep.values()):
+            raise AssertionError(f"sweep path: plain versions ran: {sweep}")
+        add_counts(launched, sweep)
     phase_train_vs_plain(torch)
     for k, v in launched.items():
         if v["kernel"] == 0 or v["plain"] != 0:
@@ -1331,10 +1784,13 @@ def main() -> int:
                "conv2d_int8_wgmma": ("lstm_unet_tpu_torch/csrc/conv_int8_wgmma.cu",
                                      "lstm_unet_tpu/ops/quant.py:91 (XLA int8 conv; no "
                                      "pallas_call)")}
+    log("flagship 512^2 steady ms/frame by dtype and lanes: "
+        + ", ".join(f"{d} {n} lanes {v:.3f}" for (d, n), v in tta_ms.items()))
     log(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": sources[k][0], "replaces": sources[k][1],
          "launches": launched[k]["kernel"], **kernel_summary[k]} for k in sources]}))
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}),
           flush=True)
     return 0

@@ -1,4 +1,5 @@
-from .ckpt import CheckpointManager, resolve_model_dir, save_model_params  # noqa: F401
+from .ckpt import (CheckpointManager, average_checkpoints, resolve_model_dir,  # noqa: F401
+                   save_model_params)
 from .convert import (  # noqa: F401
     flatten_tree,
     load_model,

@@ -71,15 +71,16 @@ class CheckpointManager:
         os.makedirs(self.directory, exist_ok=True)
 
     def save(self, step: int, params: Dict[str, np.ndarray],
-             opt_state: Dict[str, np.ndarray]) -> str:
-        """Write step ``step``; an existing dir of that step is replaced
-        once the new one is complete."""
+             opt_state: Optional[Dict[str, np.ndarray]]) -> str:
+        """Write step ``step`` (params only when ``opt_state`` is None); an
+        existing dir of that step is replaced once the new one is complete."""
         final = os.path.join(self.directory, str(step))
         tmp = f"{final}.tmp{os.getpid()}"
         shutil.rmtree(tmp, ignore_errors=True)
         os.makedirs(tmp)
         np.savez(os.path.join(tmp, PARAMS_FILE), **params)
-        np.savez(os.path.join(tmp, OPT_STATE_FILE), **opt_state)
+        if opt_state is not None:
+            np.savez(os.path.join(tmp, OPT_STATE_FILE), **opt_state)
         old = f"{final}.old{os.getpid()}"
         if os.path.exists(final):  # a re-save of the same step
             os.replace(final, old)
@@ -105,3 +106,45 @@ class CheckpointManager:
         d = os.path.join(self.directory, str(step))
         return (_load_npz(os.path.join(d, PARAMS_FILE)),
                 _load_npz(os.path.join(d, OPT_STATE_FILE)), step)
+
+
+def average_checkpoints(src_dir: str, out_dir: str, steps: Optional[List[int]] = None,
+                        out_step: Optional[int] = None) -> int:
+    """Average saved steps into a new model dir ("model soup"); returns the
+    step it wrote.
+
+    The uniform mean over ``steps`` (default: every step saved under
+    ``src_dir``, a save dir or the run dir above it) is summed in f32 in step
+    order, multiplied by f32 ``1 / len(steps)`` and cast back to each
+    array's dtype, as the reference does. ``out_dir`` gets a params-only step
+    ``out_step`` (default: the newest averaged step) and a copy of
+    ``model_params.json``, so ``load_model`` reads it as any model dir. The
+    source dir is never written to, and its ``act_scales.json`` is not
+    copied: averaged weights need their own calibration."""
+    src_dir = resolve_model_dir(src_dir)
+    if os.path.realpath(out_dir) == os.path.realpath(src_dir):
+        raise ValueError(f"the soup must go to a new dir, not the source {src_dir}")
+    steps = sorted(int(s) for s in (steps or saved_steps(src_dir)))
+    if not steps:
+        raise FileNotFoundError(f"no checkpoints under {src_dir}")
+    acc: Dict[str, np.ndarray] = {}
+    dtypes: Dict[str, np.dtype] = {}
+    for s in steps:
+        params = _load_npz(os.path.join(src_dir, str(s), PARAMS_FILE))
+        if acc and set(params) != set(acc):
+            raise ValueError(f"step {s} param tree differs from step {steps[0]}")
+        for k, v in params.items():
+            if k in acc:
+                acc[k] += v.astype(np.float32)
+            else:
+                acc[k] = np.array(v, dtype=np.float32, copy=True)
+                dtypes[k] = v.dtype
+    inv = np.float32(1.0 / len(steps))
+    avg = {k: (a * inv).astype(dtypes[k]) for k, a in acc.items()}
+    out_step = max(steps) if out_step is None else out_step
+    os.makedirs(out_dir, exist_ok=True)
+    arch = os.path.join(src_dir, MODEL_PARAMS_FILE)
+    if os.path.exists(arch):
+        shutil.copyfile(arch, os.path.join(out_dir, MODEL_PARAMS_FILE))
+    CheckpointManager(out_dir, max_to_keep=0).save(out_step, avg, None)
+    return out_step

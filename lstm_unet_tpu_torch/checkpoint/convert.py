@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from ..models import ModelConfig, ULSTMnet2D, cast_params_for_inference
+from ..utils import resolve_device
 from .ckpt import MODEL_PARAMS_FILE, PARAMS_FILE, resolve_model_dir, saved_steps
 
 
@@ -158,7 +159,7 @@ def resolve_params_path(model_path: str, step: Optional[int] = None) -> str:
     return os.path.join(model_path, str(steps[-1]), PARAMS_FILE)
 
 
-def load_model(model_path: str, device="cpu", dtype: Optional[str] = None,
+def load_model(model_path: str, device="cuda", dtype: Optional[str] = None,
                state_dtype: Optional[str] = None,
                fused_cell: Optional[bool] = None,
                step: Optional[int] = None) -> ULSTMnet2D:
@@ -171,7 +172,10 @@ def load_model(model_path: str, device="cpu", dtype: Optional[str] = None,
     reference does, and keeps the weights as restored (f32): they are
     quantized from those, not from a bf16 copy, by
     ``models/ulstm_unet.py::quantize_model_int8``, which the streaming
-    engine runs with the calibrated scales when it is built."""
+    engine runs with the calibrated scales when it is built. ``device``
+    'cuda' (the default) without a GPU raises, as every entry point of the
+    port does."""
+    device = resolve_device(device)
     model_path = resolve_model_dir(model_path)
     arch_path = os.path.join(model_path, MODEL_PARAMS_FILE)
     params_path = resolve_params_path(model_path, step)

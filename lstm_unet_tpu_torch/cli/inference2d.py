@@ -5,7 +5,9 @@ Same flags as ``python -m lstm_unet_tpu.cli.inference2d``, plus ``--device``
 runs the convs as int8 (dynamic scales, or the calibrated ones of
 ``act_scales.json`` in the model dir); ``--calibrate N`` first calibrates
 them on the sequence's first N frames, on the same device;
-``--int8_keep_float`` keeps sites float. Flags of features not ported yet are
+``--int8_keep_float`` keeps sites float. ``--tta`` averages the flip
+(``--tta_mode d4``: the dihedral) variants of each frame; ``--reset_on_jump X``
+zeroes the LSTM state at a scene cut. Flags of features not ported are
 accepted by the parser and raise ``NotImplementedError`` naming where
 ``ROADMAP.md`` tracks them.
 
@@ -22,21 +24,13 @@ import dataclasses
 from ..config import InferenceParams, load_recipe
 from ..engine.infer import calibrate_model_dir, run_inference
 
-_SURFACE = "ROADMAP.md queue 1 item 11 (TTA, reset_on_jump)"
 _MESH = "ROADMAP.md queue 1 item 12 (parallelism)"
 _TPU_ONLY = "ROADMAP.md 'Do not port' (a TPU lowering or layout knob)"
 
 # flag -> where the roadmap tracks it; given on the command line, each raises
-_UNPORTED_FLAGS = {
-    "tta": _SURFACE, "tta_mode": _SURFACE, "reset_on_jump": _SURFACE,
-    "conv_method": _TPU_ONLY, "entry_layouts": _TPU_ONLY,
-}
+_UNPORTED_FLAGS = {"conv_method": _TPU_ONLY, "entry_layouts": _TPU_ONLY}
 # recipe key -> (value that leaves the feature off, roadmap item)
-_UNPORTED_RECIPE = {
-    "tta": (False, _SURFACE),
-    "reset_on_jump": (0.0, _SURFACE),
-    "conv_method": ("conv", _TPU_ONLY), "entry_layouts": (False, _TPU_ONLY),
-}
+_UNPORTED_RECIPE = {"conv_method": ("conv", _TPU_ONLY), "entry_layouts": (False, _TPU_ONLY)}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -85,12 +79,18 @@ def build_parser() -> argparse.ArgumentParser:
                       ("split_slack", int), ("split_rel", float),
                       ("split_rel_window", int), ("split_min_size", int)):
         ap.add_argument(f"--{name}", type=typ)
-    # not ported yet: accepted, then rejected by name in main()
+    ap.add_argument("--tta", action="store_true", default=None,
+                    help="test-time augmentation: average the probabilities of "
+                         "the frame's variants, streamed as extra lanes")
+    ap.add_argument("--tta_mode", type=str, choices=("flip", "d4"),
+                    help="'flip': 4 axis flips; 'd4': and their transposes (8, "
+                         "frames pad square); needs --tta")
+    ap.add_argument("--reset_on_jump", type=float,
+                    help="zero the LSTM state when a frame's clipped mean "
+                         "|delta| from the last exceeds this; 0 disables")
+    # not ported: accepted, then rejected by name in main()
     ap.add_argument("--conv_method", type=str, choices=["conv", "dots", "auto"])
     ap.add_argument("--entry_layouts", action="store_true", default=None)
-    ap.add_argument("--tta", action="store_true", default=None)
-    ap.add_argument("--tta_mode", type=str, choices=("flip", "d4"))
-    ap.add_argument("--reset_on_jump", type=float)
     ap.add_argument("--int8_keep_float", type=str,
                     help="comma-separated site prefixes kept float in an int8 "
                          "run (e.g. 'encoder/0,head')")

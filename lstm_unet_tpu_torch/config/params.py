@@ -5,8 +5,8 @@ defaults (``tests/test_torch_convert.py`` and ``tests/test_torch_train.py``
 hold them equal), carried here so that the port runs where only PyTorch is
 installed. :class:`CTCParams` carries every training knob of the reference,
 ported or not; the trainer and ``cli/train2d.py`` reject the unported ones by
-name. Only the knobs of the streaming-inference slice live in
-:class:`InferenceParams`; its CLI rejects the others (``cli/inference2d.py``).
+name. Only the knobs of streaming inference live in :class:`InferenceParams`; its
+CLI rejects the TPU-only ones (``cli/inference2d.py``).
 """
 
 from __future__ import annotations
@@ -266,6 +266,10 @@ class InferenceParams:
     fused_cell: bool = False       # whole-level fused ConvLSTM kernel (K4)
     digit_4: bool = False          # mask%04d.tif instead of mask%03d.tif
     watchdog_secs: float = 0.0     # >0: exit 17 when no frame completes
+    tta: bool = False              # test-time augmentation: variants as extra lanes
+    tta_mode: str = "flip"         # 'flip' (4 variants) | 'd4' (8, pads square); needs tta
+    reset_on_jump: float = 0.0     # >0: zero a lane's state when the clipped mean
+                                   # |frame delta| exceeds this (a scene cut)
 
     def override(self, **kwargs) -> "InferenceParams":
         """Set each knob that is not None (argparse leaves unset flags None)."""

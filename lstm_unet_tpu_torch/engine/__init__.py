@@ -2,4 +2,5 @@ from .infer import (  # noqa: F401
     StreamingInferenceEngine,
     resolve_device,
     run_inference,
+    run_inference_batched,
 )

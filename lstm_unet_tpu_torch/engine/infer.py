@@ -1,17 +1,24 @@
 """Streaming inference engine.
 
-Counterpart of ``lstm_unet_tpu/engine/infer.py`` (single sequence, no TTA,
-scene-cut reset or mesh). Per frame, on the model's device::
+Counterpart of ``lstm_unet_tpu/engine/infer.py`` (no mesh). Per step, on
+the model's device, for B lanes (one sequence each; B = 1 for
+:func:`run_inference`, up to ``--max_batch`` for
+:func:`run_inference_batched`)::
 
-    raw frame -> reflect-pad to a multiple of 2^depth (host)
-    -> percentile normalization with the stats of the unpadded frame
-    -> ULSTMnet2D.step with the (h, c) state carried across the sequence
-    -> softmax on the unpadded crop -> postprocess_frame -> int32 labels
+    raw frames -> reflect-pad to a multiple of 2^depth (host; square under
+    TTA 'd4') -> percentile normalization of each lane with the stats of its
+    unpadded frame -> [reset_on_jump: zero the state of lanes whose clipped
+    mean |frame delta| exceeds the threshold] -> [TTA: the flipped (and
+    transposed) variants stacked variant-major as extra lanes, each with its
+    own state] -> ULSTMnet2D.step with the (h, c) state carried across the
+    sequence -> [TTA: each variant's logits transformed back] -> softmax on
+    the unpadded crop [TTA: probabilities averaged over the variants] ->
+    postprocess_frame per lane -> int32 labels
 
 and the labels go to a uint16 ``mask###.tif`` on a writer thread. Frames are
-decoded on a prefetch thread; the labels of frame t-1 are written after
-frame t has been dispatched. The state is rebound to the step's output every
-frame and the old tensors are released, so the caching allocator hands their
+decoded on prefetch threads; the labels of step t-1 are written after step
+t has been dispatched. The state is rebound to the step's output every step
+and the old tensors are released, so the caching allocator hands their
 memory to the next step: memory stays flat over any sequence length (the
 reference donates the state buffers for the same effect).
 
@@ -19,7 +26,8 @@ reference donates the state buffers for the same effect).
 (``models/ulstm_unet.py::quantize_model_int8``, from the weights as
 restored), with the static activation scales of ``act_scales.json`` in the model dir when
 its provenance stamp matches the checkpoint (:func:`load_act_scales`), else
-dynamic per-call scales. :func:`calibrate_model_dir` writes that file.
+dynamic scales, one per conv call over all of its lanes, as the reference
+takes them. :func:`calibrate_model_dir` writes that file.
 """
 
 from __future__ import annotations
@@ -38,24 +46,13 @@ from ..checkpoint.ckpt import MODEL_PARAMS_FILE, resolve_model_dir
 from ..checkpoint.convert import load_model
 from ..config import InferenceParams
 from ..io.dataset import CTCInferenceReader
-from ..io.preprocess import normalize_frame, pad_to_multiple, percentile_normalize_np
+from ..io.preprocess import normalize_frames, pad_to_multiple, percentile_normalize_np
 from ..io.tiff import write_tiff
 from ..models import ULSTMnet2D
 from ..models.ulstm_unet import QConv, quantize_model_int8
 from ..ops.convlstm import QConvLSTMCell
 from ..ops.postprocess import UINT16_MAX, postprocess_frame
-from ..utils import StallWatchdog, log_print
-
-
-def resolve_device(device) -> torch.device:
-    """``device`` as a torch.device; a CUDA device without a GPU raises
-    instead of quietly running on the CPU."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"device {device!r} requested but no CUDA GPU is available; "
-            "pass --device cpu to run the plain PyTorch path")
-    return dev
+from ..utils import StallWatchdog, log_print, resolve_device
 
 
 def _no_tf32(device: torch.device) -> None:
@@ -186,9 +183,17 @@ def calibrate_model_dir(model_path: str, sequence_path: str, n_frames: int = 8,
 
 
 class StreamingInferenceEngine:
-    """Stateful streaming over a sequence of frames of one size. An int8
+    """Stateful streaming over B sequences of frames of one size. An int8
     model (``cfg.quant='int8'``) not yet quantized is quantized here, with
-    the calibrated scales of ``ip.model_path`` when they are current."""
+    the calibrated scales of ``ip.model_path`` when they are current.
+
+    ``ip.tta`` streams the variants of each frame (``ip.tta_mode`` 'flip':
+    the frame and its three axis flips; 'd4': those and their transposes)
+    as extra lanes, ``n_var * B`` in all, and averages their probabilities
+    after the inverse transforms. ``ip.reset_on_jump`` > 0 zeroes a lane's
+    state (all of its variants) before a frame whose normalized, [0, 1]
+    clipped mean absolute difference from the lane's previous frame exceeds
+    it; the first frame never resets."""
 
     def __init__(self, model: ULSTMnet2D, ip: InferenceParams, device):
         self.model = model
@@ -200,12 +205,24 @@ class StreamingInferenceEngine:
                       if ip.model_path else None)
             quantize_model_int8(model, scales, keep_float=ip.int8_keep_float,
                                 float_dtype=model.cfg.compute_dtype)
+        tta_mode = ip.tta_mode or "flip"
+        if tta_mode not in ("flip", "d4"):
+            raise ValueError(f"unknown tta_mode {tta_mode!r} (flip | d4)")
+        self.n_var = (8 if tta_mode == "d4" else 4) if ip.tta else 1
+        self.jump_thresh = float(ip.reset_on_jump or 0.0)
         self.depth_multiple = 2 ** model.cfg.nkp.depth
         self._state = None
-        self._shape: Optional[Tuple[int, int]] = None
+        self._prev: Optional[torch.Tensor] = None  # reset_on_jump: last normalized frames
+        self._shape: Optional[Tuple[int, int, int]] = None  # (B, oh, ow)
 
     def _padded_hw(self, oh: int, ow: int) -> Tuple[int, int]:
-        return oh + (-oh) % self.depth_multiple, ow + (-ow) % self.depth_multiple
+        """The model's frame size for an original (oh, ow): multiples of
+        2^depth, square under 'd4' (the transposed variants share the lanes'
+        shape)."""
+        h, w = oh + (-oh) % self.depth_multiple, ow + (-ow) % self.depth_multiple
+        if self.n_var == 8:
+            h = w = max(h, w)
+        return h, w
 
     def _pad_frame(self, frame: np.ndarray) -> np.ndarray:
         """Reflect-pad ``[..., H, W]`` up to ``_padded_hw``, in chunks (one
@@ -222,30 +239,62 @@ class StreamingInferenceEngine:
             pw -= dw
         return frame
 
-    def _build(self, oh: int, ow: int) -> None:
+    def _build(self, oh: int, ow: int, batch: int = 1) -> None:
         h, w = self._padded_hw(oh, ow)
-        self._state = self.model.init_state(1, h, w, device=self.device)
-        self._shape = (oh, ow)
+        self._state = self.model.init_state(batch * self.n_var, h, w, device=self.device)
+        self._prev = (torch.full((batch, h, w), float("nan"), device=self.device)
+                      if self.jump_thresh > 0 else None)
+        self._shape = (batch, oh, ow)
 
-    @torch.inference_mode()
-    def step_async(self, frame: np.ndarray):
-        """Enqueue one raw frame ``[H, W]``; returns the device tensors
-        (labels ``[1, H, W]`` int32, probs ``[1, H, W, 3]`` or None) without
-        waiting for them."""
-        oh, ow = frame.shape
-        if self._shape != (oh, ow):
-            self._build(oh, ow)
-        padded = self._pad_frame(frame)
+    def _upload(self, padded: np.ndarray) -> torch.Tensor:
         if np.issubdtype(padded.dtype, np.integer):
             if padded.dtype not in (np.uint8, np.uint16):
                 raise ValueError(f"integer frames must be uint8/uint16, got "
                                  f"{padded.dtype}")
-            x = torch.from_numpy(padded.astype(np.int32))
-        else:
-            x = torch.from_numpy(padded.astype(np.float32))
-        x = normalize_frame(x.to(self.device), oh, ow)
-        self._state, logits = self.model.step(self._state, x[None, ..., None])
-        probs = torch.softmax(logits[:, :oh, :ow], dim=-1)
+            return torch.from_numpy(padded.astype(np.int32)).to(self.device)
+        return torch.from_numpy(padded.astype(np.float32)).to(self.device)
+
+    def _variants(self, x: torch.Tensor) -> torch.Tensor:
+        """``[B, H, W]`` -> the model's lanes ``[n_var * B, H, W]``,
+        variant-major (a new contiguous tensor under TTA)."""
+        if self.n_var == 1:
+            return x
+        v = [x, x.flip(1), x.flip(2), x.flip(1, 2)]
+        if self.n_var == 8:
+            t = x.transpose(1, 2)
+            v += [t, t.flip(1), t.flip(2), t.flip(1, 2)]
+        return torch.cat(v)
+
+    def _probs(self, logits: torch.Tensor, b: int, oh: int, ow: int) -> torch.Tensor:
+        """Softmax on the ``[:oh, :ow]`` crop; under TTA each variant's logits
+        transformed back (undo the flip, then the transpose) first and the
+        probabilities averaged over the variants."""
+        if self.n_var == 1:
+            return torch.softmax(logits[:, :oh, :ow], dim=-1)
+        lv = logits.reshape((self.n_var, b) + logits.shape[1:])
+        aligned = [lv[0], lv[1].flip(1), lv[2].flip(2), lv[3].flip(1, 2)]
+        if self.n_var == 8:
+            aligned += [v.transpose(1, 2)
+                        for v in (lv[4], lv[5].flip(1), lv[6].flip(2), lv[7].flip(1, 2))]
+        return torch.softmax(torch.stack(aligned)[:, :, :oh, :ow], dim=-1).mean(dim=0)
+
+    @torch.inference_mode()
+    def step_batch_async(self, frames: np.ndarray):
+        """Enqueue one raw frame per lane, ``[B, H, W]``; returns the device
+        tensors (labels ``[B, H, W]`` int32, probs ``[B, H, W, 3]`` or None)
+        without waiting for them."""
+        b, oh, ow = frames.shape
+        if self._shape != (b, oh, ow):
+            self._build(oh, ow, b)
+        x = normalize_frames(self._upload(self._pad_frame(frames)), oh, ow)
+        state = self._state
+        if self.jump_thresh > 0:
+            jumps = (x.clamp(0.0, 1.0) - self._prev.clamp(0.0, 1.0)).abs().mean(dim=(1, 2))
+            cut = (jumps > self.jump_thresh).float().repeat(self.n_var)
+            state = ULSTMnet2D.reset_lanes(state, cut)
+            self._prev = x
+        self._state, logits = self.model.step(state, self._variants(x)[..., None])
+        probs = self._probs(logits, b, oh, ow)
         ip = self.ip
         labels = torch.stack([
             postprocess_frame(p, cell_thresh=ip.cell_thresh,
@@ -267,6 +316,10 @@ class StreamingInferenceEngine:
                               split_erode=ip.split_erode)
             for p in probs])
         return labels, (probs if ip.save_intermediate else None)
+
+    def step_async(self, frame: np.ndarray):
+        """:meth:`step_batch_async` of one raw frame ``[H, W]`` (B = 1)."""
+        return self.step_batch_async(frame[None])
 
     def process_frame(self, frame: np.ndarray):
         """One frame -> (labels ``[H, W]`` int32, probs ``[H, W, 3]`` or None)
@@ -386,58 +439,108 @@ def run_inference(ip: InferenceParams, device="cuda",
                   model: Optional[ULSTMnet2D] = None) -> int:
     """Stream ``ip.sequence_path`` through the model and write one uint16
     ``mask###.tif`` per frame to ``ip.output_path`` (and ``probs###.npy``
+    under ``ip.save_intermediate_path``, default ``<output>/intermediate``,
     with ``save_intermediate``); returns the number of masks written.
-    ``model`` replaces loading ``ip.model_path``."""
+    ``model`` replaces loading ``ip.model_path``. It is
+    :func:`run_inference_batched` with one lane, save that a frame of a new
+    shape rebuilds the state instead of raising."""
+    return _stream(ip, [ip.sequence_path], [ip.output_path], device, model,
+                   fixed_shape=False)
+
+
+def run_inference_batched(ip: InferenceParams, sequence_paths: List[str],
+                          output_paths: List[str], device="cuda",
+                          model: Optional[ULSTMnet2D] = None) -> int:
+    """Stream several sequences at once, one lane each, and write each one's
+    masks to its own entry of ``output_paths``; returns the number of masks
+    written. ``ip.sequence_path`` and ``ip.output_path`` are not used.
+
+    All sequences must share one frame shape (``cli/ctc_sweep.py`` groups
+    them by shape), else ``ValueError``; so must every frame of a sequence.
+    A lane whose sequence has ended keeps stepping on its last frame (the
+    lane count stays fixed) and its outputs are discarded; warm-up frames
+    write nothing. The uint16 overflow check runs on the lanes written only.
+    ``save_intermediate`` writes each lane's probabilities under its own
+    ``<output>/intermediate`` (one lane: ``ip.save_intermediate_path`` when
+    set). Frame t is dispatched before the labels of frame t-1 are waited
+    for and written, so the label copy and the TIFF encode overlap the
+    device. ``model`` replaces loading ``ip.model_path``.
+    """
+    return _stream(ip, sequence_paths, output_paths, device, model, fixed_shape=True)
+
+
+def _stream(ip: InferenceParams, sequence_paths: List[str], output_paths: List[str],
+            device, model: Optional[ULSTMnet2D], fixed_shape: bool) -> int:
     device = resolve_device(device)
     if model is None:
         model = load_model(ip.model_path, device, dtype=ip.dtype,
                            state_dtype=ip.state_dtype, fused_cell=ip.fused_cell,
                            step=ip.ckpt_step or None)
     engine = StreamingInferenceEngine(model, ip, device)
-    reader = CTCInferenceReader(ip.sequence_path, ip.filename_format,
-                                ip.pre_sequence_frames, normalize=False)
-    writer = _AsyncWriter()
-    prefetcher = _Prefetcher(reader)
+    readers = [CTCInferenceReader(sp, ip.filename_format, ip.pre_sequence_frames,
+                                  normalize=False) for sp in sequence_paths]
+    prefetchers = [_Prefetcher(r) for r in readers]
+    iters = [iter(p) for p in prefetchers]
     fmt = "mask%04d.tif" if ip.digit_4 else "mask%03d.tif"
+    b = len(readers)
     n = 0
+    writer = None
 
-    def emit(idx, labels_host, event, probs_dev):
+    def emit(writes, labels_host, event, probs_dev):
+        nonlocal n
         if event is not None:
             event.synchronize()
-        labels = labels_host[0].numpy()
-        if labels.max(initial=0) > UINT16_MAX:
-            raise ValueError("instance count exceeds uint16")
-        writer.put(os.path.join(ip.output_path, fmt % idx),
-                   labels.astype(np.uint16))
-        if probs_dev is not None:
-            inter_dir = ip.save_intermediate_path or os.path.join(
-                ip.output_path, "intermediate")
-            os.makedirs(inter_dir, exist_ok=True)
-            np.save(os.path.join(inter_dir, f"probs{idx:03d}.npy"),
-                    probs_dev[0].cpu().numpy())
+        labels = labels_host.numpy()
+        probs = None if probs_dev is None else probs_dev.cpu().numpy()
+        for lane, idx in writes:
+            if labels[lane].max(initial=0) > UINT16_MAX:
+                raise ValueError(f"instance count exceeds uint16 (lane {lane})")
+            writer.put(os.path.join(output_paths[lane], fmt % idx),
+                       labels[lane].astype(np.uint16))
+            if probs is not None:
+                inter_dir = ((b == 1 and ip.save_intermediate_path)
+                             or os.path.join(output_paths[lane], "intermediate"))
+                os.makedirs(inter_dir, exist_ok=True)
+                np.save(os.path.join(inter_dir, f"probs{idx:03d}.npy"), probs[lane])
+            n += 1
 
-    # dispatch frame t, then wait for and write frame t-1: the label copy and
-    # the TIFF encode overlap frame t on the device
-    pending = None
     wd = _arm_watchdog(ip, "infer")
     try:
-        for idx, frame in prefetcher:
+        cur = [next(it) for it in iters]  # (idx, frame) per lane
+        shapes = [f.shape for _, f in cur]
+        if len(set(shapes)) != 1:
+            raise ValueError(f"batched inference requires equal frame shapes, got {shapes}")
+        writer = _AsyncWriter()
+        done = [False] * b
+        pending = None
+        while not all(done):
             if wd is not None:
                 wd.feed()
-            labels_dev, probs_dev = engine.step_async(frame)
+            for lane, (_, f) in enumerate(cur):
+                if fixed_shape and f.shape != shapes[lane]:
+                    raise ValueError(f"lane {lane} frame shape changed mid-sequence: "
+                                     f"{shapes[lane]} -> {f.shape}")
+            labels_dev, probs_dev = engine.step_batch_async(np.stack([f for _, f in cur]))
+            writes = [(lane, cur[lane][0]) for lane in range(b)
+                      if cur[lane][0] is not None and not done[lane]]
             if pending is not None:
                 emit(*pending)
-                n += 1
-            # warm-up frames (idx None): state kept, output discarded
-            pending = ((idx, *_to_host_async(labels_dev), probs_dev)
-                       if idx is not None else None)
+            pending = (writes, *_to_host_async(labels_dev), probs_dev)
+            for lane in range(b):
+                if not done[lane]:
+                    try:
+                        cur[lane] = next(iters[lane])
+                    except StopIteration:
+                        done[lane] = True
         if pending is not None:
             emit(*pending)
-            n += 1
     finally:
         if wd is not None:
             wd.stop()
-        writer.close()
-        prefetcher.close()
-    log_print(f"inference: wrote {n} masks to {ip.output_path}")
+        if writer is not None:
+            writer.close()
+        for p in prefetchers:
+            p.close()
+    log_print(f"inference: wrote {n} masks across {b} sequence(s) to "
+              f"{', '.join(output_paths)}")
     return n

@@ -38,8 +38,7 @@ from ..metrics import det_counts, det_score, seg_measure
 from ..models import ModelConfig, ULSTMnet2D
 from ..models.ulstm_unet import State
 from ..ops.postprocess import postprocess_frame
-from ..utils import StallWatchdog, log_print
-from .infer import resolve_device
+from ..utils import StallWatchdog, log_print, resolve_device
 from .loss import weighted_ce_loss
 from .optim import ClippedAdam
 

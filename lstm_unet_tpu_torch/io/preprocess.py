@@ -72,6 +72,13 @@ def normalize_frame(frame: torch.Tensor, oh: int, ow: int) -> torch.Tensor:
     return (frame.float() - lo) / torch.clamp(hi - lo, min=1e-6)
 
 
+def normalize_frames(frames: torch.Tensor, oh: int, ow: int) -> torch.Tensor:
+    """:func:`normalize_frame` of each lane of a padded ``[B, H, W]`` stack,
+    each with the stats of its own ``[:oh, :ow]`` crop (the reference's
+    ``jax.vmap`` of the per-frame normalization)."""
+    return torch.stack([normalize_frame(f, oh, ow) for f in frames])
+
+
 def percentile_normalize_np(img: np.ndarray, low: float = 1.0,
                             high: float = 99.0) -> np.ndarray:
     """NumPy normalization of a whole frame (host-side twin)."""

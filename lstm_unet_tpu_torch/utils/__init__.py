@@ -8,9 +8,22 @@ import threading
 import time
 from typing import Callable, Optional
 
+import torch
+
 # distinct from Python's 1 (exception), timeout(1)'s 124 and 128+N (signal),
 # so a supervisor can key a relaunch on "stalled"
 STALL_EXIT_CODE = 17
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a torch.device; a CUDA device without a GPU raises
+    instead of quietly running on the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {device!r} requested but no CUDA GPU is available; "
+            "pass --device cpu to run the plain PyTorch path")
+    return dev
 
 
 def log_print(*args, file=None, flush: bool = True) -> None:

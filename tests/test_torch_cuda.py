@@ -525,3 +525,75 @@ def test_int8_model_on_the_card_equals_cpu(cuda):
         assert ran["conv2d_int8"] == {"kernel": 5 if fused else 6, "plain": 0}
         assert ran["conv2d_int8_wgmma"] == {"kernel": 2 if fused else 3, "plain": 0}
         assert float((got.cpu() - want).abs().max() / want.abs().max()) < 2.0 ** -5
+
+
+def test_conv2d_int8_wgmma_shares_the_dynamic_scale_over_lanes(cuda):
+    """B = 4 lanes of unequal ranges at a shape whose N tile widens with the
+    batch (64^2 3x3, 512 -> 512: 128 columns at B = 1, 256 at B = 4): bit-equal
+    to the plain version with one abs-max over all lanes, and lane 0 alone
+    (its own scale) differs."""
+    from lstm_unet_tpu_torch.ops import quant
+    from lstm_unet_tpu_torch.ops.kernels import conv_int8
+
+    g = torch.Generator(device=cuda).manual_seed(4)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert conv_int8.kernel_tile_n(1, 64, 64, 512, sms) == 128
+    assert conv_int8.kernel_tile_n(4, 64, 64, 512, sms) == 256
+    weight = quant.QWeight(torch.randn(512, 512, 3, 3, device=cuda, generator=g),
+                           torch.randn(512, device=cuda, generator=g))
+    x = (torch.randn(4, 64, 64, 512, device=cuda, generator=g)
+         * torch.tensor([1.5, 0.5, 3.0, 1.0], device=cuda)[:, None, None, None]
+         ).to(torch.bfloat16)
+    a = (weight.packed, weight.w_scale, weight.bias, 3, torch.bfloat16)
+    got = conv_int8.conv2d_int8_wgmma(x, None, *a)
+    assert torch.equal(got, conv_int8.conv2d_int8_wgmma_plain(x, None, *a))
+    assert not torch.equal(conv_int8.conv2d_int8_wgmma(x[:1].contiguous(), None, *a), got[:1])
+
+
+@pytest.mark.parametrize("flags", [["--tta"], ["--tta", "--tta_mode", "d4"],
+                                   ["--reset_on_jump", "0.4"]])
+def test_tta_and_reset_on_the_card_equal_cpu(cuda, tmp_path, flags):
+    """The golden model in f32 with TTA (4 or 8 lanes a step) or scene-cut
+    resets: the same masks on the card as on the CPU, one K1 a level and one
+    K3 a step on the card."""
+    seq_dir, _ = synthetic.write_ctc_dataset(str(tmp_path / "ctc"), num_frames=8, height=32,
+                                             width=32, num_cells=3, seed=123)
+    outs = {}
+    for device in ("cuda", "cpu"):
+        outs[device] = str(tmp_path / device)
+        reset_counts()
+        n = cli_main(["--model_path", os.path.join(GOLDEN, "torch_ckpt"), "--sequence_path",
+                      seq_dir, "--output_path", outs[device], "--device", device,
+                      "--pre_sequence_frames", "2", "--min_cell_size", "5",
+                      "--dtype", "float32", *flags])
+        if device == "cuda":
+            ran = counts()
+            assert ran["lstm_gate_update"] == {"kernel": 2 * (n + 2), "plain": 0}
+            assert ran["ccl"] == {"kernel": n + 2, "plain": 0}
+    for p in sorted(glob.glob(os.path.join(outs["cpu"], "mask*.tif"))):
+        np.testing.assert_array_equal(read_tiff(os.path.join(outs["cuda"], os.path.basename(p))),
+                                      read_tiff(p))
+
+
+def test_batched_stream_on_the_card_equals_cpu(cuda, tmp_path):
+    """Two golden-recipe sequences of 8 and 6 frames as two lanes: equal
+    masks on the card and on the CPU; K3 once a lane a step."""
+    from lstm_unet_tpu_torch.config import InferenceParams
+    from lstm_unet_tpu_torch.engine.infer import run_inference_batched
+
+    seqs = [synthetic.write_ctc_dataset(str(tmp_path / "ctc"), seq=s, num_frames=n,
+                                        height=32, width=32, num_cells=3, seed=seed)[0]
+            for s, n, seed in (("01", 8, 123), ("02", 6, 7))]
+    ip = InferenceParams(model_path=os.path.join(GOLDEN, "torch_ckpt"), min_cell_size=5,
+                         pre_sequence_frames=2, dtype="float32")
+    outs = {}
+    for device in ("cuda", "cpu"):
+        outs[device] = [str(tmp_path / f"{device}{i}") for i in range(2)]
+        reset_counts()
+        assert run_inference_batched(ip, seqs, outs[device], device=device) == 14
+        if device == "cuda":
+            assert counts()["ccl"] == {"kernel": 2 * (8 + 2), "plain": 0}
+    for got_dir, want_dir in zip(outs["cuda"], outs["cpu"]):
+        for p in sorted(glob.glob(os.path.join(want_dir, "mask*.tif"))):
+            np.testing.assert_array_equal(
+                read_tiff(os.path.join(got_dir, os.path.basename(p))), read_tiff(p))

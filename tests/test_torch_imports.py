@@ -15,8 +15,12 @@ PORT = os.path.join(ROOT, "lstm_unet_tpu_torch")
 _STEP = """
 import sys, torch
 import lstm_unet_tpu_torch
-from lstm_unet_tpu_torch.cli import inference2d, train2d
+from lstm_unet_tpu_torch.cli import (ckpt_avg, ctc_score, ctc_sweep, import_tf, inference2d,
+                                     train2d)
 from lstm_unet_tpu_torch import checkpoint, metrics
+from lstm_unet_tpu_torch.checkpoint import tf_bundle, tf_import
+from lstm_unet_tpu_torch.config import InferenceParams
+from lstm_unet_tpu_torch.engine.infer import StreamingInferenceEngine, run_inference_batched
 from lstm_unet_tpu_torch.config import tiny_net_kernel_params
 from lstm_unet_tpu_torch.engine.optim import ClippedAdam
 from lstm_unet_tpu_torch.engine.train import make_train_step
@@ -29,6 +33,12 @@ model = ULSTMnet2D(ModelConfig.make(tiny_net_kernel_params()),
 with torch.no_grad():
     state, logits = model.step(model.init_state(1, 16, 16), torch.rand(1, 16, 16, 1))
 assert logits.shape == (1, 16, 16, 3)
+import numpy as np
+engine = StreamingInferenceEngine(model, InferenceParams(tta=True, tta_mode="d4",
+                                                         reset_on_jump=0.3), "cpu")
+labels, _ = engine.step_batch_async(np.zeros((2, 12, 16), np.uint16))
+assert labels.shape == (2, 12, 16) and engine._state[0][0][0].shape[0] == 16
+assert tf_bundle.crc32c(b"123456789") == 0xE3069283
 qmodel = ULSTMnet2D(ModelConfig.make(tiny_net_kernel_params(), dtype="bfloat16", quant="int8"),
                     generator=torch.Generator().manual_seed(0))
 quantize_model_int8(qmodel, float_dtype=torch.bfloat16)

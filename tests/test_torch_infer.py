@@ -190,13 +190,58 @@ def test_cli_digit_4_and_intermediate_probs(tmp_path):
     np.testing.assert_allclose(probs.sum(-1), 1.0, rtol=1e-5)
 
 
-@pytest.mark.parametrize("flag", [["--tta_mode", "flip"], ["--tta"], ["--tta_mode", "d4"],
-                                  ["--reset_on_jump", "0.2"], ["--conv_method", "conv"],
-                                  ["--entry_layouts"], ["--conv_method", "dots"]])
+@pytest.mark.parametrize("flag", [["--conv_method", "conv"], ["--entry_layouts"],
+                                  ["--conv_method", "dots"]])
 def test_cli_rejects_unported_flags(tmp_path, flag):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         cli_main(["--model_path", "m", "--sequence_path", "s", "--output_path",
                   str(tmp_path), "--device", "cpu", *flag])
+
+
+@pytest.mark.parametrize("flag", [["--tta_mode", "flip"], ["--tta"], ["--tta_mode", "d4"],
+                                  ["--reset_on_jump", "0.2"]])
+def test_cli_surface_flags_run_on_golden(tmp_path, flag):
+    """The four flags this test file once rejected. ``--tta_mode`` without
+    ``--tta`` and a ``--reset_on_jump`` no frame of the golden sequence
+    reaches leave the golden masks as they are; ``--tta`` streams the four
+    flip variants and equals the JAX engine's TTA run (tests/test_torch_tta.py
+    holds the probabilities too)."""
+    n, out = _golden_cli(tmp_path, *flag)
+    assert n == 8
+    if flag == ["--tta"]:
+        want_dir = str(tmp_path / "jax")
+        jax_run_inference(CTCInferenceParams(
+            model_path=os.path.join(GOLDEN, "ckpt"), output_path=want_dir, tta=True,
+            sequence_path=str(tmp_path / "ctc" / "Synth-N2DH-SIM" / "01"),
+            pre_sequence_frames=2, min_cell_size=5, dtype="float32"))
+        want = sorted(glob.glob(os.path.join(want_dir, "mask*.tif")))
+    else:
+        want = sorted(glob.glob(os.path.join(GOLDEN, "masks", "mask*.tif")))
+    assert len(want) == 8
+    for p in want:
+        np.testing.assert_array_equal(tiff.read_tiff(os.path.join(out, os.path.basename(p))),
+                                      tiff.read_tiff(p), err_msg=os.path.basename(p))
+
+
+def test_run_inference_rebuilds_state_on_a_new_frame_shape(tmp_path):
+    """One sequence whose frames change shape halfway streams on with a fresh
+    state, as the JAX engine does (the batched entry raises instead)."""
+    seq_dir, _ = synthetic.write_ctc_dataset(str(tmp_path / "ctc"), **GOLDEN_DATA)
+    for p in sorted(glob.glob(os.path.join(seq_dir, "t*.tif")))[4:]:
+        tiff.write_tiff(p, np.ascontiguousarray(tiff.read_tiff(p)[:, :24]))
+    kw = dict(sequence_path=seq_dir, pre_sequence_frames=2, min_cell_size=5,
+              dtype="float32")
+    out, want_dir = str(tmp_path / "res"), str(tmp_path / "jax")
+    n = infer.run_inference(InferenceParams(model_path=os.path.join(GOLDEN, "torch_ckpt"),
+                                            output_path=out, **kw), device="cpu")
+    jax_run_inference(CTCInferenceParams(model_path=os.path.join(GOLDEN, "ckpt"),
+                                         output_path=want_dir, **kw))
+    want = sorted(glob.glob(os.path.join(want_dir, "mask*.tif")))
+    assert n == len(want) == 8
+    assert tiff.read_tiff(want[-1]).shape == (32, 24)
+    for p in want:
+        np.testing.assert_array_equal(tiff.read_tiff(os.path.join(out, os.path.basename(p))),
+                                      tiff.read_tiff(p), err_msg=os.path.basename(p))
 
 
 @pytest.mark.parametrize("flags", [["--dtype", "int8"], ["--dtype", "int8", "--calibrate", "2"]])
@@ -226,8 +271,8 @@ def test_cli_recipe(tmp_path):
                        os.path.join(HERE, "..", "configs", "recommended.json"))
     assert n == 8
     unported = tmp_path / "u.json"
-    unported.write_text(json.dumps({"tta": True}))
-    with pytest.raises(NotImplementedError, match="tta"):
+    unported.write_text(json.dumps({"conv_method": "dots"}))
+    with pytest.raises(NotImplementedError, match="conv_method"):
         cli_main(["--model_path", "m", "--sequence_path", "s", "--output_path",
                   str(tmp_path), "--device", "cpu", "--recipe", str(unported)])
     recipe = tmp_path / "r.json"
