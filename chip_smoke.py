@@ -62,6 +62,18 @@ Phases, each of which raises (exit != 0) when it fails:
      out of the timed steps), then the port's ``inference2d``
      from the trained run dir; K1, K2 and K3 must launch and no plain version
      run, and every parameter must get a nonzero gradient;
+  l. the rest of training on the flagship (B5 T7 256² bf16, phase g's data,
+     each run counted: K1, K2 and K3 launched, no plain version): l1 resume,
+     8 steps with the deterministic provider, elastic augmentation (through
+     a recipe), bf16 Adam moments and the save_outputs remat policy, a
+     relaunch with ``--continue_run`` to 12 and 12 steps uninterrupted: step
+     8 restored bit for bit, the batches of steps 9-12 bit-equal, the
+     target file, the losses; l2 a loss 100x on step 8 (a save step)
+     rolled back before the save, then ``spike_max_rollbacks + 1`` spikes
+     raise and skip the final save; l3 + l4 a fine-tune seeded from phase
+     g's bf16 run, 16 steps with ``--profile``: its steps and target, a
+     trace naming K1 and K2; l5 steady frames/s, peak memory and K1/K2
+     launches per step with remat off, full and save_outputs;
   h. one f32 flagship training step (loss and grads) with the kernels
      against the same step with the plain versions patched in;
   j (kernels). the kernels at the lane counts of TTA and batched streams:
@@ -681,6 +693,238 @@ def phase_train(torch, work, card, launched):
     finally:
         engine_train.loss_and_grads = loss_and_grads
     return os.path.dirname(save_dir)
+
+
+def check_run(name, ran, launched):
+    """After a training run: K1, K2 and K3 launched, no plain version ran;
+    adds the run's counts to ``launched``."""
+    add_counts(launched, ran)
+    if any(v["plain"] for v in ran.values()):
+        raise AssertionError(f"{name}: plain versions ran on the card: {ran}")
+    for k in ("lstm_gate_update", "lstm_gate_update_bwd", "ccl"):
+        if ran[k]["kernel"] == 0:
+            raise AssertionError(f"{name}: {k} never launched: {ran}")
+
+
+def npz_tensors(torch, path, opt=False):
+    """A saved step's params (or, with ``opt``, its moments ``mu``) as the
+    port's tensors."""
+    from lstm_unet_tpu_torch.checkpoint.convert import opt_state_from_npz, params_from_jax
+
+    with np.load(path) as f:
+        flat = {k: f[k] for k in f.files}
+    return opt_state_from_npz(flat)["mu"] if opt else params_from_jax(flat)
+
+
+def bit_equal(torch, got, want):
+    """Names of the tensors of ``got`` that differ from ``want`` in a bit."""
+    return sorted(k for k, v in got.items()
+                  if not torch.equal(v.cpu().view(torch.int16) if v.dtype == torch.bfloat16
+                                     else v.cpu(), want[k].view(torch.int16)
+                                     if want[k].dtype == torch.bfloat16 else want[k]))
+
+
+def phase_train_rest(torch, work, card, launched, seed_run):
+    """(l): the rest of training on the flagship, B5 T7 256² bf16, through
+    ``cli/train2d.main`` on phase g's data. l1 resume: 8 steps with the
+    deterministic provider, elastic augmentation (recipe), bf16 moments and
+    the save_outputs policy, saving at 4 and 8; a relaunch with
+    ``--continue_run --num_iterations 12``; 12 steps uninterrupted. l2 spike:
+    a loss 100x on step 8, a save step, rolled back before the save; then
+    ``spike_max_rollbacks + 1`` spikes raise. l3 + l4: a fine-tune seeded
+    from phase g's bf16 run, 16 steps with ``--profile``. l5: steady
+    frames/s, peak memory and K1/K2 launches per step with remat off, full
+    and save_outputs. Each run launches K1, K2 and K3 and no plain version."""
+    import lstm_unet_tpu_torch.engine.train as engine_train
+    from lstm_unet_tpu_torch.checkpoint import CheckpointManager
+    from lstm_unet_tpu_torch.cli.train2d import main as train_main
+    from lstm_unet_tpu_torch.io.grain_reader import GrainCTCReaderSequence2D
+    from lstm_unet_tpu_torch.ops import kernels
+
+    root = os.path.join(work, "train_data")  # phase g's 16-frame 512^2 sequence
+    runs = os.path.join(work, "runs_l")
+    recipes = {}
+    for name, knobs in (("elastic", {"elastic_augmentation": True}),
+                        ("guard", {"spike_warmup": 2}), ("no_remat", {"remat": False})):
+        recipes[name] = os.path.join(work, f"recipe_{name}.json")
+        with open(recipes[name], "w") as f:
+            json.dump(knobs, f)
+
+    def run(name, steps, *extra, expect_error=None):
+        kernels.reset_counts()
+        args = train_args(root, runs, "bfloat16", steps, 10 ** 9) + [
+            "--experiment_name", name, *extra]
+        if expect_error is None:
+            trainer = train_main(args)
+        else:
+            try:
+                train_main(args)
+            except expect_error as e:
+                trainer = e
+            else:
+                raise AssertionError(f"{name}: {expect_error.__name__} not raised")
+        torch.cuda.synchronize()
+        check_run(name, kernels.counts(), launched)
+        return trainer
+
+    # (l1) resume
+    knobs = ["--recipe", recipes["elastic"], "--data_provider_class", "GrainCTCReaderSequence2D",
+             "--adam_mu_dtype", "bfloat16", "--remat", "--remat_policy", "save_outputs",
+             "--save_checkpoint_iteration", "4"]
+    t0 = time.perf_counter()
+    cut = run("resume", 8, *knobs)
+    if cut.global_step != 8 or CheckpointManager(cut.p.experiment_save_dir).all_steps() != [4, 8]:
+        raise AssertionError(f"l1: first launch ended at {cut.global_step}")
+    seen, restored = [], {}
+    get_batch, restore = GrainCTCReaderSequence2D.get_batch, engine_train.Trainer._restore
+
+    def recording(self):
+        batch = get_batch(self)
+        if self.return_instances is False:  # the training reader, not validation's
+            seen.append(batch)
+        return batch
+
+    def snapshot(self, path):
+        restore(self, path)
+        restored.update(step=self.global_step, params={
+            k: v.detach().clone() for k, v in self.model.state_dict().items()},
+            mu={k: v.clone() for k, v in self.optimizer.mu.items()},
+            nu={k: v.clone() for k, v in self.optimizer.nu.items()})
+
+    GrainCTCReaderSequence2D.get_batch, engine_train.Trainer._restore = recording, snapshot
+    try:
+        resumed = run("resume", 12, *knobs, "--continue_run", "--validation_interval", "4")
+    finally:
+        GrainCTCReaderSequence2D.get_batch, engine_train.Trainer._restore = get_batch, restore
+    whole = run("whole", 12, *knobs)
+    step8 = os.path.join(cut.p.experiment_save_dir, "8")
+    bad = (bit_equal(torch, restored["params"], npz_tensors(torch, os.path.join(
+        step8, "params.npz")))
+        + bit_equal(torch, restored["mu"], npz_tensors(torch, os.path.join(
+            step8, "opt_state.npz"), opt=True)))
+    if restored.get("step") != 8 or bad or resumed.global_step != 12:
+        raise AssertionError(f"l1: restored step {restored.get('step')}, ended at "
+                             f"{resumed.global_step}; tensors not bit-equal: {bad[:4]}")
+    if any(m.dtype != torch.bfloat16 for m in restored["mu"].values()):
+        raise AssertionError("l1: the restored moments are not bf16")
+    if len(seen) != 4:
+        raise AssertionError(f"l1: the resumed run read {len(seen)} batches")
+    for step, batch in zip(range(8, 12), seen):
+        if not all(np.array_equal(a, b) for a, b in zip(batch, whole.reader.make_batch(step))):
+            raise AssertionError(f"l1: the resumed batch of step {step + 1} differs from "
+                                 f"the uninterrupted run's")
+    with open(os.path.join(cut.p.experiment_save_dir, "target_step.json")) as f:
+        target = json.load(f)
+    if target != {"target_step": 12, "initial_step": 0}:
+        raise AssertionError(f"l1: target_step.json {target}")
+    got = [h["loss"] for h in resumed.history]
+    want = [h["loss"] for h in whole.history[8:]]
+    gaps = [abs(a - b) / abs(b) for a, b in zip(got, want)]
+    # step 9 runs from a fresh LSTM state after the relaunch and from the
+    # state of steps 7-8 in the uninterrupted run; steps 10-12 begin new
+    # traversals in both (16 frames: windows of 7 end at steps 3, 6, 9, 12)
+    if max(gaps[1:]) > 1e-2:
+        raise AssertionError(f"l1: resumed losses {got} vs uninterrupted {want}")
+    log(f"l1 resume (B5 T7 256^2 bf16, grain provider, elastic, bf16 mu, save_outputs): "
+        f"step 8 restored bit-equal ({len(restored['params'])} params, "
+        f"{len(restored['mu'])} bf16 moments), batches of steps 9-12 bit-equal, target "
+        f"{target}; losses of steps 9-12 resumed {[round(x, 6) for x in got]} vs "
+        f"uninterrupted {[round(x, 6) for x in want]}, relative gap "
+        f"{[f'{g:.2e}' for g in gaps]} (step 9: fresh LSTM state after the relaunch); "
+        f"{time.perf_counter() - t0:.1f} s for 3 runs [{card}]")
+
+    # (l2) a loss 100x the EMA on step 8, right before the save at 8
+    spikes, calls = set(), [0]
+    loss_and_grads = engine_train.loss_and_grads
+
+    def spiking(*args, **kw):
+        calls[0] += 1
+        loss, acc, state, grads = loss_and_grads(*args, **kw)
+        return (loss * 100 if calls[0] in spikes else loss), acc, state, grads
+
+    rolled = {}
+    rollback = engine_train.Trainer._rollback
+
+    def rollback_snapshot(self, step):
+        rollback(self, step)
+        rolled[step] = {k: v.detach().clone() for k, v in self.model.state_dict().items()}
+
+    engine_train.loss_and_grads, engine_train.Trainer._rollback = spiking, rollback_snapshot
+    guard = ["--spike_factor", "5", "--spike_cooldown", "1", "--save_checkpoint_iteration", "4"]
+    try:
+        t0 = time.perf_counter()
+        spikes.update({8})
+        spiked = run("spike", 10, "--recipe", recipes["guard"], *guard)
+        d = spiked.p.experiment_save_dir
+        at4 = npz_tensors(torch, os.path.join(d, "4", "params.npz"))
+        at8 = npz_tensors(torch, os.path.join(d, "8", "params.npz"))
+        if (spiked.spike_guard.rollback_steps != [8] or bit_equal(torch, rolled[8], at4)
+                or bit_equal(torch, at8, at4)):
+            raise AssertionError(f"l2: rollbacks {spiked.spike_guard.rollback_steps}; the "
+                                 f"rolled-back params or step 8's save differ from step 4's")
+        log(f"l2 spike: loss x100 on step 8 (a save step) rolled back before the save: "
+            f"params after the rollback and the step-8 save bit-equal to step 4's; "
+            f"EMA {spiked.spike_guard.ema:.6f}; {time.perf_counter() - t0:.1f} s [{card}]")
+        calls[0] = 0
+        spikes.clear()
+        spikes.update({4, 6})
+        err = run("spike_abort", 8, "--recipe", recipes["guard"], "--spike_factor", "5",
+                  "--spike_cooldown", "1", "--spike_max_rollbacks", "1",
+                  "--save_checkpoint_iteration", "3", "--validation_interval", "3",
+                  expect_error=RuntimeError)
+        saved = CheckpointManager(os.path.join(runs, sorted(
+            d for d in os.listdir(runs) if d.startswith("spike_abort_"))[-1], "ckpt")).all_steps()
+        if "spike guard" not in str(err) or saved != [3]:
+            raise AssertionError(f"l2: {err!r}; saved steps {saved}")
+        log(f"l2 spike_max_rollbacks 1, spikes on steps 4 and 6: {err}; saved steps "
+            f"{saved} (no final save)")
+    finally:
+        engine_train.loss_and_grads, engine_train.Trainer._rollback = loss_and_grads, rollback
+
+    # (l3 + l4) a fine-tune seeded from phase g's bf16 run, profiled
+    seed_step = CheckpointManager(os.path.join(seed_run, "ckpt")).latest_step()
+    t0 = time.perf_counter()
+    ft = run("finetune", 16, "--load_checkpoint", "--load_checkpoint_path", seed_run,
+             "--profile")
+    if (ft.initial_step, ft.target_step, ft.global_step, ft.history[0]["step"]) != (
+            seed_step, seed_step + 16, seed_step + 16, seed_step + 1):
+        raise AssertionError(f"l3: initial {ft.initial_step}, target {ft.target_step}, "
+                             f"ended at {ft.global_step}, seed step {seed_step}")
+    with open(ft.profile_path) as f:
+        trace = f.read()
+    k1, k2 = trace.count("gate_update_kernel<"), trace.count("gate_update_bwd_kernel<")
+    if not (k1 and k2):
+        raise AssertionError(f"l4: the trace {ft.profile_path} names no K1 ({k1}) or "
+                             f"K2 ({k2}) kernel")
+    log(f"l3 fine-tune from phase g's bf16 run (step {seed_step}): steps "
+        f"{seed_step + 1}-{ft.global_step}, target {ft.target_step}; l4 trace "
+        f"{os.path.basename(ft.profile_path)} ({len(trace) / 2 ** 20:.1f} MiB) names K1 "
+        f"{k1} and K2 {k2} times; {time.perf_counter() - t0:.1f} s [{card}]")
+
+    # (l5) remat policies: steady frames/s (steps 3-6), peak memory, launches
+    figures = {}
+    for label, flags in (("off", ["--recipe", recipes["no_remat"]]), ("full", ["--remat"]),
+                         ("save_outputs", ["--remat", "--remat_policy", "save_outputs"])):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t = run(f"remat_{label}", 6, "--dry_run", "--validation_interval", "6", *flags)
+        ran = kernels.counts()
+        steady = t.history[2:]
+        fps = sum(h["frames"] for h in steady) / sum(h["seconds"] for h in steady)
+        # a ConvLSTM layer runs K1 once a frame, twice under remat (the
+        # recompute), and K2 once; one validation window ran K1 once
+        layer_frames = t.p.unroll_len * sum(len(lvl) for lvl in t.cfg.nkp.lstm_kernels)
+        per_step = ((ran["lstm_gate_update"]["kernel"] - layer_frames) / 6,
+                    ran["lstm_gate_update_bwd"]["kernel"] / 6)
+        want = ((2 if label != "off" else 1) * layer_frames, layer_frames)
+        if per_step != want:
+            raise AssertionError(f"l5 {label}: K1/K2 per step {per_step}, expected {want}")
+        figures[label] = (fps, torch.cuda.max_memory_allocated() / 2 ** 30, per_step)
+        del t
+    log("l5 remat policies, flagship B5 T7 256^2 bf16 (steady steps 3-6): " + "; ".join(
+        f"{k} {v[0]:.3f} frames/s, peak {v[1]:.2f} GiB, K1/K2 per step {v[2][0]:.0f}/"
+        f"{v[2][1]:.0f}" for k, v in figures.items()) + f" [{card}]")
+    return figures
 
 
 def phase_train_vs_plain(torch):
@@ -1736,6 +1980,7 @@ def main() -> int:
             raise AssertionError(f"int8 path: plain versions ran: {int8}")
         add_counts(launched, int8)
         run_dir = phase_train(torch, work, smi, launched)
+        phase_train_rest(torch, work, smi, launched, run_dir)
         # (i) + (j): TTA and reset_on_jump, 4 and 8 lanes a step, counted from 0
         kernels.reset_counts()
         phase_golden_surface(torch, work)

@@ -67,7 +67,8 @@ def _unflatten(flat: Dict[str, np.ndarray]) -> Any:
 
 def params_from_jax(tree: Any) -> Dict[str, torch.Tensor]:
     """Reference param tree (nested, or flat with ``/`` keys; numpy arrays)
-    -> port ``state_dict`` (HWIO -> OIHW)."""
+    -> port ``state_dict`` (HWIO -> OIHW). A bf16 array (a JAX bf16 array
+    made numpy) becomes a bf16 tensor, bit for bit."""
     flat = tree if isinstance(tree, dict) and all(
         "/" in k for k in tree) else flatten_tree(tree)
     sd = {}
@@ -75,7 +76,11 @@ def params_from_jax(tree: Any) -> Dict[str, torch.Tensor]:
         arr = np.asarray(arr)
         if arr.ndim == 4:
             arr = arr.transpose(3, 2, 0, 1)
-        sd[key.replace("/", ".")] = torch.from_numpy(np.array(arr, order="C"))
+        arr = np.array(arr, order="C")
+        if arr.dtype.name == "bfloat16":  # ml_dtypes' bf16, as JAX hands it out
+            sd[key.replace("/", ".")] = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+        else:
+            sd[key.replace("/", ".")] = torch.from_numpy(arr)
     return sd
 
 
@@ -124,21 +129,38 @@ def opt_state_from_jax(opt_state: Any) -> Dict[str, Any]:
     return out
 
 
+# npz has no bf16: a bf16 moment is stored as its raw bits under this suffix
+_BF16_BITS = "_bf16_bits"
+
+
 def opt_state_to_npz(state: Dict[str, Any]) -> Dict[str, np.ndarray]:
     """``ClippedAdam.state_dict()`` -> flat ``opt_state.npz`` arrays: ``mu/<key>``
-    and ``nu/<key>`` in the reference layout, and the scalars."""
+    and ``nu/<key>`` in the reference layout, and the scalars. A bf16 moment
+    goes under ``mu_bf16_bits/<key>`` as its uint16 bits."""
     flat: Dict[str, np.ndarray] = {}
     for moment in ("mu", "nu"):
-        flat.update(flatten_tree(params_to_jax(state[moment]), moment))
+        tensors = state[moment]
+        if any(t.dtype == torch.bfloat16 for t in tensors.values()):
+            bits = {k: t.view(torch.int16) for k, t in tensors.items()}
+            flat.update({k: v.view(np.uint16) for k, v in flatten_tree(
+                params_to_jax(bits), moment + _BF16_BITS).items()})
+        else:
+            flat.update(flatten_tree(params_to_jax(tensors), moment))
     flat.update({k: state[k].detach().cpu().numpy() for k in _SCALARS})
     return flat
 
 
 def opt_state_from_npz(flat: Dict[str, np.ndarray]) -> Dict[str, Any]:
     """The inverse of :func:`opt_state_to_npz`."""
-    out: Dict[str, Any] = {
-        m: params_from_jax({k[len(m) + 1:]: v for k, v in flat.items()
-                            if k.startswith(m + "/")}) for m in ("mu", "nu")}
+    out: Dict[str, Any] = {}
+    for m in ("mu", "nu"):
+        bits = {k[len(m + _BF16_BITS) + 1:]: v.view(np.int16) for k, v in flat.items()
+                if k.startswith(m + _BF16_BITS + "/")}
+        if bits:
+            out[m] = {k: t.view(torch.bfloat16) for k, t in params_from_jax(bits).items()}
+        else:
+            out[m] = params_from_jax({k[len(m) + 1:]: v for k, v in flat.items()
+                                      if k.startswith(m + "/")})
     out.update({k: torch.from_numpy(np.asarray(flat[k])) for k in _SCALARS})
     return out
 

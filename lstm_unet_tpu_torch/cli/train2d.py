@@ -2,8 +2,10 @@
 
 Same flags as ``python -m lstm_unet_tpu.cli.train2d``, plus ``--device``
 (default ``cuda``; ``cpu`` runs the plain PyTorch path; ``cuda`` without a
-GPU raises). Every flag maps onto the :class:`CTCParams` knob of its name.
-Flags of features not ported yet are accepted by the parser and raise
+GPU raises). Every flag maps onto the :class:`CTCParams` knob of its name;
+knobs without a flag (``elastic_augmentation``, ``spike_warmup``, ...) come
+from ``--recipe``, as in the reference. The flags of the mesh and of the
+reference's TPU workarounds are accepted by the parser and raise
 ``NotImplementedError`` naming where ``ROADMAP.md`` tracks them.
 
 Usage:
@@ -20,18 +22,12 @@ from ..config import CTCParams, NetKernelParams, load_recipe
 from ..engine.train import Trainer
 from ..utils import log_print
 
-_ITEM_8B = "ROADMAP.md queue 1 item 8b"
 _MESH = "ROADMAP.md queue 1 item 12 (parallelism)"
 _TPU_ONLY = "ROADMAP.md 'Do not port' (a workaround of the TPU or its client)"
 
 # flag -> where the roadmap tracks it; given on the command line, each raises
 _UNPORTED_FLAGS = {
-    "continue_run": _ITEM_8B, "load_checkpoint": _ITEM_8B,
-    "load_checkpoint_path": _ITEM_8B, "spike_factor": _ITEM_8B,
-    "spike_cooldown": _ITEM_8B, "spike_max_rollbacks": _ITEM_8B,
-    "profile": _ITEM_8B, "data_provider_class": _ITEM_8B,
-    "adam_mu_dtype": _ITEM_8B, "mesh_shape": _MESH,
-    "conv_method": _TPU_ONLY, "entry_layouts": _TPU_ONLY,
+    "mesh_shape": _MESH, "conv_method": _TPU_ONLY, "entry_layouts": _TPU_ONLY,
     "compact_upload": _TPU_ONLY, "rss_relaunch_gb": _TPU_ONLY,
 }
 
@@ -78,22 +74,33 @@ def build_parser() -> argparse.ArgumentParser:
                     help="knob recipe JSON; the training keys it carries apply "
                          "before explicit flags")
     ap.add_argument("--seed", type=int, default=0)
-    # not ported yet: accepted, then rejected by name in main()
-    ap.add_argument("--load_checkpoint", action="store_true", default=None)
-    ap.add_argument("--load_checkpoint_path", type=str)
-    ap.add_argument("--continue_run", action="store_true", default=None)
-    ap.add_argument("--profile", action="store_true", default=None)
-    ap.add_argument("--spike_factor", type=float)
+    ap.add_argument("--load_checkpoint", action="store_true", default=None,
+                    help="start from a checkpoint: --load_checkpoint_path (a seeded "
+                         "fine-tune), else the run's own")
+    ap.add_argument("--load_checkpoint_path", type=str,
+                    help="the seed's save dir or run dir (with --load_checkpoint)")
+    ap.add_argument("--continue_run", action="store_true", default=None,
+                    help="resume the latest run of --experiment_name to its total-step "
+                         "target (target_step.json)")
+    ap.add_argument("--profile", action="store_true", default=None,
+                    help="trace the 11th-16th steps into the run's logs dir")
+    ap.add_argument("--spike_factor", type=float,
+                    help="roll back to the last checkpoint when the train loss exceeds "
+                         "this factor x its EMA; 0 disables")
     ap.add_argument("--spike_cooldown", type=int)
     ap.add_argument("--spike_max_rollbacks", type=int)
+    ap.add_argument("--adam_mu_dtype", type=str, choices=["float32", "bfloat16"],
+                    help="Adam first-moment storage dtype (nu stays f32)")
+    ap.add_argument("--data_provider_class", type=str,
+                    choices=["CTCRAMReaderSequence2D", "GrainCTCReaderSequence2D"],
+                    help="the threaded reader, or the deterministic one whose batch is "
+                         "a function of (seed, step), so a resumed run replays the stream")
+    # not ported: accepted, then rejected by name in main()
     ap.add_argument("--rss_relaunch_gb", type=float)
     ap.add_argument("--compact_upload", action=argparse.BooleanOptionalAction,
                     default=None)
-    ap.add_argument("--adam_mu_dtype", type=str, choices=["float32", "bfloat16"])
     ap.add_argument("--conv_method", type=str, choices=["conv", "dots", "auto"])
     ap.add_argument("--entry_layouts", action="store_true", default=None)
-    ap.add_argument("--data_provider_class", type=str,
-                    choices=["CTCRAMReaderSequence2D", "GrainCTCReaderSequence2D"])
     ap.add_argument("--mesh_shape", type=json.loads,
                     help="(not ported) JSON, e.g. '{\"data\": 4}'")
     return ap

@@ -11,7 +11,15 @@ same, in the same order of operations:
   step count incremented first, ``p += -lr * mu_hat / (sqrt(nu_hat) + eps)``;
 - a step whose grads hold a non-finite value leaves the params, the moments
   and the count as they were, unless more than ``max_consecutive_errors``
-  such steps came in a row: then the update is applied anyway.
+  such steps came in a row: then the update is applied anyway;
+- ``mu_dtype=torch.bfloat16`` stores ``mu`` in bf16 as ``adam(mu_dtype=
+  bfloat16)`` under ``apply_if_finite`` does: the new moment is ``(1-b1) g +
+  b1 mu`` in f32 with ``b1`` rounded to bf16 (JAX rounds the Python float to
+  the array's dtype), the step's update uses that f32 moment, and only the
+  stored ``mu`` is rounded to bf16. ``apply_if_finite`` runs the update
+  inside ``lax.cond``, so XLA compiles it: the bf16 product stays exact in
+  f32 and the sum is one fused multiply-add. Eager optax would round the
+  product to bf16 first; the reference's train step is compiled too.
 
 The decision is taken on the device (``torch.where``), so a step never waits
 for the host. Params are updated in place.
@@ -47,7 +55,8 @@ class ClippedAdam:
     def __init__(self, params: Mapping[str, torch.Tensor], learning_rate: float,
                  grad_clip_norm: float = 0.0, skip_nonfinite_updates: bool = True,
                  max_consecutive_errors: int = 10, b1: float = 0.9,
-                 b2: float = 0.999, eps: float = 1e-8):
+                 b2: float = 0.999, eps: float = 1e-8,
+                 mu_dtype: torch.dtype = torch.float32):
         self.lr = learning_rate
         self.grad_clip_norm = grad_clip_norm
         self.skip_nonfinite = skip_nonfinite_updates
@@ -55,7 +64,9 @@ class ClippedAdam:
         self.b1, self.b2, self.eps = b1, b2, eps
         self.names = list(params)
         dev = next(iter(params.values())).device
-        self.mu = {n: torch.zeros_like(p, memory_format=torch.preserve_format)
+        self.mu_dtype = mu_dtype
+        self.mu = {n: torch.zeros_like(p, dtype=mu_dtype,
+                                       memory_format=torch.preserve_format)
                    for n, p in params.items()}
         self.nu = {n: torch.zeros_like(p, memory_format=torch.preserve_format)
                    for n, p in params.items()}
@@ -91,14 +102,25 @@ class ClippedAdam:
         count = _safe_increment(self.count)
         bc1 = 1 - torch.pow(torch.tensor(self.b1, device=count.device), count.float())
         bc2 = 1 - torch.pow(torch.tensor(self.b2, device=count.device), count.float())
+        # a low-precision mu: b1 rounded to mu's dtype, as JAX rounds the
+        # Python float; the product of two bf16 values is exact in f32
+        b1_mu = float(torch.tensor(self.b1, dtype=self.mu_dtype))
+        c1 = float(np.float32(1 - self.b1))
         for n, g in zip(self.names, gs):
             p, mu, nu = params[n], self.mu[n], self.nu[n]
             if clip is not None:
                 g = torch.where(clip, g, (g / g_norm) * self.grad_clip_norm)
-            mu_new = (1 - self.b1) * g + self.b1 * mu
+            if self.mu_dtype == torch.float32:
+                mu_new = (1 - self.b1) * g + self.b1 * mu
+            else:
+                # optax's update runs compiled (apply_if_finite's lax.cond):
+                # XLA keeps b1 * mu in f32 and sums it with (1-b1) g in one
+                # FMA, a single rounding, which float64 reproduces
+                mu_new = (c1 * g.double() + (b1_mu * mu.float()).double()).float()
             nu_new = (1 - self.b2) * (g * g) + self.b2 * nu
             upd = (mu_new / bc1) / (torch.sqrt(nu_new / bc2) + self.eps)
             p_new = p + upd * -self.lr
+            mu_new = mu_new.to(self.mu_dtype)
             if apply is not None:
                 mu_new = torch.where(apply, mu_new, mu)
                 nu_new = torch.where(apply, nu_new, nu)

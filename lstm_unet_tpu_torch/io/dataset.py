@@ -10,6 +10,9 @@ Counterpart of ``lstm_unet_tpu/io/dataset.py`` (``load_ctc_sequence``,
 
 For the same params and seed the training batches are bit-identical to the
 reference reader's, for any thread count (``tests/test_torch_reader.py``).
+With ``elastic_augmentation`` the images agree to ~1e-4 and the labels to a
+few pixels a frame: the port's affine warp is numpy where the reference
+calls ``cv2.warpAffine`` (``tests/test_torch_elastic.py``).
 """
 
 from __future__ import annotations
@@ -92,8 +95,9 @@ class CTCRAMReaderSequence2D:
     """Threaded batches of unrolled windows for truncated-BPTT training.
 
     Each of the ``batch_size`` lanes walks a randomly chosen sequence in
-    ``unroll_len`` windows, with one crop, flip, rot90 and gain/bias drawn
-    per traversal so the LSTM state stays coherent across windows.
+    ``unroll_len`` windows, with one crop, flip, rot90, gain/bias and (with
+    ``elastic_augmentation``) affine warp drawn per traversal so the LSTM
+    state stays coherent across windows.
     ``get_batch()`` returns::
 
         image [B,T,H,W,1] float32, seg [B,T,H,W] int32 {0,1,2},
@@ -114,10 +118,6 @@ class CTCRAMReaderSequence2D:
     def __init__(self, params: CTCParams, sequence_list: Optional[Sequence] = None,
                  num_threads: Optional[int] = None, queue_capacity: int = 16,
                  seed: int = 0, return_instances: bool = False):
-        if params.elastic_augmentation:
-            raise NotImplementedError(
-                "elastic_augmentation is not ported yet (it needs cv2): "
-                "ROADMAP.md queue 1 item 8b")
         self.params = params
         self.crop = tuple(params.crop_size)
         self.unroll = params.unroll_len
@@ -139,6 +139,7 @@ class CTCRAMReaderSequence2D:
         self._seed = seed
         self._err: Optional[BaseException] = None
         self.randomize = params.randomize
+        self.elastic = params.elastic_augmentation
 
     def _new_traversal(self, rng: np.random.Generator):
         """A sequence and its augmentation for one traversal; the draws are
@@ -156,8 +157,58 @@ class CTCRAMReaderSequence2D:
             "gain": float(rng.uniform(0.9, 1.1)) if rnd else 1.0,
             "bias": float(rng.uniform(-0.05, 0.05)) if rnd else 0.0,
             "start": 0,
+            "affine": None,
         }
+        if self.elastic and rnd:
+            # a small rotation, scale and shear, fixed for the traversal so
+            # the LSTM state stays geometrically coherent
+            ang = rng.uniform(-10, 10)
+            scale = rng.uniform(0.9, 1.1)
+            shear = rng.uniform(-0.05, 0.05)
+            a = np.deg2rad(ang)
+            aug["affine"] = np.array([[np.cos(a) * scale, -np.sin(a) + shear, 0.0],
+                                      [np.sin(a) + shear, np.cos(a) * scale, 0.0]],
+                                     np.float32)
         return s, aug
+
+    @staticmethod
+    def _apply_affine(img: np.ndarray, seg: np.ndarray, m: np.ndarray,
+                      inst: Optional[np.ndarray] = None):
+        """Warp a ``[T,H,W]`` window by the 2x3 affine ``m`` about the crop
+        centre, as ``cv2.warpAffine`` with ``BORDER_REFLECT``
+        (``fedcba|abcdef``): the image bilinear, ``seg`` and ``inst``
+        nearest. Each output pixel samples the input at the inverse map of
+        its coordinates, in float64."""
+        h, w = img.shape[1:]
+        mm = m.copy()
+        c = np.array([w / 2, h / 2], np.float32)
+        mm[:, 2] = c - mm[:, :2] @ c
+        a = mm.astype(np.float64)
+        det = a[0, 0] * a[1, 1] - a[0, 1] * a[1, 0]
+        inv = np.array([[a[1, 1], -a[0, 1]], [-a[1, 0], a[0, 0]]]) / det
+        off = -inv @ a[:, 2]
+        y, x = np.mgrid[0:h, 0:w].astype(np.float64)
+        sx = inv[0, 0] * x + inv[0, 1] * y + off[0]
+        sy = inv[1, 0] * x + inv[1, 1] * y + off[1]
+
+        def reflect(i, n):
+            i = np.mod(i, 2 * n)
+            return np.where(i >= n, 2 * n - 1 - i, i)
+
+        x0, y0 = np.floor(sx), np.floor(sy)
+        fx, fy = (sx - x0)[None], (sy - y0)[None]
+        x0, y0 = x0.astype(np.int64), y0.astype(np.int64)
+        xa, xb = reflect(x0, w), reflect(x0 + 1, w)
+        ya, yb = reflect(y0, h), reflect(y0 + 1, h)
+        f = img.astype(np.float64)
+        img = ((1 - fy) * ((1 - fx) * f[:, ya, xa] + fx * f[:, ya, xb])
+               + fy * ((1 - fx) * f[:, yb, xa] + fx * f[:, yb, xb])).astype(np.float32)
+        ny = reflect(np.rint(sy).astype(np.int64), h)
+        nx = reflect(np.rint(sx).astype(np.int64), w)
+        seg = seg[:, ny, nx].astype(np.int32)
+        if inst is not None:
+            inst = inst[:, ny, nx].astype(np.int32)
+        return img, seg, inst
 
     def _window(self, s: SequenceData, aug: Dict, start: int):
         ch = min(self.crop[0], s.images.shape[1])
@@ -189,10 +240,13 @@ class CTCRAMReaderSequence2D:
         if aug["rot90"]:
             img = np.rot90(img, aug["rot90"], axes=(1, 2))
             labs = [np.rot90(lab, aug["rot90"], axes=(1, 2)) for lab in labs]
+        seg = labs[0]
+        inst = labs[1] if inst is not None else None
+        if aug["affine"] is not None:
+            img, seg, inst = self._apply_affine(img, seg, aug["affine"], inst)
         img = img * aug["gain"] + aug["bias"]  # photometric jitter
         is_last = float(start + self.unroll >= len(s))
-        inst = labs[1] if inst is not None else None
-        return img.astype(np.float32), labs[0], inst, valid, full_seg, is_last
+        return img.astype(np.float32), seg, inst, valid, full_seg, is_last
 
     def _producer(self, tid: int):
         try:

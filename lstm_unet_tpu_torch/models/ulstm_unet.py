@@ -174,6 +174,16 @@ def _collect(collect: Optional[dict], site: str, x: torch.Tensor) -> None:
         collect[site] = x.float().abs().amax()
 
 
+def _direct(fn, *args):
+    return fn(*args)
+
+
+def _recomputed(fn, *args):
+    """``fn(*args)``, its intermediates recomputed in the backward: only its
+    inputs are kept (non-reentrant ``torch.utils.checkpoint``)."""
+    return checkpoint(fn, *args, use_reentrant=False)
+
+
 class _EncoderLevel(nn.Module):
     def __init__(self):
         super().__init__()
@@ -301,49 +311,78 @@ class ULSTMnet2D(nn.Module):
     # -- forward ----------------------------------------------------------
 
     def step(self, state: State, frame: torch.Tensor,
-             collect_scales: Optional[dict] = None) -> Tuple[State, torch.Tensor]:
+             collect_scales: Optional[dict] = None, *, recompute_segments: bool = False
+             ) -> Tuple[State, torch.Tensor]:
         """One frame ``[B,H,W,C]`` -> (new state, f32 logits ``[B,H,W,K]``).
         The input state is not modified. ``collect_scales``: a dict the caller
         owns, which gets every conv site's input abs-max (0-d f32 tensors)
-        under the reference's site names."""
-        cfg = self.cfg
-        dt = cfg.compute_dtype
-        x = frame.to(dt)
+        under the reference's site names.
+
+        The frame runs as segments: each ConvLSTM layer (after the 2x2 pool
+        of the level below's output), each encoder level's conv stack, the
+        decoder with the head. ``recompute_segments`` checkpoints each
+        segment, so the backward keeps only their inputs: the frame, the
+        state, each ConvLSTM layer's output and each conv stack's output (the
+        ``skip``), the tensors the reference's 'save_outputs' remat policy
+        names ``lstm_out`` and ``skip``."""
+        run = _recomputed if recompute_segments else _direct
+        x = frame.to(self.cfg.compute_dtype)
         new_state: State = []
         skips = []
         for lvl, level in enumerate(self.encoder):
             lvl_state = []
+            pool = lvl > 0  # the level below's skip, pooled by the first segment
             for j, cell in enumerate(level.lstm):
-                _collect(collect_scales, f"encoder/{lvl}/lstm/{j}/x", x)
-                _collect(collect_scales, f"encoder/{lvl}/lstm/{j}/h", state[lvl][j][0])
-                carry, x = cell(state[lvl][j], x,
-                                recurrent_activation=cfg.recurrent_activation,
-                                fused_cell=cfg.fused_cell)
+                carry, x = run(self._lstm_layer, cell, f"encoder/{lvl}/lstm/{j}", pool,
+                               state[lvl][j], x, collect_scales)
                 lvl_state.append(carry)
-                x = x.to(dt)  # the carry may be f32 under bf16 compute
-            for j, conv in enumerate(level.convs):
-                _collect(collect_scales, f"encoder/{lvl}/convs/{j}", x)
-                x = conv(x)
+                pool = False
+            x = run(self._conv_stack, level.convs, f"encoder/{lvl}/convs", pool, x,
+                    collect_scales)
             skips.append(x)
             new_state.append(lvl_state)
+        return new_state, run(self._decode, skips, collect_scales)
+
+    def _lstm_layer(self, cell: nn.Module, site: str, pool: bool, carry, x: torch.Tensor,
+                    collect: Optional[dict]):
+        if pool:
             x = max_pool_2x2(x)
+        _collect(collect, site + "/x", x)
+        _collect(collect, site + "/h", carry[0])
+        carry, x = cell(carry, x, recurrent_activation=self.cfg.recurrent_activation,
+                        fused_cell=self.cfg.fused_cell)
+        return carry, x.to(self.cfg.compute_dtype)  # the carry may be f32 under bf16
+
+    @staticmethod
+    def _conv_stack(convs: nn.ModuleList, site: str, pool: bool, x: torch.Tensor,
+                    collect: Optional[dict]):
+        if pool:
+            x = max_pool_2x2(x)
+        for j, conv in enumerate(convs):
+            _collect(collect, f"{site}/{j}", x)
+            x = conv(x)
+        return x
+
+    def _decode(self, skips: List[torch.Tensor], collect: Optional[dict]) -> torch.Tensor:
+        cfg = self.cfg
+        x = max_pool_2x2(skips[-1])
         for lvl in reversed(range(len(self.decoder))):
             x = upsample_2x(x, cfg.upsample)
             convs = self.decoder[lvl].convs
             site = f"decoder/{lvl}/convs/0"
             if cfg.split_skip_convs:
-                _collect(collect_scales, site + ".a", x)
-                _collect(collect_scales, site + ".b", skips[lvl])
+                _collect(collect, site + ".a", x)
+                _collect(collect, site + ".b", skips[lvl])
                 x = convs[0].forward_pair(x, skips[lvl])
             else:
                 x = torch.cat([x, skips[lvl]], dim=-1)
-                _collect(collect_scales, site, x)
+                _collect(collect, site, x)
                 x = convs[0](x)
             for j, conv in enumerate(convs[1:], start=1):
-                _collect(collect_scales, f"decoder/{lvl}/convs/{j}", x)
+                _collect(collect, f"decoder/{lvl}/convs/{j}", x)
                 x = conv(x)
-        _collect(collect_scales, "head", x)
-        return new_state, self.head(x).float()
+        _collect(collect, "head", x)
+        return self.head(x).float()
 
     def apply(self, state: State, x: torch.Tensor, remat: Union[bool, str] = False
               ) -> Tuple[State, torch.Tensor]:
@@ -353,18 +392,18 @@ class ULSTMnet2D(nn.Module):
         reference's ``apply(..., remat)``: False saves every intermediate;
         True or 'full' saves only each frame's inputs and recomputes the
         frame's ``step`` during the backward (``torch.utils.checkpoint``,
-        non-reentrant). The reference's 'save_outputs' policy is not ported.
+        non-reentrant); 'save_outputs' checkpoints each segment of ``step``
+        instead (``recompute_segments``), so the ConvLSTM and conv-stack
+        outputs are kept too, the reference's ``lstm_out`` and ``skip``.
         """
-        if remat == "save_outputs":
-            raise NotImplementedError(
-                "remat_policy='save_outputs' is not ported yet: ROADMAP.md "
-                "queue 1 item 8b")
-        if remat not in (False, True, "full"):
+        if remat not in (False, True, "full", "save_outputs"):
             raise ValueError(f"unknown remat {remat!r}")
         recompute = bool(remat) and torch.is_grad_enabled()
         logits = []
         for t in range(x.shape[1]):
-            if recompute:
+            if recompute and remat == "save_outputs":
+                state, lg = self.step(state, x[:, t], recompute_segments=True)
+            elif recompute:
                 state, lg = checkpoint(self.step, state, x[:, t], use_reentrant=False)
             else:
                 state, lg = self.step(state, x[:, t])

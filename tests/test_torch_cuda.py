@@ -138,6 +138,38 @@ def test_grads_on_the_card_equal_the_plain_versions(cuda, monkeypatch):
         torch.testing.assert_close(gk, grads_p[name], atol=1e-5 * scale, rtol=0, msg=name)
 
 
+@pytest.mark.parametrize("remat,fwd_per_layer_frame", [(False, 1), ("full", 2),
+                                                     ("save_outputs", 2)])
+def test_remat_policies_on_the_card(cuda, monkeypatch, remat, fwd_per_layer_frame):
+    """Each remat policy's K1/K2 launches (the recompute runs K1 again) and
+    grads equal to full remat's on the card (1e-5 of each leaf's largest)."""
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    nkp = tiny_net_kernel_params()
+    model = ULSTMnet2D(ModelConfig.make(nkp),
+                       generator=torch.Generator(device=cuda).manual_seed(0), device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    state = [[(torch.rand(h.shape, device=cuda, generator=g) - 0.5,
+               torch.randn(c.shape, device=cuda, generator=g)) for (h, c) in lvl]
+             for lvl in model.init_state(2, 32, 32)]
+    img = torch.rand(2, 3, 32, 32, 1, device=cuda, generator=g)
+    seg = torch.randint(0, 3, (2, 3, 32, 32), device=cuda, generator=g)
+    ones = torch.ones(2, 3, device=cuda)
+    cw = (0.15, 0.25, 0.6)
+    layer_frames = 3 * sum(len(level) for level in nkp.lstm_kernels)
+    reset_counts()
+    loss, _, _, grads = loss_and_grads(model, state, img, seg, ones, ones, cw, remat=remat)
+    ran = counts()
+    assert ran["lstm_gate_update"] == {"kernel": fwd_per_layer_frame * layer_frames,
+                                       "plain": 0}
+    assert ran["lstm_gate_update_bwd"] == {"kernel": layer_frames, "plain": 0}
+    loss_f, _, _, grads_f = loss_and_grads(model, state, img, seg, ones, ones, cw,
+                                           remat="full")
+    torch.testing.assert_close(loss, loss_f, atol=0, rtol=1e-6)
+    for name, gf in grads_f.items():
+        scale = float(gf.abs().max())
+        torch.testing.assert_close(grads[name], gf, atol=1e-5 * scale, rtol=0, msg=name)
+
+
 def test_fused_level_refuses_grad_on_the_card(cuda):
     gx, h, c, wh = _level(cuda, 1, 8, 8, 8, 3, torch.float32, torch.float32)
     wh.requires_grad_()

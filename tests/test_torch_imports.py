@@ -53,7 +53,20 @@ ones = torch.ones(1, 2)
 state, m = step(model.init_state(1, 16, 16), torch.rand(1, 2, 16, 16, 1),
                 torch.randint(0, 3, (1, 2, 16, 16)), ones, ones, torch.zeros(1))
 assert torch.isfinite(m["loss"])
-bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "lstm_unet_tpu"))
+import tempfile
+from lstm_unet_tpu_torch.config import CTCParams
+from lstm_unet_tpu_torch.engine.train import Trainer
+from lstm_unet_tpu_torch.io.synthetic import write_ctc_dataset
+with tempfile.TemporaryDirectory() as root:
+    write_ctc_dataset(root, num_frames=4, height=16, width=16, num_cells=2, seed=0)
+    p = CTCParams(root_data_dir=root, train_sequence_list=[("Synth-N2DH-SIM", "01")],
+                  crop_size=(16, 16), batch_size=1, unroll_len=2, dry_run=True,
+                  net_kernel_params=tiny_net_kernel_params(), elastic_augmentation=True,
+                  data_provider_class="GrainCTCReaderSequence2D", adam_mu_dtype="bfloat16",
+                  remat_policy="save_outputs", spike_factor=3.0)
+    assert torch.isfinite(torch.tensor(Trainer(p, device="cpu").train(2)["loss"]))
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "lstm_unet_tpu", "grain", "cv2"))
 print("IMPORTED", bad)
 """
 
@@ -70,8 +83,8 @@ def test_port_runs_without_jax_or_the_reference():
                                                   recursive=True))
                          + [os.path.join(ROOT, "chip_smoke.py")])
 def test_no_module_imports_jax_triton_at_top_or_the_reference(path):
-    """Nothing in the port imports jax or lstm_unet_tpu, and nothing imports
-    triton (a CUDA-only package) when its module is imported."""
+    """Nothing in the port imports jax, lstm_unet_tpu or grain, and nothing
+    imports triton (a CUDA-only package) when its module is imported."""
     tree = ast.parse(open(path).read())
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
@@ -81,7 +94,7 @@ def test_no_module_imports_jax_triton_at_top_or_the_reference(path):
         else:
             continue
         for n in names:
-            assert n.split(".")[0] not in ("jax", "jaxlib", "lstm_unet_tpu"), (path, n)
+            assert n.split(".")[0] not in ("jax", "jaxlib", "lstm_unet_tpu", "grain"), (path, n)
     for node in tree.body:
         if isinstance(node, (ast.Import, ast.ImportFrom)):
             mods = ([a.name for a in node.names] if isinstance(node, ast.Import)

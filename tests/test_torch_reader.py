@@ -131,12 +131,6 @@ def test_reader_stop_drains_and_restarts_fresh(ctc_root):
     assert all(q.empty() for q in reader._lane_qs)
 
 
-def test_elastic_augmentation_is_not_ported(ctc_root):
-    port_p, _ = _both(ctc_root, elastic_augmentation=True)
-    with pytest.raises(NotImplementedError, match="8b"):
-        CTCRAMReaderSequence2D(port_p)
-
-
 @pytest.mark.parametrize("seed", range(4))
 def test_instance_to_three_class_bit_identical(seed):
     r = np.random.default_rng(seed)

@@ -151,13 +151,13 @@ def test_remat_gives_the_same_grads(pair):
     img, seg, valid, full, _ = map(torch.from_numpy, _batch(3))
     model = _port(params)
     out = [loss_and_grads(model, _tstate(state), img, seg, valid, full, CW, remat=r)
-           for r in (False, True, "full")]
+           for r in (False, True, "full", "save_outputs")]
     for loss, acc, st, grads in out[1:]:
         assert float(loss.detach()) == float(out[0][0].detach())
         for k, g in grads.items():
             torch.testing.assert_close(g, out[0][3][k], atol=1e-7, rtol=1e-6)
-    with pytest.raises(NotImplementedError, match="8b"):
-        model.apply(_tstate(state), img, remat="save_outputs")
+    with pytest.raises(ValueError, match="unknown remat"):
+        model.apply(_tstate(state), img, remat="save_everything")
 
 
 def test_gradients_flow_through_the_gate_function(pair):
@@ -452,19 +452,14 @@ def test_dry_run_writes_nothing(ctc_root, tmp_path):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--continue_run"], ["--load_checkpoint_path", "x"], ["--spike_factor", "3"],
-    ["--profile"], ["--adam_mu_dtype", "bfloat16"],
-    ["--data_provider_class", "GrainCTCReaderSequence2D"], ["--mesh_shape", '{"data": 2}'],
-    ["--conv_method", "dots"], ["--entry_layouts"], ["--no-compact_upload"],
-    ["--rss_relaunch_gb", "5"]])
+    ["--mesh_shape", '{"data": 2}'], ["--conv_method", "dots"], ["--entry_layouts"],
+    ["--no-compact_upload"], ["--rss_relaunch_gb", "5"]])
 def test_unported_train_flags_raise(flag, tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         train2d.main(["--device", "cpu", "--root_save_dir", str(tmp_path), *flag])
 
 
-@pytest.mark.parametrize("knob,value", [
-    ("remat_policy", "save_outputs"), ("elastic_augmentation", True),
-    ("spike_factor", 2.0), ("mesh_shape", {"data": 1, "spatial": 2})])
+@pytest.mark.parametrize("knob,value", [("mesh_shape", {"data": 1, "spatial": 2})])
 def test_trainer_rejects_unported_knobs(knob, value):
     p = config.CTCParams(dry_run=True)
     setattr(p, knob, value)
