@@ -7,35 +7,42 @@ Phases, each of which raises (exit != 0) when it fails:
   a. device: the GPU's name and power limit;
   b. build: the CUDA kernels from ``lstm_unet_tpu_torch/csrc``;
   c. each kernel against its plain PyTorch version, at the flagship model's
-     shapes, with its tolerance; times from CUDA events. K4 has three
-     routes: the SIMT kernel (f32; timed at flagship level 0, run by the
-     route on the tiny model's levels), the bf16 tensor-core kernel and the
-     f32 one (3xTF32), each at all four flagship levels, with cuDNN's h-conv
-     + add + K1 in the same dtype timed beside it as the yardstick the port
-     does not call; then one flagship step with the fused cell against the
+     shapes, with its tolerance; times from CUDA events. K4 has four
+     routes: the bf16 tensor-core kernel and the f32 one (3xTF32), each at
+     all four flagship levels; the narrow kernel (bf16 and 3xTF32) at 512^2
+     F = 32 and 96 5x5 and F = 64 7x7 and at the tiny model's levels (32^2
+     F = 8, 16^2 F = 16, 3x3, B = 1 and 2), with the SIMT kernel it replaced
+     there (f32, called directly: no route sends it these levels) timed
+     beside it; each with cuDNN's h-conv + add + K1 in the same dtype timed
+     beside it as the yardstick the port does not call, and its bound; then
+     one flagship step with the fused cell against the
      unfused one, in f32 and in bf16. K3 has two routes (the cluster kernel,
      which takes the flagship's 512^2 frame, and the grid kernel for frames
      too large for it), each held bit-identical to the plain version on
      random, ragged, degenerate and cell-like masks and timed two ways: CUDA
      events around the calls, and the kernel's own device time from
      torch.profiler (one launch per call);
-  c3. the int8 conv's two routes at every distinct int8 conv shape of the
+  c3. the int8 conv's routes at every distinct int8 conv shape of the
      flagship at 512^2 (5x5 x- and h-convs, 3x3 encoder and decoder convs up
      to cin = 1024, the 1x1 head): the wgmma kernel (``conv2d_int8_wgmma``,
      float x quantized as it is staged) bit-equal to its plain version at its
      15 shapes from bf16 x (and f32 x at the h-conv shapes), dynamic and
-     static scales; the route the model takes bit-equal to the plain quantize
-     + conv at all 16; PR 6's mma_sync kernel (``conv2d_int8``, int8 x)
-     bit-equal to its plain version at all 16 (exact s32 sums, the same f32
-     epilogue); per shape the wgmma kernel's time, PR 6's route (eager
-     quantize + mma_sync), cuDNN's bf16 conv, the bound and its share;
+     static scales; the small-K kernel (``conv2d_int8_smallk``, the same
+     fold, full output rows) likewise at the cin = 1 x-conv, B = 1 and 4, and
+     at the tiny model's small-K sites; the route the model takes bit-equal
+     to the plain quantize + conv at all 16; the mma_sync kernel
+     (``conv2d_int8``, int8 x, now on no main path) bit-equal to its plain
+     version at all 16 (exact s32 sums, the same f32 epilogue); per shape
+     the kernel's time, the mma_sync route (eager quantize + mma_sync) and its
+     kernel alone, cuDNN's bf16 conv, the bound and its share;
   c2. ``postprocess_frame`` on cell-like 512^2 probabilities (made from a
      seed, no model) with the instance split off, 'dist' and 'prob': equal to
      the same call on the CPU, 1, 2 and 2 K3 launches a frame, ms per frame
      and the rounds of the growth and erosion loops;
   d. the golden sequence through the inference CLI against
      ``tests/golden/masks`` (f32: 0 px per frame), with
-     the fused cell off and on (f32: the tiny levels take K4's SIMT route),
+     the fused cell off and on (f32: the tiny levels take K4's narrow
+     route, 3xTF32, and the SIMT kernel never),
      then a 1024^2 sequence, whose frames take K3's grid route, against the
      same run on the CPU;
   e. the flagship model (512^2, random weights from a seed) through
@@ -48,12 +55,13 @@ Phases, each of which raises (exit != 0) when it fails:
      the inference CLI with ``--dtype int8``, fused cell off and on, dynamic
      scales, then ``--calibrate 4`` into a copy of the model dir, each against
      the same run on the CPU (equal instance count, <= 3 px per frame), each
-     launching both int8 routes (6 mma_sync + 3 wgmma a frame, fused 5 + 2);
+     launching both int8 routes it takes (6 small-K + 3 wgmma a frame, fused
+     5 + 2 and 2 K4 narrow) and no mma_sync;
   e2. the flagship at 512^2 through ``run_inference`` with ``dtype='int8'``,
-     fused cell off and on: per frame 24 wgmma + 1 mma_sync int8 convs, 4 K1,
-     1 K3 (unfused) or 20 + 1 int8 convs, 4 K4 bf16 tensor-core launches, 1
-     K3 (fused), no plain call; frames/s; one int8 frame's logits within 0.15
-     of the bf16 frame's largest |logit|;
+     fused cell off and on: per frame 24 wgmma + 1 small-K int8 convs and no
+     mma_sync, 4 K1, 1 K3 (unfused) or 20 + 1 int8 convs, 4 K4 bf16
+     tensor-core launches, 1 K3 (fused), no plain call; frames/s; one int8
+     frame's logits within 0.15 of the bf16 frame's largest |logit|;
   f. K2 (the gate backward) against its plain version at the flagship
      training shapes (B = 5, 256^2 crops), with K2's time;
   g. the flagship trained through ``cli/train2d.main`` (B = 5, T = 7, 256^2
@@ -78,10 +86,10 @@ Phases, each of which raises (exit != 0) when it fails:
      against the same step with the plain versions patched in;
   j (kernels). the kernels at the lane counts of TTA and batched streams:
      K4's bf16 and 3xTF32 routes at B = 8 at the four flagship levels, the
-     int8 conv's two routes at B = 4 at every flagship int8 shape (the wgmma
-     route with the N tile it picks at B = 4, a static scale and the dynamic
-     scale shared by the lanes), each against its plain version, timed, with
-     its bound;
+     int8 conv at B = 4 at every flagship int8 shape (the wgmma route with
+     the N tile it picks at B = 4, a static scale and the dynamic scale
+     shared by the lanes; the mma_sync kernel at the cin = 1 site), each against
+     its plain version, timed, with its bound;
   i. (a path counted from 0 with j) the golden model through the inference
      CLI with ``--tta``, ``--tta --tta_mode d4`` and ``--reset_on_jump 0.4``
      (on the golden sequence with an inverted frame spliced in) in f32
@@ -90,7 +98,7 @@ Phases, each of which raises (exit != 0) when it fails:
   j. the flagship at 512^2: steady ms/frame of B = 1, TTA 'flip' (4 lanes)
      and 'd4' (8 lanes) in bf16 fused and int8 unfused; ``run_inference``
      with 'd4' in bf16 fused (4 K4 wgmma launches a step at 8 lanes) and
-     'flip' in int8 unfused (24 wgmma + 1 mma_sync int8 convs a step at 4
+     'flip' in int8 unfused (24 wgmma + 1 small-K int8 convs a step at 4
      lanes), counted, no plain call;
   k. (counted from 0) ``ctc_sweep`` in bf16 at ``--max_batch 4`` over four
      512^2 sequences (one chunk of 4 lanes) and a 384 x 512 one (a group of
@@ -102,11 +110,14 @@ Phases, each of which raises (exit != 0) when it fails:
      bit-equal.
 The last two lines are a JSON kernel summary (K3's two routes as ``ccl`` and
 ``ccl_grid``; ``conv2d_int8_wgmma`` summed over the 24 convs of one unfused
-int8 frame it takes, with each shape beside; ``conv2d_int8`` at the cin = 1
-site it keeps; K4's tensor-core routes and the int8 routes with their rows
-at B > 1 under ``batched``) and the device JSON. The build
-fails if ptxas reports spills for a tensor-core kernel (K4's bf16 and 3xTF32
-entries, the int8 conv's wgmma entries).
+int8 frame it takes, with each shape beside; ``conv2d_int8_smallk`` at the
+cin = 1 site, its B = 4 and tiny rows beside; ``conv2d_int8`` and the SIMT
+K4 ``fused_convlstm_level``, which no main path launches any more, at the
+shapes they served, launches 0; K4's narrow route at 512^2 F = 32 bf16,
+every timed shape beside; K4's tensor-core routes and the int8 routes with
+their rows at B > 1 under ``batched``) and the device JSON. The build fails
+if ptxas reports spills for a tensor-core kernel (K4's bf16, 3xTF32 and
+narrow entries, the int8 conv's wgmma and small-K entries).
 """
 
 from __future__ import annotations
@@ -442,35 +453,15 @@ def phase_k4(torch, g):
             raise AssertionError(f"K4 tensor-core smem formula differs at {k}x{k}")
         if lib.lut_convlstm_level_tf32x3_smem(k) != convlstm_cell.tf32x3_smem_bytes(k):
             raise AssertionError(f"K4 3xTF32 smem formula differs at {k}x{k}")
+    for k in convlstm_cell.NARROW_KERNEL_SIZES:
+        for t in convlstm_cell.NARROW_FEATS:
+            for dt in (torch.bfloat16, torch.float32):
+                if (lib.lut_convlstm_level_narrow_smem(k, t, _build.DTYPES[dt])
+                        != convlstm_cell.narrow_smem_bytes(k, t, dt)):
+                    raise AssertionError(f"K4 narrow smem formula differs at {k}x{k} T={t} {dt}")
     out = {}
 
-    # SIMT route: flagship level 0 in f32 (timed; the route sends it to
-    # 3xTF32, so the SIMT entry is called directly) and the tiny model's
-    # levels through the route
-    errs = []
-    for (b, hw, feat, k) in ((1, 512, 128, 5), (1, 32, 8, 3), (2, 16, 16, 3)):
-        ins = k4_inputs(torch, g, b, hw, feat, k, torch.float32, torch.float32)
-        if hw == 512:
-            got = convlstm_cell.simt_level(*ins)
-        elif convlstm_cell.route(hw, hw, feat, k, b, torch.float32) != "simt":
-            raise AssertionError(f"K4 route of {hw}^2 F={feat} f32 is not the SIMT kernel")
-        else:
-            got = convlstm_cell.fused_convlstm_level(*ins)
-        want = convlstm_cell.fused_convlstm_level_plain(*ins)
-        errs.append(check_close(f"K4 SIMT {hw}^2 F={feat} {k}x{k}", got, want,
-                                *k4_tolerance(torch, k, feat, torch.float32)))
-        log(f"K4 SIMT B={b} {hw}^2 F={feat} {k}x{k} f32: max_abs_err={errs[-1]:.3g}")
-        if hw == 512:
-            ms = time_ms(lambda: convlstm_cell.simt_level(*ins), 5)
-            plain = time_ms(lambda: convlstm_cell.fused_convlstm_level_plain(*ins), 5)
-            flops = 2 * hw * hw * k * k * feat * 4 * feat
-            nbytes = 4 * (hw * hw * 8 * feat + k * k * feat * 4 * feat)  # gx, h, c, h', c', wh
-            simt = summary(ms, plain, None, bound(nbytes, flops, F32_FLOPS))
-            log(f"K4 SIMT time @512^2 F=128 5x5 f32: kernel {ms:.3f} ms "
-                f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain:.3f} ms, bound "
-                f"{simt['bound_ms']:.3f} ms ({simt['bound_by']})")
-    simt["max_abs_err"] = max(errs)
-    out["fused_convlstm_level"] = simt
+    out.update(phase_k4_narrow(torch, g))
 
     # tensor-core route: the four flagship levels, state bf16 and f32, both
     # activations, plus a ragged B = 2 shape (W not a multiple of 64)
@@ -547,6 +538,82 @@ def phase_k4(torch, g):
                 f"{plain:.3f} ms; cuDNN f32 h-conv + add + K1 (TF32 off) {alt:.4f} ms")
     out["fused_convlstm_level_tf32x3"] = dict(levels[0], max_abs_err=max(errs))
     return out
+
+
+# K4's narrow route: the 512^2 shapes it was built for, then the tiny model's
+# two levels (launch-bound), each at B = 1 and 2: (B, H = W, F, K)
+NARROW_SHAPES = ((1, 512, 32, 5), (1, 512, 96, 5), (1, 512, 64, 7))
+TINY_LEVELS = ((1, 32, 8, 3), (2, 32, 8, 3), (1, 16, 16, 3), (2, 16, 16, 3))
+
+
+def phase_k4_narrow(torch, g):
+    """(c), K4's narrow route (the levels the 64-feature tensor-core tiles do
+    not take) and the SIMT kernel it replaced there: at the three 512^2
+    shapes and the tiny model's levels, in bf16 and in f32 (3xTF32), against
+    the plain version; per shape the narrow kernel's time on a kept pack,
+    the SIMT kernel's (f32; called directly: the route no longer sends it
+    these levels), the unfused cell's cuDNN h-conv + add + K1 in the same
+    dtype (the yardstick the port does not call), the plain version's, and
+    the bound. Returns the narrow and SIMT summaries."""
+    from lstm_unet_tpu_torch.ops.kernels import convlstm_cell, lstm_gates
+
+    rows, simt_rows, errs, simt_errs = [], [], [], []
+    for b, hw, feat, k in NARROW_SHAPES + TINY_LEVELS:
+        flops = 2 * b * hw * hw * k * k * feat * 4 * feat
+        for dt in (torch.bfloat16, torch.float32):
+            if convlstm_cell.route(hw, hw, feat, k, b, dt) != "narrow":
+                raise AssertionError(f"K4 route of B={b} {hw}^2 F={feat} {k}x{k} {dt} is not "
+                                     f"the narrow kernel")
+            ins = k4_inputs(torch, g, b, hw, feat, k, dt, dt)
+            tol = k4_tolerance(torch, k, feat, dt)
+            wants = {}
+            for act in ("sigmoid", "hard_sigmoid"):
+                got = convlstm_cell.fused_convlstm_level(*ins, act)
+                wants[act] = convlstm_cell.fused_convlstm_level_plain(*ins, act)
+                errs.append(check_close(f"K4 narrow B={b} {hw}^2 F={feat} {k}x{k} {dt} {act}",
+                                        got, wants[act], *tol))
+            gx, h, c, wh = ins
+            packed = convlstm_cell.pack_for_route(wh, "narrow")
+            iters = 10 if hw == 512 else 50
+            ms = time_ms(lambda: convlstm_cell.narrow_level(gx, h, c, packed, k), iters)
+            alt = time_ms(hconv_k1(torch, lstm_gates, *ins), iters)
+            plain = time_ms(lambda: convlstm_cell.fused_convlstm_level_plain(*ins), 2)
+            el = 2 if dt == torch.bfloat16 else 4
+            # gx, h, c, h', c' and the packed Wh (hi and lo for 3xTF32)
+            nbytes = el * (b * hw * hw * 8 * feat + (1 + (el == 4)) * k * k * feat * 4 * feat)
+            bd = (bound(nbytes, flops) if dt == torch.bfloat16
+                  else bound(nbytes, 3 * flops, TF32_FLOPS))
+            row = dict(shape=f"B{b} {hw}^2 F={feat} {k}x{k} {str(dt)[6:]}", max_abs_err=errs[-1],
+                       ms=ms, plain_ms=plain, bound_ms=bd[0], bound_by=bd[1],
+                       share=bd[0] / ms, unfused_ms=alt)
+            extra = ""
+            if dt == torch.float32:
+                simt = time_ms(lambda: convlstm_cell.simt_level(*ins), 3 if hw == 512 else iters)
+                simt_errs.append(check_close(f"K4 SIMT B={b} {hw}^2 F={feat} {k}x{k}",
+                                             convlstm_cell.simt_level(*ins), wants["sigmoid"],
+                                             *tol))
+                sbd = bound(nbytes, flops, F32_FLOPS)
+                row.update(simt_ms=simt, simt_bound_ms=sbd[0])
+                simt_rows.append(dict(shape=row["shape"], max_abs_err=simt_errs[-1], ms=simt,
+                                      plain_ms=plain, bound_ms=sbd[0], bound_by=sbd[1]))
+                extra = f"; SIMT {simt:.4f} ms (its f32 bound {sbd[0]:.4f})"
+            rows.append(row)
+            log(f"K4 narrow {row['shape']}: max_abs_err={errs[-1]:.3g} (atol {tol[0]:.3g}, rtol "
+                f"{tol[1]:.3g}); kernel {ms:.4f} ms ({100 * row['share']:.1f}% of the "
+                f"{bd[0]:.4f} ms bound, {bd[1]}), cuDNN h-conv + add + K1 {alt:.4f} ms, plain "
+                f"{plain:.3f} ms{extra}")
+            del ins, gx, h, c, wh, packed, got, wants
+            torch.cuda.empty_cache()
+    narrow = dict(rows[0], max_abs_err=max(errs), shapes=rows)
+    narrow.pop("shape")
+    # the SIMT kernel served the tiny model's levels until this route: its
+    # row is tiny level 0 (B = 1, 32^2, F = 8), the others beside it
+    simt = dict(next(r for r in simt_rows if r["shape"].startswith("B1 32^2")),
+                max_abs_err=max(simt_errs), shapes=simt_rows)
+    simt.pop("shape")
+    for r in (narrow, simt):
+        r["library_ms"] = None
+    return {"fused_convlstm_level_narrow": narrow, "fused_convlstm_level": simt}
 
 
 def phase_k2(torch):
@@ -1017,7 +1084,8 @@ def phase_fused_vs_unfused(torch, dtype):
         ran = kernels.counts()
     tc = "fused_convlstm_level_tf32x3" if dtype == "float32" else "fused_convlstm_level_wgmma"
     want = {k: 4 if k == tc else 0 for k in ("fused_convlstm_level", "fused_convlstm_level_wgmma",
-                                              "fused_convlstm_level_tf32x3")}
+                                              "fused_convlstm_level_tf32x3",
+                                              "fused_convlstm_level_narrow")}
     if any(ran[k]["kernel"] != n for k, n in want.items()):
         raise AssertionError(f"fused {dtype} step: K4 launches {ran}, expected {want}")
     ds = max(max_err(a, b) for la, lb in zip(s0, s1) for ta, tb in zip(la, lb)
@@ -1092,17 +1160,20 @@ def conv_bound(m, cin, k, cout, x_bytes):
 
 
 def phase_conv_int8(torch):
-    """(c3): both int8 conv routes at every flagship shape. The wgmma route
+    """(c3): the int8 conv routes at every flagship shape. The wgmma route
     (float x, quantize folded in) bit-equal to its plain version from bf16 x
     (dynamic and static scale, bf16 and f32 out) at its 15 shapes, from f32 x
-    at the h-conv shapes too; the route the model takes bit-equal to the
-    plain quantize + conv at all 16; PR 6's mma_sync kernel bit-equal to its
-    plain version at all 16 (int8 x). Times per shape: the wgmma kernel
-    (static scale), the op as the stream runs it (dynamic: abs-max + kernel),
-    PR 6's route (eager quantize_act + mma_sync, what the stream ran before),
-    PR 6's kernel alone, cuDNN's bf16 conv, the bound for the bytes each
-    route reads and its share; at the shapes that take 128-column tiles, the
-    256-column tile beside them. Returns the two routes' summaries."""
+    at the h-conv shapes too; the small-K route likewise at the cin = 1
+    x-conv (B = 1 and 4) and at the tiny model's small-K sites; the route the
+    model takes bit-equal to the plain quantize + conv at all 16; the
+    mma_sync kernel bit-equal to its plain version at all 16 (int8 x). Times
+    per shape: the wgmma or small-K kernel (static scale), the op as the
+    stream runs it (dynamic: abs-max + kernel), the mma_sync route (eager
+    quantize_act + mma_sync, what the stream ran before), the mma_sync kernel
+    alone, cuDNN's bf16 conv, the bound for the bytes each route reads and
+    its share; at the shapes that take 128-column tiles, the 256-column tile
+    beside them. Returns the three routes' summaries."""
+    from lstm_unet_tpu_torch.config import tiny_net_kernel_params
     from lstm_unet_tpu_torch.ops import quant
     from lstm_unet_tpu_torch.ops.kernels import _build, conv_int8
 
@@ -1114,6 +1185,12 @@ def phase_conv_int8(torch):
                                                                                           xb):
                     raise AssertionError(f"int8 wgmma smem formula differs at {k}x{k} N {tn} "
                                          f"x {xb} bytes")
+    for kh, kw, cin, cout in ((5, 5, 1, 512), (3, 3, 8, 32), (3, 3, 24, 8), (1, 1, 8, 3)):
+        for ob in (2, 4):
+            if (lib.lut_conv2d_int8_smallk_smem(kh, kw, cin, cout, ob)
+                    != conv_int8.smallk_smem_bytes(kh, kw, cin, cout, ob)):
+                raise AssertionError(f"int8 small-K smem formula differs at {kh}x{kw} "
+                                     f"{cin}->{cout}, {ob}-byte out")
     g = torch.Generator(device="cuda").manual_seed(11)
     shapes = flagship_int8_convs()
     if sum(shapes.values()) != 25:
@@ -1121,7 +1198,7 @@ def phase_conv_int8(torch):
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     keys = ("wgmma_ms", "wgmma_dyn_ms", "pr6_ms", "pr6_kernel_ms", "plain_ms", "cudnn_ms",
             "bound_ms", "pr6_bound_ms")
-    rows, frame = [], {k: 0.0 for k in keys}
+    rows, frame, smallk_rows = [], {k: 0.0 for k in keys}, []
     wg_sum = {k: 0.0 for k in ("ms", "plain_ms", "ops_ms", "bytes_ms", "cudnn_ms")}
     mma = None
     for (hw, cin, k, cout), sites in shapes.items():
@@ -1160,7 +1237,8 @@ def phase_conv_int8(torch):
         # the route the model takes, from bf16 x, against the plain quantize + conv
         weight = quant.QWeight(kq.float(), bias)
         weight.w_scale.copy_(w_scale)
-        if not torch.equal(weight.kernel_q, kq) or (weight.packed.dim() == 7) != (rt == "wgmma"):
+        if not torch.equal(weight.kernel_q, kq) or weight.packed.dim() != {"wgmma": 7,
+                                                                            "smallk": 4}[rt]:
             raise AssertionError(f"int8 site {row['shape']}: the weights or route changed")
         got = quant.conv2d_q(x, weight, None, torch.bfloat16)
         qx, s_x = quant.quantize_act(x)
@@ -1234,19 +1312,21 @@ def phase_conv_int8(torch):
                 f"route {row['pr6_ms']:.4f} ms (kernel {row['pr6_kernel_ms']:.4f}); cuDNN bf16 "
                 f"{row['cudnn_ms']:.4f} ms; plain {row['plain_ms']:.3f} ms{extra}")
         else:
-            # the mma_sync route keeps this site (cin = 1): its summary
-            row["plain_ms"] = time_ms(lambda: conv_int8.conv2d_int8_plain(*args6, torch.bfloat16),
-                                      2)
-            row["bound_ms"], row["bound_by"] = conv_bound(m, cin, k, cout, 1)
-            mma = summary(row["pr6_kernel_ms"], row["plain_ms"], 0.0,
-                          (row["bound_ms"], row["bound_by"]))
+            # the small-K route takes the cin = 1 x-conv; the mma_sync
+            # kernel, which it replaces there, keeps its summary as the record
+            row["pr6_plain_ms"] = time_ms(
+                lambda: conv_int8.conv2d_int8_plain(*args6, torch.bfloat16), 2)
+            pr6_bound = conv_bound(m, cin, k, cout, 1)
+            mma = summary(row["pr6_kernel_ms"], row["pr6_plain_ms"], 0.0, pr6_bound)
             mma.update(shape=row["shape"], route_ms=row["pr6_ms"], cudnn_bf16_ms=row["cudnn_ms"])
-            frame_ms, frame_dyn = row["pr6_kernel_ms"], row["pr6_ms"]
-            log(f"conv2d_int8 (mma_sync route) {row['shape']} (x{sites} a frame): bit-equal "
-                f"to the plain version; kernel {row['pr6_kernel_ms']:.4f} ms "
-                f"({100 * row['bound_ms'] / row['pr6_kernel_ms']:.1f}% of the "
-                f"{row['bound_ms']:.4f} ms bound, {row['bound_by']}), with quantize_act "
-                f"{row['pr6_ms']:.4f} ms; cuDNN bf16 {row['cudnn_ms']:.4f} ms")
+            log(f"conv2d_int8 (mma_sync) {row['shape']}: bit-equal to the plain version; "
+                f"kernel {row['pr6_kernel_ms']:.4f} ms "
+                f"({100 * pr6_bound[0] / row['pr6_kernel_ms']:.1f}% of the {pr6_bound[0]:.4f} ms "
+                f"bound for int8 x), with quantize_act {row['pr6_ms']:.4f} ms")
+            smallk_rows = [smallk_site(torch, g, 1, hw, cin, k, cout, row)]
+            frame_ms, frame_dyn = row["smallk_ms"], row["smallk_dyn_ms"]
+            row["plain_ms"], row["bound_ms"] = row["smallk_plain_ms"], row["smallk_bound_ms"]
+            smallk_rows.append(smallk_site(torch, g, 4, hw, cin, k, cout))
         rows.append(row)
         for key, v in (("wgmma_ms", frame_ms), ("wgmma_dyn_ms", frame_dyn),
                        ("pr6_ms", row["pr6_ms"]), ("pr6_kernel_ms", row["pr6_kernel_ms"]),
@@ -1255,7 +1335,7 @@ def phase_conv_int8(torch):
             frame[key] += sites * v
         del kq, packed6, xq, x, xb, wb, weight
         torch.cuda.empty_cache()
-    log(f"int8 convs over one unfused flagship frame (25: 24 wgmma + 1 mma_sync), bf16 x: "
+    log(f"int8 convs over one unfused flagship frame (25: 24 wgmma + 1 small-K), bf16 x: "
         f"kernels {frame['wgmma_ms']:.4f} ms, as the stream runs them (dynamic scales) "
         f"{frame['wgmma_dyn_ms']:.4f} ms; PR 6's route {frame['pr6_ms']:.4f} ms (its kernels "
         f"{frame['pr6_kernel_ms']:.4f} ms); cuDNN bf16 {frame['cudnn_ms']:.4f} ms; bound "
@@ -1267,12 +1347,113 @@ def phase_conv_int8(torch):
                  bound_by="operations" if wg_sum["ops_ms"] > wg_sum["bytes_ms"] else "bytes",
                  library_ms=None, yardstick_cudnn_bf16_ms=wg_sum["cudnn_ms"], frame=frame,
                  shapes=rows)
-    return {"conv2d_int8_wgmma": wgmma, "conv2d_int8": mma}
+    # the tiny model's small-K sites (32^2 frames), B = 1
+    tiny = {}
+    for _, hw, cin, k, cout in int8_conv_sites(tiny_net_kernel_params(), 32):
+        if conv_int8.route(hw, hw, cin, k, cout) == "smallk":
+            tiny[(hw, cin, k, cout)] = tiny.get((hw, cin, k, cout), 0) + 1
+    for (hw, cin, k, cout), n in tiny.items():
+        smallk_rows.append(dict(smallk_site(torch, g, 1, hw, cin, k, cout), sites=n,
+                                model="tiny"))
+    head = smallk_rows[0]
+    smallk = dict(max_abs_err=0.0, ms=head["ms"], plain_ms=head["plain_ms"],
+                  bound_ms=head["bound_ms"], bound_by=head["bound_by"], library_ms=None,
+                  shapes=smallk_rows)
+    return {"conv2d_int8_wgmma": wgmma, "conv2d_int8": mma, "conv2d_int8_smallk": smallk}
+
+
+def smallk_site(torch, g, b, hw, cin, k, cout, into=None):
+    """(c3) The small-K kernel at one site of B lanes of hw^2: bit-equal to
+    its plain version (bf16 and f32 x, dynamic and static scale, bf16 and
+    f32 out; at B > 1 lanes of unequal ranges share the dynamic scale), then
+    the times of the kernel (a calibrated static scale, bf16 in and out), the
+    op as the stream runs it (dynamic: abs-max + kernel), the mma_sync route
+    (eager quantize_act + mma_sync), the mma_sync kernel alone, cuDNN's bf16
+    conv and the plain version, with the bound (bf16 x read, the weights,
+    bf16 y written).
+    Returns its row (also written into ``into`` under ``smallk_*`` keys)."""
+    from lstm_unet_tpu_torch.ops import quant
+    from lstm_unet_tpu_torch.ops.kernels import conv_int8
+
+    kq = torch.randint(-127, 128, (cout, cin, k, k), device="cuda", generator=g,
+                       dtype=torch.int32).to(torch.int8)
+    kq[:, 0, 0, 0] = 127
+    w_scale = torch.rand(cout, device="cuda", generator=g) * 1e-3
+    bias = torch.randn(cout, device="cuda", generator=g)
+    ranges = torch.tensor([1.5, 0.5, 3.0, 1.0], device="cuda")[:b, None, None, None]
+    x = (torch.randn(b, hw, hw, cin, device="cuda", generator=g) * ranges).to(torch.bfloat16)
+    weight = quant.QWeight(kq.float(), bias)
+    weight.w_scale.copy_(w_scale)
+    if weight.packed.dim() != 4 or not torch.equal(weight.kernel_q, kq):
+        raise AssertionError(f"int8 site {cin}->{cout} {k}x{k}: not the small-K pack")
+    packed = weight.packed
+    shape = f"B{b} {hw}^2 {cin}->{cout} {k}x{k}"
+    static = torch.tensor(2.5 / 127, device="cuda")
+    cases = 0
+    for xx in (x, x.float()):
+        for sc in (None, static):
+            for dt in (torch.bfloat16, torch.float32):
+                a = (xx, sc, packed, w_scale, bias, k, k, dt)
+                got = conv_int8.conv2d_int8_smallk(*a)
+                want = conv_int8.conv2d_int8_smallk_plain(*a)
+                torch.cuda.synchronize()
+                if not torch.equal(got, want):
+                    raise AssertionError(f"conv2d_int8_smallk {shape} x {xx.dtype} "
+                                         f"{'dynamic' if sc is None else 'static'} -> {dt}: "
+                                         f"{int((got != want).sum())} outputs differ")
+                cases += 1
+    # through the model's op: conv2d_q takes the small-K route, bit-equal to
+    # the plain quantize + conv
+    got = quant.conv2d_q(x, weight, None, torch.bfloat16)
+    if not torch.equal(got, conv_int8.conv2d_int8_smallk_plain(x, None, packed, w_scale, bias,
+                                                               k, k, torch.bfloat16)):
+        raise AssertionError(f"conv2d_q {shape}: differs from the plain quantize + conv")
+    calib = torch.tensor(float(x.abs().max()) * 1.0137 / 127, device="cuda")
+    kern = (x, calib, packed, w_scale, bias, k, k, torch.bfloat16)
+    packed6 = conv_int8.pack_weight(kq)
+    xq, s_x = conv_int8.quantize_act(x, calib)
+    iters = 20 if hw >= 512 else 50
+
+    def pr6_route():
+        q, s = conv_int8.quantize_act(x, calib)
+        return conv_int8.conv2d_int8(q, s, packed6, w_scale, bias, k, k, torch.bfloat16)
+
+    if not torch.equal(pr6_route(), conv_int8.conv2d_int8_smallk(*kern)):
+        raise AssertionError(f"conv2d_int8_smallk {shape}: differs from the mma_sync route")
+    m = b * hw * hw
+    bd = conv_bound(m, cin, k, cout, 2)
+    row = dict(shape=shape, cases=cases, max_abs_err=0.0,
+               ms=time_ms(lambda: conv_int8.conv2d_int8_smallk(*kern), iters),
+               dynamic_ms=time_ms(lambda: conv_int8.conv2d_int8_smallk(x, None, *kern[2:]),
+                                  iters),
+               pr6_route_ms=time_ms(pr6_route, iters),
+               pr6_kernel_ms=time_ms(lambda: conv_int8.conv2d_int8(
+                   xq, s_x, packed6, w_scale, bias, k, k, torch.bfloat16), iters),
+               plain_ms=time_ms(lambda: conv_int8.conv2d_int8_smallk_plain(*kern), 2),
+               bound_ms=bd[0], bound_by=bd[1], library_ms=None)
+    xb = x.permute(0, 3, 1, 2)
+    wb = kq.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    row["cudnn_bf16_ms"] = time_ms(lambda: torch.nn.functional.conv2d(
+        xb, wb, bias.to(torch.bfloat16), padding=k // 2), iters)
+    row["share"] = bd[0] / row["ms"]
+    log(f"conv2d_int8_smallk {shape}: bit-equal to the plain version ({cases} cases), to "
+        f"conv2d_q and to the mma_sync route; kernel {row['ms']:.4f} ms "
+        f"({100 * row['share']:.1f}% of the {bd[0]:.4f} ms bound, {bd[1]}), with the abs-max "
+        f"{row['dynamic_ms']:.4f} ms; "
+        f"the mma_sync route (quantize_act + mma_sync) {row['pr6_route_ms']:.4f} ms, its kernel "
+        f"{row['pr6_kernel_ms']:.4f} ms; cuDNN bf16 {row['cudnn_bf16_ms']:.4f} ms; plain "
+        f"{row['plain_ms']:.3f} ms")
+    if into is not None:
+        into.update(smallk_ms=row["ms"], smallk_dyn_ms=row["dynamic_ms"],
+                    smallk_plain_ms=row["plain_ms"], smallk_bound_ms=bd[0], bound_by=bd[1],
+                    share=row["share"])
+    return row
 
 
 def phase_golden(torch, work):
     """(d): the golden sequence in f32, fused cell off, then on (the tiny
-    model's levels, F = 8 and 16, take K4's SIMT route: 2 per frame)."""
+    model's levels, F = 8 and 16, take K4's narrow route, 3xTF32: 2 per
+    frame, and the SIMT kernel none)."""
     from lstm_unet_tpu_torch.cli.inference2d import main as cli_main
     from lstm_unet_tpu_torch.io.synthetic import write_ctc_dataset
     from lstm_unet_tpu_torch.io.tiff import read_tiff
@@ -1283,21 +1464,24 @@ def phase_golden(torch, work):
     want_paths = sorted(glob.glob(os.path.join(GOLDEN, "masks", "mask*.tif")))
     for fused in (False, True):
         out = os.path.join(work, f"golden_res_{int(fused)}")
-        before = kernels.counts()["fused_convlstm_level"]["kernel"]
+        before = kernels.counts()
         n = cli_main(["--model_path", os.path.join(GOLDEN, "torch_ckpt"),
                       "--sequence_path", os.path.join(root, "Synth-N2DH-SIM", "01"),
                       "--output_path", out, "--device", "cuda",
                       "--pre_sequence_frames", "2", "--min_cell_size", "5",
                       "--dtype", "float32", *(["--fused_cell"] if fused else [])])
-        simt = kernels.counts()["fused_convlstm_level"]["kernel"] - before
+        after = kernels.counts()
+        narrow, simt = (after[k]["kernel"] - before[k]["kernel"]
+                        for k in ("fused_convlstm_level_narrow", "fused_convlstm_level"))
         if n != len(want_paths) or n == 0:
             raise AssertionError(f"golden: wrote {n} masks, expected {len(want_paths)}")
-        if simt != (2 * (n + 2) if fused else 0):
-            raise AssertionError(f"golden fused_cell={fused}: {simt} SIMT K4 launches")
+        if narrow != (2 * (n + 2) if fused else 0) or simt != 0:
+            raise AssertionError(f"golden fused_cell={fused}: {narrow} narrow and {simt} SIMT "
+                                 f"K4 launches")
         # f32 is held to the golden masks exactly
         diffs = compare_dirs(f"golden fused_cell={fused}", out, os.path.join(GOLDEN, "masks"), 0)
         log(f"golden masks on the card, f32 fused_cell={fused}: differing px per frame "
-            f"{diffs} (bar: 0 px); SIMT K4 launches {simt}")
+            f"{diffs} (bar: 0 px); K4 launches: narrow {narrow}, SIMT {simt}")
 
     # frames too large for K3's cluster route: the same model on a 1024^2
     # sequence, on the card (grid route, once a frame) and on the CPU
@@ -1368,7 +1552,7 @@ def phase_flagship(torch, work, card):
               else "fused_convlstm_level_wgmma")
         k4 = {k: 4 * steps if fused and k == tc else 0
               for k in ("fused_convlstm_level", "fused_convlstm_level_wgmma",
-                        "fused_convlstm_level_tf32x3")}
+                        "fused_convlstm_level_tf32x3", "fused_convlstm_level_narrow")}
         k1 = 4 * steps - sum(k4.values())
         k3 = (2 if split else 1) * steps
         if (d["ccl"]["kernel"] != k3 or d["ccl_grid"]["kernel"] != 0
@@ -1406,11 +1590,16 @@ def phase_golden_int8(torch, work):
                           "--min_cell_size", "5", "--dtype", "int8", *extra])
             after = kernels.counts()
             if device == "cuda":
-                # a frame of the tiny model: cin 1, 8 and 24 on mma_sync,
-                # cin 16 and 32 on wgmma (fused: the h-convs run in K4)
+                # a frame of the tiny model: cin 1, 8 and 24 on the small-K
+                # route, cin 16 and 32 on wgmma, none on mma_sync (fused: the
+                # h-convs run in K4's narrow route, bf16, 2 a frame)
                 ran = {k: after[k]["kernel"] - before[k]["kernel"] for k in after}
-                per = (5, 2) if extra == ["--fused_cell"] else (6, 3)
-                want = {"conv2d_int8": (n + 2) * per[0], "conv2d_int8_wgmma": (n + 2) * per[1]}
+                fused = extra == ["--fused_cell"]
+                per = (5, 2) if fused else (6, 3)
+                want = {"conv2d_int8_smallk": (n + 2) * per[0],
+                        "conv2d_int8_wgmma": (n + 2) * per[1], "conv2d_int8": 0,
+                        "fused_convlstm_level_narrow": (n + 2) * (2 if fused else 0),
+                        "fused_convlstm_level": 0}
                 got = {k: ran[k] for k in want}
                 if n != 8 or got != want:
                     raise AssertionError(f"golden int8 {tag}: {n} masks, int8 conv launches "
@@ -1460,10 +1649,12 @@ def phase_flagship_int8(torch, work, card):
         after = kernels.counts()
         d = {k: {s: after[k][s] - before[k][s] for s in ("kernel", "plain")} for k in after}
         steps = n + 2
-        want = {"conv2d_int8": steps, "conv2d_int8_wgmma": (20 if fused else 24) * steps,
+        want = {"conv2d_int8_smallk": steps, "conv2d_int8": 0,
+                "conv2d_int8_wgmma": (20 if fused else 24) * steps,
                 "fused_convlstm_level_wgmma": (4 if fused else 0) * steps,
                 "lstm_gate_update": (0 if fused else 4) * steps, "ccl": steps,
-                "fused_convlstm_level": 0, "fused_convlstm_level_tf32x3": 0, "ccl_grid": 0}
+                "fused_convlstm_level": 0, "fused_convlstm_level_tf32x3": 0,
+                "fused_convlstm_level_narrow": 0, "ccl_grid": 0}
         got = {k: d[k]["kernel"] for k in want}
         if n != 8 or got != want or any(v["plain"] for v in d.values()):
             raise AssertionError(f"flagship int8 fused={fused}: {n} masks, launches {d}, "
@@ -1499,7 +1690,8 @@ def phase_batched_kernels(torch):
     batched sweep) at every flagship int8 shape: the wgmma route bit-equal
     from bf16 x with a static scale and with the dynamic scale (one abs-max
     over all four lanes) and with the N tile ``kernel_tile_n`` picks for
-    B = 4, the mma_sync route bit-equal on int8 x. Returns, per kernel, the
+    B = 4, the mma_sync kernel bit-equal on int8 x at the cin = 1 site
+    (the small-K route's B = 4 is in c3). Returns, per kernel, the
     batched rows for the summary line."""
     from lstm_unet_tpu_torch.ops.kernels import conv_int8, convlstm_cell
 
@@ -1663,14 +1855,17 @@ def phase_golden_surface(torch, work):
             steps = n + 2
             if device == "cuda":
                 # per step: K1 at both levels (unfused) and K3 once (one lane
-                # of averaged probabilities); int8: 6 mma_sync + 3 wgmma convs
-                # (fused: 5 + 2)
+                # of averaged probabilities); int8: 6 small-K + 3 wgmma convs
+                # (fused: 5 + 2, and K4's narrow route at both levels)
                 if dtype == "float32":
                     want = {"lstm_gate_update": 2 * steps, "ccl": steps}
                 else:
-                    per = (5, 2) if "--fused_cell" in extra else (6, 3)
-                    want = {"conv2d_int8": per[0] * steps, "conv2d_int8_wgmma": per[1] * steps,
-                            "ccl": steps}
+                    fused = "--fused_cell" in extra
+                    per = (5, 2) if fused else (6, 3)
+                    want = {"conv2d_int8_smallk": per[0] * steps,
+                            "conv2d_int8_wgmma": per[1] * steps, "conv2d_int8": 0,
+                            "fused_convlstm_level_narrow": (2 if fused else 0) * steps,
+                            "fused_convlstm_level": 0, "ccl": steps}
                 got = {k: ran[k] for k in want}
                 if n != frames or got != want:
                     raise AssertionError(f"golden {tag}: {n} masks, launches {got}, "
@@ -1704,7 +1899,7 @@ def phase_flagship_tta(torch, work, card):
     B = 1, 'flip' (4 lanes) and 'd4' (8 lanes) in bf16 fused and int8
     unfused; then ``run_inference`` with 'd4' in bf16 fused (K4 wgmma 4
     launches a step at 8 lanes) and 'flip' in int8 unfused (24 wgmma + 1
-    mma_sync int8 convs, 4 K1 a step at 4 lanes), counted, no plain call."""
+    small-K int8 convs, 4 K1 a step at 4 lanes), counted, no plain call."""
     from lstm_unet_tpu_torch.config import InferenceParams
     from lstm_unet_tpu_torch.engine.infer import run_inference
     from lstm_unet_tpu_torch.io.tiff import read_tiff
@@ -1739,8 +1934,9 @@ def phase_flagship_tta(torch, work, card):
             want = {"fused_convlstm_level_wgmma": 4 * steps, "lstm_gate_update": 0,
                     "conv2d_int8": 0, "conv2d_int8_wgmma": 0}
         else:
-            want = {"conv2d_int8_wgmma": 24 * steps, "conv2d_int8": steps,
-                    "lstm_gate_update": 4 * steps, "fused_convlstm_level_wgmma": 0}
+            want = {"conv2d_int8_wgmma": 24 * steps, "conv2d_int8_smallk": steps,
+                    "conv2d_int8": 0, "lstm_gate_update": 4 * steps,
+                    "fused_convlstm_level_wgmma": 0}
         want.update(ccl=steps, ccl_grid=0, fused_convlstm_level=0, fused_convlstm_level_tf32x3=0)
         got = {k: d[k]["kernel"] for k in want}
         if n != 8 or got != want or any(v["plain"] for v in d.values()):
@@ -1922,26 +2118,37 @@ def main() -> int:
         f"{os.path.relpath(_build.library_path(), HERE)})")
     with open(os.path.join(_build.BUILD_DIR, "build.log")) as f:
         ptxas = f.read().splitlines()
-    entry, tensor_core, int8_wgmma = None, set(), set()
+    entry, tensor_core, int8_wgmma, narrow, smallk = None, set(), set(), set(), set()
     for line in ptxas:
         if "Compiling entry function" in line:
             entry = line.split("'")[1]
         if "registers" in line or "spill" in line:
-            log("  ptxas:", line.strip())
-            if entry and "wgmma_kernel" in entry and "spill" in line:
+            if "narrow_kernel" not in (entry or "") or "spill" not in line:
+                log("  ptxas:", line.strip())
+            if entry and ("wgmma_kernel" in entry or "narrow_kernel" in entry
+                          or "smallk_kernel" in entry) and "spill" in line:
                 if "convlstm_wgmma_kernel" in entry:
                     tensor_core.add("Tf32x3" if "Tf32x3" in entry else "Bf16")
                 elif "conv_int8_wgmma_kernel" in entry:
                     int8_wgmma.add(entry)
+                elif "convlstm_narrow_kernel" in entry:
+                    narrow.add(entry)
+                else:
+                    smallk.add(entry)
                 if "0 bytes spill stores, 0 bytes spill loads" not in line:
                     raise AssertionError(f"a tensor-core kernel spills: {entry}: "
                                          f"{line.strip()}")
     if tensor_core != {"Bf16", "Tf32x3"}:
         raise AssertionError(f"ptxas reported no spill line for K4's {tensor_core} entries")
-    # x bf16 / f32, y bf16 / f32, N tile 256 / 128 / 8
-    if len(int8_wgmma) != 12:
-        raise AssertionError(f"ptxas reported spill lines for {len(int8_wgmma)} of the 12 "
-                             f"int8 wgmma entries")
+    # int8 wgmma: x bf16 / f32, y bf16 / f32, N tile 256 / 128 / 8; K4 narrow:
+    # bf16 / 3xTF32, state bf16 / f32, 32 / 16 / 8 features, K 1 / 3 / 5 / 7;
+    # int8 small-K: x and y bf16 / f32, one k step or more
+    for what, seen, want in (("int8 wgmma", int8_wgmma, 12), ("K4 narrow", narrow, 48),
+                             ("int8 small-K", smallk, 8)):
+        if len(seen) != want:
+            raise AssertionError(f"ptxas reported spill lines for {len(seen)} of the {want} "
+                                 f"{what} entries")
+    log(f"  ptxas: the {len(narrow)} K4 narrow entries spill nothing")
 
     # (c) kernels vs plain versions; (f) K2
     kernel_summary = phase_kernels(torch)
@@ -1960,7 +2167,7 @@ def main() -> int:
         phase_golden(torch, work)
         phase_flagship(torch, work, smi)
         inference = kernels.counts()
-        for k in ("lstm_gate_update", "ccl", "ccl_grid", "fused_convlstm_level",
+        for k in ("lstm_gate_update", "ccl", "ccl_grid", "fused_convlstm_level_narrow",
                   "fused_convlstm_level_wgmma", "fused_convlstm_level_tf32x3"):
             if inference[k]["kernel"] == 0:
                 raise AssertionError(f"inference path: {k} never launched: {inference}")
@@ -1972,8 +2179,8 @@ def main() -> int:
         phase_golden_int8(torch, work)
         phase_flagship_int8(torch, work, smi)
         int8 = kernels.counts()
-        for k in ("conv2d_int8", "conv2d_int8_wgmma", "lstm_gate_update", "ccl",
-                  "fused_convlstm_level_wgmma"):
+        for k in ("conv2d_int8_smallk", "conv2d_int8_wgmma", "lstm_gate_update", "ccl",
+                  "fused_convlstm_level_wgmma", "fused_convlstm_level_narrow"):
             if int8[k]["kernel"] == 0:
                 raise AssertionError(f"int8 path: {k} never launched: {int8}")
         if any(v["plain"] for v in int8.values()):
@@ -1986,7 +2193,7 @@ def main() -> int:
         phase_golden_surface(torch, work)
         tta_ms = phase_flagship_tta(torch, work, smi)
         surface = kernels.counts()
-        for k in ("lstm_gate_update", "ccl", "fused_convlstm_level_wgmma", "conv2d_int8",
+        for k in ("lstm_gate_update", "ccl", "fused_convlstm_level_wgmma", "conv2d_int8_smallk",
                   "conv2d_int8_wgmma"):
             if surface[k]["kernel"] == 0:
                 raise AssertionError(f"TTA path: {k} never launched: {surface}")
@@ -2004,8 +2211,12 @@ def main() -> int:
             raise AssertionError(f"sweep path: plain versions ran: {sweep}")
         add_counts(launched, sweep)
     phase_train_vs_plain(torch)
+    # the kernels the narrow K4 and the small-K int8 routes replaced are held
+    # against their plain versions and timed in (c) and (c3), and no main
+    # path launches them; every other kernel runs on one
+    retired = ("fused_convlstm_level", "conv2d_int8")
     for k, v in launched.items():
-        if v["kernel"] == 0 or v["plain"] != 0:
+        if (v["kernel"] == 0) != (k in retired) or v["plain"] != 0:
             raise AssertionError(f"main paths: {k} launched {v['kernel']} times, "
                                  f"plain version {v['plain']} times")
 
@@ -2024,11 +2235,16 @@ def main() -> int:
                                               "lstm_unet_tpu/ops/pallas/convlstm_cell.py:140"),
                "fused_convlstm_level_tf32x3": ("lstm_unet_tpu_torch/csrc/convlstm_wgmma.cu",
                                                "lstm_unet_tpu/ops/pallas/convlstm_cell.py:140"),
+               "fused_convlstm_level_narrow": ("lstm_unet_tpu_torch/csrc/convlstm_narrow.cu",
+                                               "lstm_unet_tpu/ops/pallas/convlstm_cell.py:140"),
                "conv2d_int8": ("lstm_unet_tpu_torch/csrc/conv_int8.cu",
                                "lstm_unet_tpu/ops/quant.py:91 (XLA int8 conv; no pallas_call)"),
                "conv2d_int8_wgmma": ("lstm_unet_tpu_torch/csrc/conv_int8_wgmma.cu",
                                      "lstm_unet_tpu/ops/quant.py:91 (XLA int8 conv; no "
-                                     "pallas_call)")}
+                                     "pallas_call)"),
+               "conv2d_int8_smallk": ("lstm_unet_tpu_torch/csrc/conv_int8_smallk.cu",
+                                      "lstm_unet_tpu/ops/quant.py:91 (XLA int8 conv; no "
+                                      "pallas_call)")}
     log("flagship 512^2 steady ms/frame by dtype and lanes: "
         + ", ".join(f"{d} {n} lanes {v:.3f}" for (d, n), v in tta_ms.items()))
     log(json.dumps({"kernels": [

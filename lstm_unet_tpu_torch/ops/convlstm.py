@@ -10,8 +10,9 @@ With ``fused_cell`` and a level that :func:`kernels.convlstm_cell.supported`
 takes in the compute dtype, the recurrent conv and the gate math run in the
 fused kernel (K4) with the x-conv + bias computed outside: its
 tensor-core routes take every level with F % 64 == 0 at K in {1, 3, 5} (all
-four of the flagship model; bf16 as bf16, f32 as 3xTF32), its SIMT route
-the other levels whose h tile fits one block (the tiny model). Otherwise the two convs run on
+four of the flagship model; bf16 as bf16, f32 as 3xTF32), its narrow route
+the other levels with F % 8 == 0 at K up to 7 (the tiny model's), on Wh
+packed once and kept by the cell; its SIMT route what is left. Otherwise the two convs run on
 cuDNN and the gate math in :func:`lstm_gate_update` (forward K1, backward
 K2). On the CPU both routes take the kernels' plain versions. The fused route
 is inference-only, as in the reference: under grad the fused kernel raises.
@@ -33,11 +34,26 @@ import torch
 from torch import nn
 
 from .conv import conv2d
-from .kernels.convlstm_cell import fused_convlstm_level, supported
+from .kernels.convlstm_cell import fused_convlstm_level, pack_for_route, route, supported
 from .kernels.lstm_gates import lstm_gate_update
 from .quant import ActScales, QWeight, conv2d_q, static_scale
 
 Carry = Tuple[torch.Tensor, torch.Tensor]  # (h, c), each [B,H,W,F]
+
+
+def _kept_pack(cache: dict, key: tuple, wh: torch.Tensor, b: int, hh: int, ww: int,
+               x: torch.Tensor) -> Optional[torch.Tensor]:
+    """The Wh pack K4's route takes for this level on the card, made on first
+    use and kept in ``cache`` under ``key`` (the weights' identity and
+    version: an update in place makes it anew); None for the routes that
+    pack per call, and on the CPU."""
+    if x.device.type != "cuda":
+        return None
+    which = route(hh, ww, wh.shape[2], wh.shape[0], b, x.dtype)
+    hit = cache.get(x.dtype)
+    if hit is None or hit[0] != (which, *key):
+        hit = cache[x.dtype] = ((which, *key), pack_for_route(wh, which))
+    return hit[1]
 
 
 class ConvLSTMCell(nn.Module):
@@ -60,6 +76,7 @@ class ConvLSTMCell(nn.Module):
         bias[filters:2 * filters] = 1.0  # unit forget-gate bias
         self.bias = nn.Parameter(bias)
         self.filters = filters
+        self._packs: dict = {}
 
     def init_state(self, batch: int, height: int, width: int,
                    dtype=torch.float32, device=None) -> Carry:
@@ -77,9 +94,13 @@ class ConvLSTMCell(nn.Module):
         k = self.kernel_h.shape[-1]
         if fused_cell and supported(hh, ww, self.filters, k, k, b, x.dtype):
             gx = conv2d(x, self.kernel_x, self.bias)
-            # an HWIO view: the kernel's wrapper packs or copies it once
+            # an HWIO view: the kernel's wrapper packs or copies it once, or
+            # takes the pack kept here
             wh = self.kernel_h.to(x.dtype).permute(2, 3, 1, 0)
-            h_new, c_new = fused_convlstm_level(gx, h, c, wh, recurrent_activation)
+            kh = self.kernel_h
+            packed = _kept_pack(self._packs, (kh.device, kh.data_ptr(), kh._version), wh, b,
+                                hh, ww, x)
+            h_new, c_new = fused_convlstm_level(gx, h, c, wh, recurrent_activation, packed)
             return (h_new, c_new), h_new
         gates = conv2d(x, self.kernel_x, self.bias) + conv2d(h.to(x.dtype),
                                                              self.kernel_h)
@@ -101,6 +122,7 @@ class QConvLSTMCell(nn.Module):
         static_scale(self, "x_scale", act_scales, site + "/x", dev)
         static_scale(self, "h_scale", act_scales, site + "/h", dev)
         self._wh_float = {}
+        self._packs: dict = {}
 
     init_state = ConvLSTMCell.init_state
 
@@ -130,8 +152,9 @@ class QConvLSTMCell(nn.Module):
         k = self.wh.shape[-1]
         if fused_cell and supported(hh, ww, self.filters, k, k, b, x.dtype):
             gx = conv2d_q(x, self.wx, self.x_scale, x.dtype)
-            h_new, c_new = fused_convlstm_level(gx, h, c, self.wh_dequantized(x.dtype),
-                                                recurrent_activation)
+            wh = self.wh_dequantized(x.dtype)
+            packed = _kept_pack(self._packs, (wh.device, wh.data_ptr()), wh, b, hh, ww, x)
+            h_new, c_new = fused_convlstm_level(gx, h, c, wh, recurrent_activation, packed)
             return (h_new, c_new), h_new
         gates = (conv2d_q(x, self.wx, self.x_scale, x.dtype)
                  + conv2d_q(h, self.wh, self.h_scale, x.dtype))

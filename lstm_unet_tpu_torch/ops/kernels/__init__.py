@@ -20,8 +20,10 @@ KERNELS = {
     "fused_convlstm_level": convlstm_cell.COUNT,    # K4, SIMT route
     "fused_convlstm_level_wgmma": convlstm_cell.WGMMA_COUNT,  # K4, bf16 tensor cores
     "fused_convlstm_level_tf32x3": convlstm_cell.TF32X3_COUNT,  # K4, f32 as 3xTF32
+    "fused_convlstm_level_narrow": convlstm_cell.NARROW_COUNT,  # K4, narrow levels
     "conv2d_int8": conv_int8.COUNT,                 # the int8 conv (no TPU kernel), mma_sync
     "conv2d_int8_wgmma": conv_int8.WGMMA_COUNT,     # the int8 conv, wgmma, quantize folded in
+    "conv2d_int8_smallk": conv_int8.SMALLK_COUNT,   # the int8 conv, small K, quantize folded in
 }
 
 

@@ -50,6 +50,9 @@ _SIGNATURES = {
     "lut_convlstm_level_tf32x3": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                    _I, _P], _I),
     "lut_convlstm_level_tf32x3_smem": ([_I], _LL),
+    "lut_convlstm_level_narrow": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                                   _I, _P], _I),
+    "lut_convlstm_level_narrow_smem": ([_I, _I, _I], _LL),
     "lut_ccl_cluster": ([_P, _P, _I, _I, _P], _I),
     "lut_ccl_cluster_smem": ([_I, _I], _LL),
     "lut_ccl_grid": ([_P, _P, _I, _I, _P], _I),
@@ -58,6 +61,9 @@ _SIGNATURES = {
     "lut_conv2d_int8_wgmma": ([_P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                                _I, _I, _P], _I),
     "lut_conv2d_int8_wgmma_smem": ([_I, _I, _I], _LL),
+    "lut_conv2d_int8_smallk": ([_P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                                _I, _P], _I),
+    "lut_conv2d_int8_smallk_smem": ([_I, _I, _I, _I, _I], _LL),
     "lut_error_string": ([_I], ctypes.c_char_p),
 }
 

@@ -1,4 +1,4 @@
-"""The int8 conv: s8 x s8 -> s32 implicit GEMM, two CUDA routes + plain versions.
+"""The int8 conv: s8 x s8 -> s32 implicit GEMM, three CUDA routes + plain versions.
 
 Replaces the int8 conv of ``lstm_unet_tpu/ops/quant.py::conv2d_q`` (the XLA
 conv of ``_conv_int8``, ``quant.py:91``; the JAX package wrote no Pallas
@@ -12,7 +12,7 @@ their per-output-channel f32 scales ``w_scale [N]``::
 then ``y`` is rounded once to ``out_dtype`` (float32 or bfloat16). With no
 bias the add is skipped, as the reference skips it.
 
-:func:`route` picks one of two kernels by shape alone, each with its own
+:func:`route` picks one of three kernels by shape alone, each with its own
 launch count:
 
 - ``"wgmma"`` (``csrc/conv_int8_wgmma.cu``, :func:`conv2d_int8_wgmma`,
@@ -22,18 +22,26 @@ launch count:
   its staging, so no int8 activation reaches device memory; with a dynamic
   scale one abs-max pass stays outside it. Weights go in packed once by
   :func:`pack_weight_wgmma`. It takes 24 of the flagship's 25 int8 sites.
+- ``"smallk"`` (``csrc/conv_int8_smallk.cu``, :func:`conv2d_int8_smallk`,
+  :data:`SMALLK_COUNT`): the sites whose whole reduction K = KH*KW*cin,
+  padded to 32, is at most :data:`SMALLK_MAX_K` and whose block fits its
+  shared memory (:func:`smallk_takes`): the flagship's cin = 1 x-conv (K =
+  25), the tiny model's cin 8 and 24 sites (K = 8, 72, 216), non-square
+  kernels. Float activation and scale as the wgmma route; weights packed
+  once by :func:`pack_weight_smallk`; the output written in full rows.
 - ``"mma_sync"`` (``csrc/conv_int8.cu``, :func:`conv2d_int8`,
-  :data:`COUNT`): every other shape (the flagship's cin = 1 x-conv, the
-  tiny model's cin 8 and 24), on an int8 ``xq`` from :func:`quantize_act`;
-  weights packed once by :func:`pack_weight`.
+  :data:`COUNT`): what neither takes (a larger K with cin not a multiple of
+  16, or a kernel of 7 or more with one; no site of the flagship or of the
+  tiny model), on an int8 ``xq`` from :func:`quantize_act`; weights packed
+  once by :func:`pack_weight`.
 
 Each wrapper takes its plain version for CPU tensors and launches its kernel
 for CUDA tensors. The plain versions are exact on both devices, so kernels
 and plain versions are compared bit for bit: the sums by ``F.conv2d`` on
 int32 tensors on the CPU, on the card by a float64 conv with cuDNN off
 (every partial sum is an integer below 2^53, so any order of summation is
-exact), rounded back to int32. The wgmma route's plain version is
-:func:`quantize_act` followed by the mma_sync route's plain arithmetic.
+exact), rounded back to int32. The wgmma and small-K routes' plain versions
+are :func:`quantize_act` followed by the mma_sync route's plain arithmetic.
 """
 
 from __future__ import annotations
@@ -45,8 +53,9 @@ import torch.nn.functional as F
 
 from . import _build
 
-COUNT = _build.LaunchCount()        # the mma_sync route
-WGMMA_COUNT = _build.LaunchCount()  # the wgmma route (quantize folded in)
+COUNT = _build.LaunchCount()         # the mma_sync route
+WGMMA_COUNT = _build.LaunchCount()   # the wgmma route (quantize folded in)
+SMALLK_COUNT = _build.LaunchCount()  # the small-K route (quantize folded in)
 
 BLOCK_N, BLOCK_K = 128, 64  # tile of csrc/conv_int8.cu: N and K padding
 
@@ -57,6 +66,10 @@ WG_KERNEL_SIZES = (1, 3, 5)
 WG_STAGES = {256: 3, 128: 6, 8: 8}  # the weight ring's depth per N tile
 WG_RAW = 3  # slabs of the raw x ring
 SMEM_LIMIT = 232_448  # bytes of shared memory one Hopper block may use
+# csrc/conv_int8_smallk.cu: K padded to the mma.sync k of 32, at most 8 k
+# steps (|acc| < 2^22, which its int-to-float conversion needs); tiles of 64
+# pixels of a row
+SMALLK_STEP, SMALLK_MAX_K, SMALLK_TILE = 32, 256, 64
 
 
 def _ceil_to(v: int, m: int) -> int:
@@ -77,20 +90,47 @@ def quantize_act(x: torch.Tensor, scale: Optional[torch.Tensor] = None
     return xf.round_().clamp_(-127, 127).to(torch.int8), scale
 
 
+def smallk_smem_bytes(kh: int, kw: int, cin: int, cout: int, out_bytes: int = 4) -> int:
+    """Shared memory one block of the small-K kernel needs (its ``layout``):
+    the packed weights, the per-column scale and bias, the offset table, the
+    quantized window of a 64-pixel tile (KH rows x 64 + KW - 1 pixels x cin
+    bytes), the tile's A rows (K padded to 32, each row padded by 16 bytes)
+    and 8 warp slices of 16 rows x 64 columns of ``out_bytes``, each row
+    padded by 8 columns."""
+    kp, n8 = _ceil_to(kh * kw * cin, SMALLK_STEP), _ceil_to(cout, 8)
+    window = _ceil_to(kh * (SMALLK_TILE + kw - 1) * cin, 16)
+    return (kp * n8 + 8 * n8 + 4 * kp + window + SMALLK_TILE * (kp + 16)
+            + 8 * 16 * 72 * out_bytes)
+
+
+def smallk_takes(cin: int, kh: int, kw: int, cout: int) -> bool:
+    """Whether the small-K kernel takes a site: odd kernel sizes, K = KH*KW*cin
+    padded to 32 at most SMALLK_MAX_K, and a block (with f32 output, the
+    larger) within a Hopper block's shared memory."""
+    return (kh % 2 == 1 and kw % 2 == 1
+            and _ceil_to(kh * kw * cin, SMALLK_STEP) <= SMALLK_MAX_K
+            and smallk_smem_bytes(kh, kw, cin, cout, 4) <= SMEM_LIMIT)
+
+
 def route(h: int, w: int, cin: int, k: int, cout: int) -> Optional[str]:
     """The int8 conv kernel of a site with a square ``k`` x ``k`` kernel:
-    ``"wgmma"``, ``"mma_sync"``, or None for an empty one. Shape alone."""
+    ``"wgmma"``, ``"smallk"``, ``"mma_sync"``, or None for an empty one. Shape
+    alone."""
     if min(h, w, cin, k, cout) <= 0:
         return None
     if cin % 16 == 0 and k in WG_KERNEL_SIZES:
         return "wgmma"
+    if smallk_takes(cin, k, k, cout):
+        return "smallk"
     return "mma_sync"
 
 
 def weight_route(kernel_q: torch.Tensor) -> str:
     """The route of an OIHW kernel's site (the frame's size does not matter)."""
     n, cin, kh, kw = kernel_q.shape
-    return route(1, 1, cin, kh, n) if kh == kw else "mma_sync"
+    if kh == kw:
+        return route(1, 1, cin, kh, n)
+    return "smallk" if smallk_takes(cin, kh, kw, n) else "mma_sync"
 
 
 # ---------------------------------------------------------------- mma_sync route
@@ -359,4 +399,104 @@ def conv2d_int8_wgmma(x: torch.Tensor, scale: Optional[torch.Tensor], packed: to
            _build.DTYPES[out_dtype], _build.stream_handle(x)),
           "lut_conv2d_int8_wgmma")
     WGMMA_COUNT.kernel += 1
+    return y
+
+
+# ---------------------------------------------------------------- small-K route
+#
+# The weights are packed once in the mma.sync m16n8k32 B-fragment order, as
+# [K_pad/32 k steps][N_pad/8 column tiles][32 lanes][8 bytes]: lane l of
+# tile t holds column n = 8t + l // 4 at k = 32s + 4(l % 4) + {0..3} (bytes
+# 0-3) and + 16 (bytes 4-7), k = (ky * KW + kx) * cin + ci as in
+# :func:`pack_weight`. Padding (columns >= cout, k >= KH*KW*cin) is zero.
+
+
+def pack_weight_smallk(kernel_q: torch.Tensor) -> torch.Tensor:
+    """OIHW int8 ``kernel_q [N,Cin,KH,KW]`` of a small-K site -> the small-K
+    route's pack ``[K_pad/32, N_pad/8, 32, 8]``, in one copy."""
+    if kernel_q.dtype != torch.int8 or kernel_q.dim() != 4:
+        raise ValueError(f"pack_weight_smallk takes an OIHW int8 kernel, got "
+                         f"{tuple(kernel_q.shape)} {kernel_q.dtype}")
+    n, cin, kh, kw = kernel_q.shape
+    if not smallk_takes(cin, kh, kw, n):
+        raise ValueError(f"the small-K route does not take Cin={cin} {kh}x{kw} N={n}: K "
+                         f"padded to {SMALLK_STEP} must be at most {SMALLK_MAX_K}")
+    kdim = kh * kw * cin
+    kp, n8 = _ceil_to(kdim, SMALLK_STEP), _ceil_to(n, 8)
+    w = torch.zeros(n8, kp, dtype=torch.int8, device=kernel_q.device)
+    w[:n, :kdim] = kernel_q.permute(0, 2, 3, 1).reshape(n, kdim)
+    # [tile, g, step, half, t, byte] -> [step, tile, g, t, half, byte]
+    w = w.reshape(n8 // 8, 8, kp // SMALLK_STEP, 2, 4, 4).permute(2, 0, 1, 4, 3, 5)
+    return w.reshape(kp // SMALLK_STEP, n8 // 8, 32, 8).contiguous()
+
+
+def unpack_weight_smallk(packed: torch.Tensor, n: int, cin: int, kh: int, kw: int
+                         ) -> torch.Tensor:
+    """Inverse of :func:`pack_weight_smallk`: the OIHW int8 kernel."""
+    steps, tiles = packed.shape[:2]
+    w = packed.reshape(steps, tiles, 8, 4, 2, 4).permute(1, 2, 0, 4, 3, 5)
+    w = w.reshape(tiles * 8, steps * SMALLK_STEP)
+    return w[:n, :kh * kw * cin].reshape(n, kh, kw, cin).permute(0, 3, 1, 2)
+
+
+def conv2d_int8_smallk_plain(x: torch.Tensor, scale: Optional[torch.Tensor],
+                             packed: torch.Tensor, w_scale: torch.Tensor,
+                             bias: Optional[torch.Tensor], kh: int, kw: int,
+                             out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Plain PyTorch version of the small-K kernel (same arguments):
+    :func:`quantize_act`, then the exact sums and the dequant."""
+    SMALLK_COUNT.plain += 1
+    xq, s_x = quantize_act(x, scale)
+    kq = unpack_weight_smallk(packed, w_scale.shape[0], x.shape[-1], kh, kw)
+    return _dequant_plain(xq, s_x, kq, w_scale, bias, out_dtype)
+
+
+def _check_smallk(x, scale, packed, w_scale, bias, kh, kw, out_dtype) -> None:
+    if x.dim() != 4 or x.dtype not in _build.DTYPES:
+        raise ValueError(f"x must be float32 or bfloat16 [B,H,W,Cin], got "
+                         f"{tuple(x.shape)} {x.dtype}")
+    n, cin = w_scale.shape[0], x.shape[-1]
+    if not smallk_takes(cin, kh, kw, n):
+        raise ValueError(f"the small-K route does not take Cin={cin} {kh}x{kw} N={n}")
+    want = (_ceil_to(kh * kw * cin, SMALLK_STEP) // SMALLK_STEP, _ceil_to(n, 8) // 8, 32, 8)
+    if packed.dtype != torch.int8 or tuple(packed.shape) != want:
+        raise ValueError(f"packed weight {tuple(packed.shape)} {packed.dtype} is not the "
+                         f"small-K pack of a {kh}x{kw} kernel, Cin={cin}, N={n}: want {want}")
+    _check_common(scale, w_scale, bias, out_dtype, "conv2d_int8_smallk")
+    if len({t.device for t in _present(x, scale, packed, w_scale, bias)}) != 1:
+        raise ValueError("x, the scale, the weights and the bias must be on one device")
+
+
+def conv2d_int8_smallk(x: torch.Tensor, scale: Optional[torch.Tensor], packed: torch.Tensor,
+                       w_scale: torch.Tensor, bias: Optional[torch.Tensor], kh: int, kw: int,
+                       out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``y [B,H,W,N]`` in ``out_dtype`` of the int8 conv of float ``x``
+    (bf16 or f32) quantized with ``scale`` (0-d f32), or dynamically with
+    ``scale=None``, on the small-K route: ``quantize_act`` and the conv in
+    one kernel.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel (any
+    other device raises).
+    """
+    _check_smallk(x, scale, packed, w_scale, bias, kh, kw, out_dtype)
+    if x.device.type == "cpu":
+        return conv2d_int8_smallk_plain(x, scale, packed, w_scale, bias, kh, kw, out_dtype)
+    if x.device.type != "cuda":
+        raise ValueError(f"no int8 conv kernel for device {x.device}")
+    _cuda_inputs_ok(x, packed, scale, w_scale, bias)
+    b, h, w, cin = x.shape
+    n = w_scale.shape[0]
+    y = torch.empty(b, h, w, n, dtype=out_dtype, device=x.device)
+    if y.numel() == 0:
+        return y
+    dynamic = scale is None
+    if dynamic:  # max|x|, exact in x's dtype; the kernel forms the scale from it
+        scale = torch.linalg.vector_norm(x, ord=float("inf"))
+    _call(_build.library().lut_conv2d_int8_smallk, x,
+          (x.data_ptr(), packed.data_ptr(), scale.data_ptr(), int(dynamic),
+           w_scale.data_ptr(), None if bias is None else bias.data_ptr(), y.data_ptr(),
+           b, h, w, cin, kh, kw, n, _build.DTYPES[x.dtype], _build.DTYPES[out_dtype],
+           _build.stream_handle(x)),
+          "lut_conv2d_int8_smallk")
+    SMALLK_COUNT.kernel += 1
     return y

@@ -1,4 +1,4 @@
-"""K4 — fused ConvLSTM level, inference (three CUDA routes + plain version).
+"""K4 — fused ConvLSTM level, inference (four CUDA routes + plain version).
 
 Replaces ``lstm_unet_tpu/ops/pallas/convlstm_cell.py::fused_convlstm_level``.
 From ``gx [B,H,W,4F]`` (x-conv + bias, computed outside), ``h, c [B,H,W,F]``
@@ -9,7 +9,7 @@ Returns ``(h', c')`` — the reverse of K1's ``(c', h')`` — in h's and c's
 dtypes.
 
 The TPU kernel's limits (B = 1, F and W multiples of 128, H of 4, 5x5 only,
-its VMEM budget) were the TPU's. On the card :func:`route` picks one of three
+its VMEM budget) were the TPU's. On the card :func:`route` picks one of four
 kernels by dtype and shape, each with its own launch count:
 
 - ``"wgmma"`` (``csrc/convlstm_wgmma.cu``, :data:`WGMMA_COUNT`): bf16 compute
@@ -23,11 +23,18 @@ kernels by dtype and shape, each with its own launch count:
   hi = tf32(x) and lo = tf32(x - hi) and every product is taken as
   hi*lo + lo*hi + hi*hi (3xTF32, f32-grade sums); Wh goes in packed as hi
   and lo (:func:`pack_wh_tf32x3`). It takes every flagship level in f32.
-- ``"simt"`` (``csrc/convlstm_cell.cu``, :data:`COUNT`): everything else that
+- ``"narrow"`` (``csrc/convlstm_narrow.cu``, :data:`NARROW_COUNT`): the
+  other levels with F % 8 == 0 and K in {1, 3, 5, 7}, bf16 or f32 (as
+  3xTF32): the tiny model's F = 8 and 16, F = 24, 32, 96, and 7x7 levels.
+  The same implicit GEMM on tiles of 32, 16 or 8 features
+  (:func:`narrow_tile`) and input-channel chunks of the instruction's k;
+  Wh goes in packed (:func:`pack_wh_narrow`, :func:`pack_wh_narrow_tf32x3`;
+  the cells make the pack once and keep it).
+- ``"simt"`` (``csrc/convlstm_cell.cu``, :data:`COUNT`): what is left that
   fits one block's shared memory — the halo'd h tile for all F channels plus
   one Wh chunk within the 227 KB a Hopper block can use
-  (:func:`smem_bytes`): the tiny model's narrow levels (F = 8, 16), 7x7, and
-  F that is not a multiple of 64.
+  (:func:`smem_bytes`): F not a multiple of 8 (no level of the flagship or
+  of the tiny model).
 
 A level no route takes raises; the cell checks :func:`supported` first.
 
@@ -49,6 +56,7 @@ from .lstm_gates import gate_math
 COUNT = _build.LaunchCount()         # the SIMT route
 WGMMA_COUNT = _build.LaunchCount()   # the bf16 tensor-core route
 TF32X3_COUNT = _build.LaunchCount()  # the f32 tensor-core route (3xTF32)
+NARROW_COUNT = _build.LaunchCount()  # the narrow-level tensor-core route
 
 # block geometry of csrc/convlstm_cell.cu (SIMT route)
 TILE_H, TILE_W, FEAT_SLICE, CHUNK = 8, 16, 32, 4
@@ -65,6 +73,16 @@ TC_KERNEL_SIZES = (1, 3, 5)
 # 4 f32 channels, a 6-stage Wh ring
 TF32_FEAT, TF32_CHUNK, TF32_STAGES = 32, 16, 6
 GRID_LIMIT = 65535  # gridDim.z of the SIMT kernel
+# csrc/convlstm_narrow.cu: tiles of R rows (bf16 4: two M tiles a consumer
+# warpgroup; 3xTF32 2) x 64 pixels x FT features (32, 16 or 8), input-channel
+# chunks of the instruction's k (bf16 16 in 2 planes, 3xTF32 8 in 2 planes
+# of hi and 2 of lo), a Wh ring of up to 4 stages of one kernel row each
+NARROW_KERNEL_SIZES = (1, 3, 5, 7)
+NARROW_FEATS = (32, 16, 8)
+NARROW_CHUNK = {torch.bfloat16: 16, torch.float32: 8}
+NARROW_PLANES = {torch.bfloat16: 2, torch.float32: 4}
+NARROW_ROWS = {torch.bfloat16: 4, torch.float32: 2}
+NARROW_STAGES = 4
 
 
 def smem_bytes(k: int, feat: int) -> int:
@@ -92,10 +110,33 @@ def tf32x3_smem_bytes(k: int) -> int:
             + 2 * 2 * (TF32_CHUNK // 4) * plane + (2 * TF32_STAGES + 4) * 8)
 
 
+def narrow_tile(feat: int) -> int:
+    """Features of one tile of the narrow route: the largest of 32, 16, 8
+    that divides F."""
+    return next(t for t in NARROW_FEATS if feat % t == 0)
+
+
+def narrow_smem_bytes(k: int, tile: int, dtype: torch.dtype) -> int:
+    """Shared memory one narrow-route block needs: a ring of S stages (the K
+    taps of one kernel row of one chunk, 4 * tile columns, 16 bytes a plane
+    entry), S the largest of 4 .. 1 that fits, two h tiles of one chunk
+    (NARROW_ROWS + K - 1 rows, each plane padded to an odd number of 16-byte
+    units) and 12 mbarriers."""
+    planes = NARROW_PLANES[dtype]
+    aplane = (((NARROW_ROWS[dtype] + k - 1) * (TC_COLS + k - 1)) | 1) * 16
+    fixed = 2 * planes * aplane + (2 * NARROW_STAGES + 4) * 8
+    stage = k * planes * 4 * tile * 16
+    stages = NARROW_STAGES
+    while stages > 1 and stages * stage + fixed > SMEM_LIMIT:
+        stages -= 1
+    return stages * stage + fixed
+
+
 def route(h: int, w: int, feat: int, k: int, batch: int,
           dtype: torch.dtype = torch.float32) -> Optional[str]:
     """The K4 kernel that takes a level of a square ``k`` x ``k`` kernel in
-    compute ``dtype``: ``"wgmma"``, ``"tf32x3"``, ``"simt"``, or None."""
+    compute ``dtype``: ``"wgmma"``, ``"tf32x3"``, ``"narrow"``, ``"simt"``,
+    or None."""
     if min(h, w, feat, batch) <= 0:
         return None
     if k in TC_KERNEL_SIZES and feat % TC_FEAT == 0:
@@ -103,6 +144,9 @@ def route(h: int, w: int, feat: int, k: int, batch: int,
             return "wgmma"
         if dtype == torch.float32:
             return "tf32x3"
+    if (k in NARROW_KERNEL_SIZES and feat % 8 == 0 and dtype in _build.DTYPES
+            and narrow_smem_bytes(k, narrow_tile(feat), dtype) <= SMEM_LIMIT):
+        return "narrow"
     if (k in KERNEL_SIZES and batch * -(-feat // FEAT_SLICE) <= GRID_LIMIT
             and smem_bytes(k, feat) <= SMEM_LIMIT):
         return "simt"
@@ -116,7 +160,8 @@ def supported(h: int, w: int, feat: int, kh: int, kw: int, batch: int,
     return kh == kw and route(h, w, feat, kh, batch, dtype) is not None
 
 
-_COUNTS = {"simt": COUNT, "wgmma": WGMMA_COUNT, "tf32x3": TF32X3_COUNT}
+_COUNTS = {"simt": COUNT, "wgmma": WGMMA_COUNT, "tf32x3": TF32X3_COUNT,
+           "narrow": NARROW_COUNT}
 
 
 def _count(gx: torch.Tensor, h: torch.Tensor, wh: torch.Tensor) -> _build.LaunchCount:
@@ -198,6 +243,73 @@ def unpack_wh_tf32x3(packed: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
             _unpack(packed[:, :, :, 1], TF32_FEAT, TF32_CHUNK, 4))
 
 
+# The narrow route's packs: the same column order over tiles of T = 32, 16 or
+# 8 features (:func:`narrow_tile`), input channels in chunks of 16 (bf16) or
+# 8 (3xTF32), F padded with zero channels to a whole chunk:
+# [F/T tiles][F_pad/chunk chunks][K*K taps][chunk/vec groups][4T columns]
+# [vec], hi and lo in a stage of their own axis for 3xTF32. A kernel row's K
+# taps of one chunk are one contiguous stage.
+
+
+def _pack_narrow(wh: torch.Tensor, dtype: torch.dtype, vec: int) -> torch.Tensor:
+    k, _, feat, _ = wh.shape
+    if feat % 8:
+        raise ValueError(f"the narrow route's Wh pack needs F % 8 == 0, got F={feat}")
+    tile, chunk = narrow_tile(feat), NARROW_CHUNK[dtype]
+    fin = -(-feat // chunk) * chunk
+    if fin != feat:  # zero input channels up to a whole chunk
+        wh = F.pad(wh, (0, 0, 0, fin - feat))
+    dims = (k * k, fin // chunk, chunk // vec, vec, 2, 2, feat // tile, 4, tile // 4)
+    t = wh.reshape(dims).permute(_PACK_PERM)
+    return t.reshape(feat // tile, fin // chunk, k * k, chunk // vec, 4 * tile, vec)
+
+
+def _unpack_narrow(packed: torch.Tensor, dtype: torch.dtype, vec: int) -> torch.Tensor:
+    tiles, chunks, kk = packed.shape[:3]
+    tile, chunk = packed.shape[-2] // 4, NARROW_CHUNK[dtype]
+    feat, fin, k = tiles * tile, chunks * chunk, round(kk ** 0.5)
+    dims = (k * k, fin // chunk, chunk // vec, vec, 2, 2, feat // tile, 4, tile // 4)
+    t = packed.reshape([dims[p] for p in _PACK_PERM]).permute(_UNPACK_PERM)
+    return t.reshape(k, k, fin, 4 * feat)[:, :, :feat].contiguous()
+
+
+def pack_wh_narrow(wh: torch.Tensor) -> torch.Tensor:
+    """``wh [K,K,F,4F]`` (any strides, F % 8 == 0) -> the narrow bf16
+    kernel's packed ``[F/T, ceil(F/16), K*K, 2, 4T, 8]``, in one copy."""
+    return _pack_narrow(wh, torch.bfloat16, 8).contiguous()
+
+
+def unpack_wh_narrow(packed: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`pack_wh_narrow`: ``[K,K,F,4F]``."""
+    return _unpack_narrow(packed, torch.bfloat16, 8)
+
+
+def pack_wh_narrow_tf32x3(wh: torch.Tensor) -> torch.Tensor:
+    """``wh [K,K,F,4F]`` f32 (any strides, F % 8 == 0) -> the narrow 3xTF32
+    kernel's packed ``[F/T, F/8, K*K, 2, 2, 4T, 4]``: index 0 of the hi/lo
+    axis holds hi = tf32(wh), index 1 lo = tf32(wh - hi)."""
+    if wh.dtype != torch.float32:
+        raise ValueError(f"the 3xTF32 pack takes float32 Wh, got {wh.dtype}")
+    t = _pack_narrow(wh, torch.float32, 4)
+    hi = round_tf32(t)
+    return torch.stack((hi, round_tf32(t - hi)), dim=3)
+
+
+def unpack_wh_narrow_tf32x3(packed: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Inverse of :func:`pack_wh_narrow_tf32x3`: ``(hi, lo)``, each ``[K,K,F,4F]``."""
+    return tuple(_unpack_narrow(packed[:, :, :, i], torch.float32, 4) for i in (0, 1))
+
+
+def pack_for_route(wh: torch.Tensor, which: Optional[str]) -> Optional[torch.Tensor]:
+    """The pack of Wh that route ``which`` launches on, for a caller that
+    keeps it across calls; None for the routes that pack per call."""
+    if which != "narrow":
+        return None
+    if wh.dtype == torch.float32:
+        return pack_wh_narrow_tf32x3(wh)
+    return pack_wh_narrow(wh)
+
+
 # ---------------------------------------------------------------- versions
 
 
@@ -222,7 +334,8 @@ def fused_convlstm_level_plain(gx: torch.Tensor, h: torch.Tensor,
 
 
 def fused_convlstm_level(gx: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
-                         wh: torch.Tensor, recurrent_activation: str = "sigmoid"
+                         wh: torch.Tensor, recurrent_activation: str = "sigmoid",
+                         packed: Optional[torch.Tensor] = None
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(h', c')`` of one ConvLSTM level, layouts as in the module docstring.
 
@@ -230,7 +343,8 @@ def fused_convlstm_level(gx: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
     :func:`route` names (any other device raises). ``gx`` and ``wh`` share
     the compute dtype, ``h`` and ``c`` the state dtype, each float32 or
     bfloat16. ``gx``, ``h`` and ``c`` are contiguous; ``wh`` may be a view
-    (it is packed or made contiguous here).
+    (it is packed or made contiguous here, unless ``packed`` holds its
+    :func:`pack_for_route` pack, which the narrow route then takes).
     """
     if gx.dim() != 4 or h.dim() != 4 or wh.dim() != 4:
         raise ValueError("need gx [B,H,W,4F], h and c [B,H,W,F], wh [K,K,F,4F]")
@@ -269,6 +383,10 @@ def fused_convlstm_level(gx: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
         return wgmma_level(gx, h, c, pack_wh(wh), k, recurrent_activation)
     if which == "tf32x3":
         return tf32x3_level(gx, h, c, pack_wh_tf32x3(wh), k, recurrent_activation)
+    if which == "narrow":
+        if packed is None:
+            packed = pack_for_route(wh, which)
+        return narrow_level(gx, h, c, packed, k, recurrent_activation)
     return simt_level(gx, h, c, wh, recurrent_activation)
 
 
@@ -338,3 +456,36 @@ def tf32x3_level(gx: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
     want = (feat // TF32_FEAT, feat // TF32_CHUNK, k * k, 2, TF32_CHUNK // 4, 4 * TF32_FEAT, 4)
     return _tensor_core_level("lut_convlstm_level_tf32x3", TF32X3_COUNT, want,
                               torch.float32, gx, h, c, packed, k, recurrent_activation)
+
+
+def narrow_level(gx: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
+                 packed: torch.Tensor, k: int, recurrent_activation: str = "sigmoid"
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The narrow route's launch on Wh packed by :func:`pack_wh_narrow` (bf16
+    compute) or :func:`pack_wh_narrow_tf32x3` (f32), for CUDA tensors that
+    :func:`fused_convlstm_level` has checked (this entry also lets a caller
+    time the kernel without the pack)."""
+    b, hh, ww, feat = h.shape
+    dt = gx.dtype
+    tile, chunk = narrow_tile(feat), NARROW_CHUNK[dt]
+    nchunks = -(-feat // chunk)
+    if dt == torch.bfloat16:
+        want = (feat // tile, nchunks, k * k, chunk // 8, 4 * tile, 8)
+    else:
+        want = (feat // tile, nchunks, k * k, 2, chunk // 4, 4 * tile, 4)
+    if tuple(packed.shape) != want or packed.dtype != dt or not packed.is_contiguous():
+        raise ValueError(f"packed Wh {tuple(packed.shape)} {packed.dtype} is not the "
+                         f"narrow {dt} pack for {k}x{k}, F={feat}: want {want}")
+    if any(t.data_ptr() % 16 for t in (gx, h, c, packed)):
+        raise ValueError("the narrow K4 needs 16-byte aligned gx, h, c and packed Wh")
+    h_out = torch.empty_like(h)
+    c_out = torch.empty_like(c)
+    with torch.cuda.device(h.device):
+        err = _build.library().lut_convlstm_level_narrow(
+            gx.data_ptr(), h.data_ptr(), c.data_ptr(), packed.data_ptr(),
+            h_out.data_ptr(), c_out.data_ptr(), b, hh, ww, feat, k, tile,
+            _build.ACTIVATIONS[recurrent_activation], _build.DTYPES[dt],
+            _build.DTYPES[h.dtype], _build.stream_handle(h))
+    _build.check(err, "lut_convlstm_level_narrow")
+    NARROW_COUNT.kernel += 1
+    return h_out, c_out

@@ -11,14 +11,15 @@ SAME zero padding stays exact:
 - conv: int8 x int8 -> exact int32 sums, dequantized in f32 as ``acc * (s_x *
   s_w) + bias`` and rounded once to the output dtype.
 
-:func:`conv2d_q` takes one of two kernels by the site's shape
-(``kernels/conv_int8.py::route``): the ``wgmma`` route quantizes the float
-activation inside the conv kernel (with a dynamic scale one abs-max pass
-stays outside it); the ``mma_sync`` route (cin not a multiple of 16, such as
-the flagship's first x-conv) runs :func:`quantize_act` as plain tensor code,
-as the reference leaves it to XLA outside any Pallas kernel, then its
-kernel. On the CPU both take the plain versions: :func:`quantize_act`, then
-the exact conv and the dequant.
+:func:`conv2d_q` takes one of three kernels by the site's shape
+(``kernels/conv_int8.py::route``): the ``wgmma`` route (cin % 16 == 0) and
+the ``smallk`` route (a reduction of at most 256 bytes, such as the
+flagship's first x-conv) quantize the float activation inside the conv
+kernel (with a dynamic scale one abs-max pass stays outside it); the
+``mma_sync`` route (what neither takes) runs :func:`quantize_act` as plain
+tensor code, as the reference leaves it to XLA outside any Pallas kernel,
+then its kernel. On the CPU all take the plain versions:
+:func:`quantize_act`, then the exact conv and the dequant.
 
 Gate math, LayerNorm and softmax stay as in the float model.
 :class:`QWeight` holds one conv's int8 weights, packed once for its route's
@@ -33,8 +34,9 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch import nn
 
-from .kernels.conv_int8 import (conv2d_int8, conv2d_int8_wgmma, pack_weight,
-                                 pack_weight_wgmma, quantize_act, route, unpack_weight,
+from .kernels.conv_int8 import (conv2d_int8, conv2d_int8_smallk, conv2d_int8_wgmma,
+                                 pack_weight, pack_weight_smallk, pack_weight_wgmma,
+                                 quantize_act, unpack_weight, unpack_weight_smallk,
                                  unpack_weight_wgmma, weight_route)
 
 ActScales = Optional[Dict[str, float]]
@@ -78,14 +80,19 @@ def _site_kept(site: str, keep_float) -> bool:
 
 def _pack(kernel_q: torch.Tensor) -> torch.Tensor:
     """The pack of an OIHW int8 kernel for its route's kernel."""
-    if weight_route(kernel_q) == "wgmma":
+    which = weight_route(kernel_q)
+    if which == "wgmma":
         return pack_weight_wgmma(kernel_q)
+    if which == "smallk":
+        return pack_weight_smallk(kernel_q)
     return pack_weight(kernel_q)
 
 
 def _unpack(packed: torch.Tensor, n: int, cin: int, kh: int, kw: int) -> torch.Tensor:
     if packed.dim() == 2:  # pack_weight's [N_pad, K_pad]
         return unpack_weight(packed, n, cin, kh, kw)
+    if packed.dim() == 4:  # pack_weight_smallk's [K steps, N tiles, 32, 8]
+        return unpack_weight_smallk(packed, n, cin, kh, kw)
     return unpack_weight_wgmma(packed, n, cin)
 
 
@@ -121,10 +128,11 @@ def _conv(x: torch.Tensor, scale: Optional[torch.Tensor], packed: torch.Tensor,
           out_dtype: torch.dtype) -> torch.Tensor:
     """The int8 conv of float ``x`` on its site's route (``packed`` is the
     pack :class:`QWeight` made for that route)."""
-    b, h, w, cin = x.shape
-    if kh == kw and route(h, w, cin, kh, w_scale.shape[0]) == "wgmma":
-        # the kernel quantizes x as it stages it
+    # the wgmma and small-K kernels quantize x as they stage it
+    if packed.dim() == 7:
         return conv2d_int8_wgmma(x, scale, packed, w_scale, bias, kh, out_dtype)
+    if packed.dim() == 4:
+        return conv2d_int8_smallk(x, scale, packed, w_scale, bias, kh, kw, out_dtype)
     qx, s_x = quantize_act(x, scale)
     return conv2d_int8(qx, s_x, packed, w_scale, bias, kh, kw, out_dtype)
 

@@ -38,8 +38,12 @@ WARM, TIMED, PROFILED = 3, 8, 3
 def kind(name: str) -> str:
     if "conv_int8_wgmma" in name:
         return "int8 conv wgmma"
+    if "conv_int8_smallk" in name:
+        return "int8 conv small-K"
     if "conv_int8" in name:
         return "int8 conv"
+    if "convlstm_narrow" in name:
+        return "K4 narrow"
     if "Tf32x3" in name:
         return "K4 tf32x3"
     if "convlstm_wgmma" in name:

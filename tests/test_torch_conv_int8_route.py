@@ -65,7 +65,8 @@ def _model_sites(model):
 
     def add(site, qw):
         cout, cin, k, _ = qw.shape
-        out[site] = (cin, k, cout, "wgmma" if qw.packed.dim() == 7 else "mma_sync")
+        out[site] = (cin, k, cout,
+                     {7: "wgmma", 4: "smallk", 2: "mma_sync"}[qw.packed.dim()])
 
     for i, level in enumerate(model.encoder):
         for j, cell in enumerate(level.lstm):
@@ -89,6 +90,7 @@ def test_route_takes_24_of_the_flagships_25_int8_sites():
     sites, routes = _routes(default_net_kernel_params(), 512)
     assert len(sites) == 25
     assert [s for s, r in routes.items() if r != "wgmma"] == ["encoder/0/lstm/0/x"]
+    assert routes["encoder/0/lstm/0/x"] == "smallk"  # 0 sites on mma_sync
     # fused: the four h-convs run in K4 (its bf16 tensor-core route) instead
     fused = [s for s in routes if not s.endswith("/h")]
     assert len(fused) == 21 and sum(routes[s] == "wgmma" for s in fused) == 20
@@ -104,18 +106,19 @@ def test_route_takes_24_of_the_flagships_25_int8_sites():
 
 
 def test_route_of_the_tiny_models_int8_sites():
-    # cin 1, 8 and 24 take the mma_sync kernel; cin 16 and 32 the wgmma one
+    # cin 1, 8 and 24 take the small-K kernel (K = 9, 72, 216 and the head's
+    # 8); cin 16 and 32 the wgmma one; none the mma_sync one
     sites, routes = _routes(tiny_net_kernel_params(), 32)
     assert routes == {
-        "encoder/0/lstm/0/x": "mma_sync",   # cin 1
-        "encoder/0/lstm/0/h": "mma_sync",   # cin 8
-        "encoder/0/convs/0": "mma_sync",    # cin 8
-        "encoder/1/lstm/0/x": "mma_sync",   # cin 8
+        "encoder/0/lstm/0/x": "smallk",     # cin 1
+        "encoder/0/lstm/0/h": "smallk",     # cin 8
+        "encoder/0/convs/0": "smallk",      # cin 8
+        "encoder/1/lstm/0/x": "smallk",     # cin 8
         "encoder/1/lstm/0/h": "wgmma",      # cin 16
         "encoder/1/convs/0": "wgmma",       # cin 16
         "decoder/1/convs/0": "wgmma",       # cin 16 + 16
-        "decoder/0/convs/0": "mma_sync",    # cin 16 + 8
-        "head": "mma_sync",                 # cin 8
+        "decoder/0/convs/0": "smallk",      # cin 16 + 8
+        "head": "smallk",                   # cin 8
     }
     cfg = ModelConfig.make(tiny_net_kernel_params(), dtype="bfloat16", quant="int8")
     model = quantize_model_int8(ULSTMnet2D(cfg, generator=torch.Generator().manual_seed(0)))
@@ -125,8 +128,10 @@ def test_route_of_the_tiny_models_int8_sites():
 
 @pytest.mark.parametrize("args,want", [
     ((8, 8, 16, 3, 5), "wgmma"), ((8, 8, 32, 1, 3), "wgmma"), ((8, 8, 1024, 5, 2048), "wgmma"),
-    ((8, 8, 8, 3, 16), "mma_sync"), ((8, 8, 24, 3, 8), "mma_sync"),
-    ((8, 8, 1, 5, 512), "mma_sync"), ((8, 8, 16, 7, 16), "mma_sync"),
+    ((8, 8, 8, 3, 16), "smallk"), ((8, 8, 24, 3, 8), "smallk"),
+    ((8, 8, 1, 5, 512), "smallk"), ((8, 8, 16, 7, 16), "mma_sync"),
+    ((8, 8, 28, 3, 64), "smallk"), ((8, 8, 29, 3, 64), "mma_sync"),  # K 252 / 261
+    ((8, 8, 24, 5, 32), "mma_sync"),
     ((0, 8, 16, 3, 16), None), ((8, 8, 16, 3, 0), None),
 ])
 def test_route_edges(args, want):

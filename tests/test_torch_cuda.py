@@ -200,12 +200,14 @@ def _level(cuda, b, h, w, feat, k, dt, sdt, seed=0):
 @pytest.mark.parametrize("act", ["sigmoid", "hard_sigmoid"])
 def test_fused_level_matches_plain(cuda, b, h, w, feat, k, dt, sdt, act):
     """Each case on the route that takes it (F % 64 == 0 at 5x5: tensor
-    cores, bf16 or 3xTF32), counted there."""
+    cores, bf16 or 3xTF32; F % 8 == 0 otherwise: the narrow route; F = 10:
+    SIMT), counted there."""
     ins = _level(cuda, b, h, w, feat, k, dt, sdt)
     assert convlstm_cell.supported(h, w, feat, k, k, b, dt)
     which = convlstm_cell.route(h, w, feat, k, b, dt)
     name = {"simt": "fused_convlstm_level", "wgmma": "fused_convlstm_level_wgmma",
-            "tf32x3": "fused_convlstm_level_tf32x3"}[which]
+            "tf32x3": "fused_convlstm_level_tf32x3",
+            "narrow": "fused_convlstm_level_narrow"}[which]
     reset_counts()
     got = convlstm_cell.fused_convlstm_level(*ins, act)
     want = convlstm_cell.fused_convlstm_level_plain(*ins, act)
@@ -322,6 +324,52 @@ def test_tf32x3_level_matches_plain(cuda, b, h, w, feat, k, sdt, act):
     _tc_close(got, want, sdt, k, feat)
 
 
+def test_narrow_level_smem_matches_the_kernel(cuda):
+    from lstm_unet_tpu_torch.ops.kernels import _build
+
+    lib = _build.library()
+    for k in convlstm_cell.NARROW_KERNEL_SIZES:
+        for t in convlstm_cell.NARROW_FEATS:
+            for dt in (torch.bfloat16, torch.float32):
+                assert (lib.lut_convlstm_level_narrow_smem(k, t, _build.DTYPES[dt])
+                        == convlstm_cell.narrow_smem_bytes(k, t, dt) <= convlstm_cell.SMEM_LIMIT)
+    assert lib.lut_convlstm_level_narrow_smem(9, 8, 1) == 0
+
+
+@pytest.mark.parametrize("b,h,w,feat,k", [
+    (2, 32, 32, 8, 3),      # tiny level 0: 8-feature tiles, half a bf16 chunk
+    (1, 16, 16, 16, 3),     # tiny level 1: 16-feature tiles
+    (2, 9, 70, 24, 5),      # 8-feature tiles x 3, a ragged bf16 chunk, ragged frame
+    (1, 12, 64, 32, 5),     # 32-feature tiles (setmaxnreg)
+    (1, 6, 130, 96, 5),     # 3 column tiles, 6 / 12 chunks
+    (1, 10, 66, 64, 7),     # 7x7: a 2-stage ring in 3xTF32
+    (3, 5, 3, 16, 1),       # 1x1, narrower than a tile
+])
+@pytest.mark.parametrize("dt,sdt", [(torch.bfloat16, torch.bfloat16),
+                                    (torch.bfloat16, torch.float32),
+                                    (torch.float32, torch.float32),
+                                    (torch.float32, torch.bfloat16)])
+def test_narrow_level_matches_plain(cuda, b, h, w, feat, k, dt, sdt):
+    """The narrow route (bf16, or f32 as 3xTF32) against the plain version,
+    to K4's tolerances, both activations; counted there and nowhere else; the
+    pack handed in by a caller gives the same bits as the wrapper's own."""
+    ins = _level(cuda, b, h, w, feat, k, dt, sdt)
+    assert convlstm_cell.route(h, w, feat, k, b, dt) == "narrow"
+    for act in ("sigmoid", "hard_sigmoid"):
+        reset_counts()
+        got = convlstm_cell.fused_convlstm_level(*ins, act)
+        want = convlstm_cell.fused_convlstm_level_plain(*ins, act)
+        ran = counts()
+        assert ran["fused_convlstm_level_narrow"] == {"kernel": 1, "plain": 1}
+        assert all(ran[n] == {"kernel": 0, "plain": 0} for n in (
+            "fused_convlstm_level", "fused_convlstm_level_wgmma", "fused_convlstm_level_tf32x3"))
+        _tc_close(got, want, sdt, k, feat)
+    packed = convlstm_cell.pack_for_route(ins[3], "narrow")
+    kept = convlstm_cell.fused_convlstm_level(*ins, "sigmoid", packed)
+    for a_, b_ in zip(kept, convlstm_cell.fused_convlstm_level(*ins)):
+        assert torch.equal(a_, b_)
+
+
 def test_tf32x3_level_takes_the_cells_weight_view(cuda):
     gx, h, c, wh = _level(cuda, 1, 6, 64, 64, 5, torch.float32, torch.float32)
     view = wh.permute(3, 2, 0, 1).contiguous().permute(2, 3, 1, 0)
@@ -333,10 +381,11 @@ def test_tf32x3_level_takes_the_cells_weight_view(cuda):
 
 
 def test_fused_level_rejects_unsupported_shapes(cuda):
-    ins = _level(cuda, 1, 8, 8, 200, 5, torch.float32, torch.float32)  # neither route
+    # F % 8 != 0 and over the SIMT kernel's shared memory: no route
+    ins = _level(cuda, 1, 8, 8, 204, 5, torch.float32, torch.float32)
     with pytest.raises(ValueError, match="supported"):
         convlstm_cell.fused_convlstm_level(*ins)
-    ins = _level(cuda, 1, 8, 8, 128, 7, torch.bfloat16, torch.bfloat16)  # neither route
+    ins = _level(cuda, 1, 8, 8, 8, 9, torch.bfloat16, torch.bfloat16)  # 9x9: no route
     with pytest.raises(ValueError, match="supported"):
         convlstm_cell.fused_convlstm_level(*ins)
 
@@ -439,7 +488,8 @@ def test_golden_masks_on_the_card(cuda, tmp_path):
 
 def test_golden_masks_fused_f32_on_the_card(cuda, tmp_path):
     """With --fused_cell in f32 the tiny model's narrow levels (F = 8, 16)
-    take K4's SIMT route on every frame; the masks hold the golden bar."""
+    take K4's narrow route (3xTF32) on every frame, the SIMT kernel never;
+    the masks hold the golden bar."""
     seq_dir, _ = synthetic.write_ctc_dataset(str(tmp_path / "ctc"), num_frames=8,
                                              height=32, width=32, num_cells=3, seed=123)
     out = str(tmp_path / "res")
@@ -450,7 +500,8 @@ def test_golden_masks_fused_f32_on_the_card(cuda, tmp_path):
                   "--dtype", "float32", "--fused_cell"])
     ran = counts()
     assert all(v["plain"] == 0 for v in ran.values())
-    assert ran["fused_convlstm_level"]["kernel"] == 20 and ran["lstm_gate_update"]["kernel"] == 0
+    assert ran["fused_convlstm_level_narrow"]["kernel"] == 20
+    assert ran["fused_convlstm_level"]["kernel"] == ran["lstm_gate_update"]["kernel"] == 0
     golden = sorted(glob.glob(os.path.join(GOLDEN, "masks", "mask*.tif")))
     assert n == len(golden) == 8
     for p in golden:
@@ -535,11 +586,59 @@ def test_conv2d_int8_wgmma_smem_formula_matches_the_kernel(cuda):
                         == conv_int8.wgmma_smem_bytes(k, tn, xb))
 
 
+@pytest.mark.parametrize("b,h,w,cin,kh,kw,cout", [
+    (1, 64, 64, 1, 5, 5, 512),     # the flagship's level 0 x-conv, B = 1
+    (4, 64, 64, 1, 5, 5, 512),     # and B = 4 (TTA 'flip')
+    (2, 17, 70, 1, 5, 5, 512),     # ragged: a partial second tile of a row
+    (1, 32, 32, 8, 3, 3, 32),      # the tiny model's cin 8 sites
+    (2, 16, 16, 24, 3, 3, 8),      # the tiny decoder's cin 24
+    (1, 32, 32, 8, 1, 1, 3),       # the tiny head: rows of 6 / 12 bytes
+    (1, 9, 33, 28, 3, 3, 600),     # K at the limit (252 -> 256), 150 KB of weights
+    (1, 7, 20, 3, 1, 3, 20),       # non-square
+])
+def test_conv2d_int8_smallk_equals_plain(cuda, b, h, w, cin, kh, kw, cout):
+    from lstm_unet_tpu_torch.ops.kernels import conv_int8
+
+    g = torch.Generator(device=cuda).manual_seed(cin + cout)
+    kq = torch.randint(-127, 128, (cout, cin, kh, kw), device=cuda, generator=g,
+                       dtype=torch.int32).to(torch.int8)
+    assert conv_int8.weight_route(kq) == "smallk"
+    packed = conv_int8.pack_weight_smallk(kq)
+    w_scale = torch.rand(cout, device=cuda, generator=g) * 1e-3
+    x32 = torch.randn(b, h, w, cin, device=cuda, generator=g) * 3
+    x32[0, 0, 0, 0] = -0.0
+    for bias in (torch.randn(cout, device=cuda, generator=g), None):
+        for xdt in (torch.bfloat16, torch.float32):
+            x = x32.to(xdt)
+            for scale in (None, torch.tensor(2.5 / 127, device=cuda)):  # dynamic, static
+                for dt in (torch.float32, torch.bfloat16):
+                    args = (x, scale, packed, w_scale, bias, kh, kw, dt)
+                    reset_counts()
+                    got = conv_int8.conv2d_int8_smallk(*args)
+                    want = conv_int8.conv2d_int8_smallk_plain(*args)
+                    assert counts()["conv2d_int8_smallk"] == {"kernel": 1, "plain": 1}
+                    assert got.dtype == dt and torch.equal(got, want), (xdt, scale, dt)
+
+
+def test_conv2d_int8_smallk_smem_formula_matches_the_kernel(cuda):
+    from lstm_unet_tpu_torch.ops.kernels import _build, conv_int8
+
+    lib = _build.library()
+    for kh, kw, cin, cout in ((5, 5, 1, 512), (3, 3, 8, 32), (3, 3, 24, 8), (1, 1, 8, 3),
+                              (3, 3, 28, 600), (1, 3, 3, 20)):
+        for ob in (2, 4):
+            assert (lib.lut_conv2d_int8_smallk_smem(kh, kw, cin, cout, ob)
+                    == conv_int8.smallk_smem_bytes(kh, kw, cin, cout, ob)
+                    <= conv_int8.SMEM_LIMIT)
+    assert lib.lut_conv2d_int8_smallk_smem(3, 3, 29, 64, 2) == 0  # K 261 -> 288
+
+
 def test_int8_model_on_the_card_equals_cpu(cuda):
     """A tiny int8 model's logits on the card (both int8 kernels, K1, K4)
     against the CPU's (plain versions): the int8 convs agree bit for bit, the
     gate math's f32 sigmoid / tanh by an ulp, which a bf16 rounding can
-    carry. cin 1, 8 and 24 take the mma_sync kernel, cin 16 and 32 wgmma."""
+    carry. cin 1, 8 and 24 take the small-K kernel, cin 16 and 32 wgmma,
+    none the mma_sync kernel."""
     from lstm_unet_tpu_torch.models import quantize_model_int8
 
     for fused in (False, True):
@@ -554,7 +653,8 @@ def test_int8_model_on_the_card_equals_cpu(cuda):
             reset_counts()
             _, got = model.step(model.init_state(1, 32, 32), frame.to(cuda))
         ran = counts()
-        assert ran["conv2d_int8"] == {"kernel": 5 if fused else 6, "plain": 0}
+        assert ran["conv2d_int8_smallk"] == {"kernel": 5 if fused else 6, "plain": 0}
+        assert ran["conv2d_int8"] == {"kernel": 0, "plain": 0}
         assert ran["conv2d_int8_wgmma"] == {"kernel": 2 if fused else 3, "plain": 0}
         assert float((got.cpu() - want).abs().max() / want.abs().max()) < 2.0 ** -5
 

@@ -44,9 +44,10 @@ qmodel = ULSTMnet2D(ModelConfig.make(tiny_net_kernel_params(), dtype="bfloat16",
 quantize_model_int8(qmodel, float_dtype=torch.bfloat16)
 with torch.no_grad():
     state, logits = qmodel.step(qmodel.init_state(1, 16, 16), torch.rand(1, 16, 16, 1))
-# 9 int8 convs: cin 1, 8 and 24 on the mma_sync route, cin 16 and 32 on wgmma
+# 9 int8 convs: cin 1, 8 and 24 on the small-K route, cin 16 and 32 on wgmma
 assert logits.shape == (1, 16, 16, 3)
-assert (conv_int8.COUNT.plain, conv_int8.WGMMA_COUNT.plain) == (6, 3)
+assert (conv_int8.SMALLK_COUNT.plain, conv_int8.WGMMA_COUNT.plain) == (6, 3)
+assert conv_int8.COUNT.plain == 0
 step = make_train_step(model, ClippedAdam(dict(model.named_parameters()), 1e-3, 5.0), (1, 1, 1),
                        remat=True)
 ones = torch.ones(1, 2)
@@ -112,8 +113,8 @@ def test_build_dir_is_ignored_and_named_by_sources():
     assert os.path.dirname(path) == _build.BUILD_DIR == os.path.join(PORT, "build")
     assert path == _build.library_path()  # stable for an unchanged tree
     assert sorted(os.path.basename(p) for p in glob.glob(os.path.join(PORT, "csrc", "*.cu"))) \
-        == ["ccl.cu", "conv_int8.cu", "conv_int8_wgmma.cu", "convlstm_cell.cu",
-            "convlstm_wgmma.cu", "lstm_gates.cu"]
+        == ["ccl.cu", "conv_int8.cu", "conv_int8_smallk.cu", "conv_int8_wgmma.cu",
+            "convlstm_cell.cu", "convlstm_narrow.cu", "convlstm_wgmma.cu", "lstm_gates.cu"]
 
 
 def test_chip_smoke_alone_fails_and_prints_nothing(tmp_path):

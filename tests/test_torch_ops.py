@@ -222,7 +222,7 @@ def test_fused_level_plain_matches_interpreted_pallas():
 def test_convlstm_cell_matches_unfused_jax_cell(k, feat, hw, batch, fused):
     """The port's cell, fused (K4 plain) or not (convs + K1 plain), against
     the reference's unfused cell with the same weights. In f32 the fused cell
-    takes K4 at every level here: the narrow ones (F = 8, 16) on the SIMT
+    takes K4 at every level here: the narrow ones (F = 8, 16) on the narrow
     route, F = 128 and 256 on the 3xTF32 route; each counts its plain call."""
     r = np.random.default_rng(3)
     cin = 3
@@ -246,10 +246,11 @@ def test_convlstm_cell_matches_unfused_jax_cell(k, feat, hw, batch, fused):
     ran = counts()
     k4 = fused and convlstm_cell.supported(*hw, feat, k, k, batch)
     assert k4 == fused
-    name = ("fused_convlstm_level_tf32x3" if feat % 64 == 0 else "fused_convlstm_level")
+    name = ("fused_convlstm_level_tf32x3" if feat % 64 == 0 else "fused_convlstm_level_narrow")
     assert ran[name]["plain"] == int(k4)
     assert sum(ran[n]["plain"] for n in ("fused_convlstm_level", "fused_convlstm_level_wgmma",
-                                         "fused_convlstm_level_tf32x3")) == int(k4)
+                                         "fused_convlstm_level_tf32x3",
+                                         "fused_convlstm_level_narrow")) == int(k4)
     assert ran["lstm_gate_update"]["plain"] == int(not k4)
     assert out is th
     np.testing.assert_allclose(th.numpy(), np.asarray(jh), atol=2e-5)
@@ -289,29 +290,33 @@ def test_fused_supported_limits():
     assert convlstm_cell.supported(32, 32, 8, 3, 3, 1)          # tiny levels
     assert convlstm_cell.supported(16, 16, 16, 3, 3, 4)
     assert convlstm_cell.supported(256, 256, 256, 5, 5, 1)      # f32: 3xTF32
-    assert not convlstm_cell.supported(64, 64, 200, 5, 5, 1)    # f32: SIMT smem budget
-    assert convlstm_cell.supported(64, 64, 160, 5, 5, 1)        # F % 64 != 0: SIMT
+    assert not convlstm_cell.supported(64, 64, 204, 5, 5, 1)    # F % 8 != 0: SIMT smem budget
+    assert convlstm_cell.supported(64, 64, 200, 5, 5, 1)        # F % 64 != 0: narrow
+    assert convlstm_cell.supported(64, 64, 160, 5, 5, 1)        # F % 64 != 0: narrow
+    assert convlstm_cell.supported(64, 64, 20, 5, 5, 1)         # F % 8 != 0: SIMT
     assert convlstm_cell.supported(256, 256, 256, 5, 5, 1, torch.bfloat16)  # tensor cores
     assert not convlstm_cell.supported(64, 64, 8, 4, 4, 1)      # even kernel
     assert not convlstm_cell.supported(64, 64, 8, 3, 5, 1)      # not square
-    assert not convlstm_cell.supported(64, 64, 128, 7, 7, 1, torch.bfloat16)  # neither
+    assert convlstm_cell.supported(64, 64, 128, 7, 7, 1, torch.bfloat16)  # 7x7: narrow
+    assert not convlstm_cell.supported(64, 64, 8, 9, 9, 1)      # 9x9: none
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_fused_route_table(dtype):
     """Which K4 kernel takes each ConvLSTM level: the flagship's four on the
     tensor cores (bf16 as bf16, f32 as 3xTF32); the tiny model's narrow
-    levels on the SIMT kernel in both dtypes."""
+    levels on the narrow tensor-core route in both dtypes."""
     bf16 = dtype == torch.bfloat16
     want = {"flagship": ["wgmma" if bf16 else "tf32x3"] * 4,
-            "tiny": ["simt", "simt"]}
+            "tiny": ["narrow", "narrow"]}
     for name, nkp, hw in (("flagship", default_net_kernel_params(), 512),
                           ("tiny", tiny_net_kernel_params(), 32)):
         got = [convlstm_cell.route(hw >> lvl, hw >> lvl, f, k, 1, dtype)
                for lvl, ((k, f),) in enumerate(nkp.lstm_kernels)]
         assert got == want[name], name
     assert convlstm_cell.route(9, 70, 128, 5, 2, dtype) == ("wgmma" if bf16 else "tf32x3")
-    assert convlstm_cell.route(9, 70, 16, 7, 2, dtype) == "simt"
+    assert convlstm_cell.route(9, 70, 16, 7, 2, dtype) == "narrow"
+    assert convlstm_cell.route(9, 70, 12, 7, 2, dtype) == "simt"
     assert convlstm_cell.route(0, 70, 128, 5, 2, dtype) is None
 
 

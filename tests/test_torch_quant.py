@@ -59,15 +59,16 @@ def _j(t):
         jnp.bfloat16 if t.dtype == torch.bfloat16 else jnp.float32)
 
 
-# int8 convs a frame of the tiny model by route, (mma_sync, wgmma), fused cell
-# off and on: cin 1, 8 and 24 take the mma_sync kernel, cin 16 and 32 the
-# wgmma kernel (kernels/conv_int8.py::route)
+# int8 convs a frame of the tiny model by route, (small-K, wgmma), fused cell
+# off and on: cin 1, 8 and 24 take the small-K kernel, cin 16 and 32 the
+# wgmma kernel (kernels/conv_int8.py::route); none the mma_sync kernel
 TINY_INT8_CONVS = {False: (6, 3), True: (5, 2)}
 
 
 def _int8_plain():
     ran = counts()
-    return ran["conv2d_int8"]["plain"], ran["conv2d_int8_wgmma"]["plain"]
+    assert ran["conv2d_int8"]["plain"] == 0
+    return ran["conv2d_int8_smallk"]["plain"], ran["conv2d_int8_wgmma"]["plain"]
 
 
 # ---------------------------------------------------------------- weights, acts
@@ -165,8 +166,8 @@ def test_conv2d_q_pair_equal(static):
         got = quant.conv2d_q_pair(_t(a, dt), _t(b, dt), weight, quant._scale_of(scales, "d.a"),
                                   quant._scale_of(scales, "d.b"), dt)
         np.testing.assert_array_equal(got.float().numpy(), want)
-    # two launches a pair: a (cin 16) on the wgmma route, b (cin 8) on mma_sync
-    assert counts()["conv2d_int8"] == {"kernel": 0, "plain": 2}
+    # two launches a pair: a (cin 16) on the wgmma route, b (cin 8) on small-K
+    assert counts()["conv2d_int8_smallk"] == {"kernel": 0, "plain": 2}
     assert counts()["conv2d_int8_wgmma"] == {"kernel": 0, "plain": 2}
 
 
@@ -398,7 +399,8 @@ def test_streamed_int8_frames_match_reference(fused, scales, monkeypatch):
     ref, ours = _stream(qparams, jcfg, model, frames, monkeypatch)
     ran = counts()
     assert _int8_plain() == tuple(3 * n for n in TINY_INT8_CONVS[fused])
-    assert ran["fused_convlstm_level"]["plain"] == (6 if fused else 0)
+    assert ran["fused_convlstm_level_narrow"]["plain"] == (6 if fused else 0)
+    assert ran["fused_convlstm_level"]["plain"] == 0
     assert ran["lstm_gate_update"]["plain"] == (0 if fused else 6)
     gap = np.abs(ours - ref).max() / np.abs(ref).max()
     assert gap < FRAME_BAR, gap
@@ -409,7 +411,7 @@ def test_split_skip_convs_int8_matches_reference(monkeypatch):
     qparams, jcfg, model, _ = _pair(split=True)
     reset_counts()
     ref, ours = _stream(qparams, jcfg, model, frames, monkeypatch)
-    # each decoder first conv: 2 (decoder 0's skip operand, cin 8, on mma_sync)
+    # each decoder first conv: 2 (decoder 0's skip operand, cin 8, on small-K)
     assert _int8_plain() == (2 * 6, 2 * 5)
     assert np.abs(ours - ref).max() / np.abs(ref).max() < FRAME_BAR
     # and the pair changes the int8 math against the concat conv
@@ -564,7 +566,7 @@ def test_cli_int8_keep_float_and_recipe(tmp_path):
                   "--pre_sequence_frames", "2", "--min_cell_size", "5", "--recipe", str(recipe)])
     assert n == 8
     # encoder/0 (x-conv, h-conv, conv) and the head stay float: 9 - 4 int8 convs
-    # (encoder/1's x-conv and decoder/0's conv on mma_sync)
+    # (encoder/1's x-conv and decoder/0's conv on small-K)
     assert _int8_plain() == (10 * 2, 10 * 3)
     recipe.write_text(json.dumps({"mesh_shape": {"data": 2}}))
     with pytest.raises(NotImplementedError, match="mesh_shape"):
