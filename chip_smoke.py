@@ -108,6 +108,20 @@ Phases, each of which raises (exit != 0) when it fails:
      the bf16 run of (g) (steps 4, 5) and ``inference2d`` from the soup;
      ``import_tf`` of phase e's flagship weights exported as a TF bundle,
      bit-equal.
+  m. (counted from 0 on the ranks) the meshes: two ranks on the one card
+     over gloo (``parallel.run_ranks``, the kernels built here first), each
+     part held to the same card's single-process run: m1 the golden
+     sequence through ``inference2d`` with a {"spatial": 2} recipe, f32 fused
+     and int8, 0 px; m2 the flagship at 512^2, B = 1, {"spatial": 2}, bf16
+     fused (K4 wgmma on blocks of 256 + 4 .. 32 + 4 rows) and int8 unfused
+     (dynamic scales all-reduced): one frame's logits (bf16 within K4's
+     tolerance, int8 equal), the heights each kernel ran at, the launches
+     by route and the steady ms/frame beside the single process (2 ranks on
+     one card: not a scaling figure); m3 4 int8 lanes through
+     ``run_inference_batched`` under {"data": 2}, 0 px, rank 0 alone writing;
+     m4 flagship training B4 T7 256^2 f32, 3 steps, under {"data": 2} and
+     {"spatial": 2}: losses within rtol 2e-4, K1 and K2 launched, rank 1
+     writing nothing.
 The last two lines are a JSON kernel summary (K3's two routes as ``ccl`` and
 ``ccl_grid``; ``conv2d_int8_wgmma`` summed over the 24 convs of one unfused
 int8 frame it takes, with each shape beside; ``conv2d_int8_smallk`` at the
@@ -1878,17 +1892,22 @@ def phase_golden_surface(torch, work):
             f"(bar: {max_px} px, equal instance counts)")
 
 
-def step_ms(torch, model, ip, frames, lanes=1, warm=2):
+def step_ms(torch, model, ip, frames, lanes=1, warm=2, device="cuda"):
     """Median host ms of one engine step (it ends in copying the labels to
-    the host) over ``lanes`` lanes, each frame of ``frames`` stacked
-    ``lanes`` times, after ``warm`` steps."""
+    the host; on a rank of a mesh that gets none, in a synchronize) over
+    ``lanes`` lanes, each frame of ``frames`` stacked ``lanes`` times, after
+    ``warm`` steps."""
     from lstm_unet_tpu_torch.engine.infer import StreamingInferenceEngine
 
-    eng = StreamingInferenceEngine(model, ip, "cuda")
+    eng = StreamingInferenceEngine(model, ip, device)
     times = []
     for i, f in enumerate(frames):
         t0 = time.perf_counter()
-        eng.step_batch_async(np.stack([f] * lanes))[0].cpu()
+        labels = eng.step_batch_async(np.stack([f] * lanes))[0]
+        if labels is None:
+            torch.cuda.synchronize()
+        else:
+            labels.cpu()
         if i >= warm:
             times.append((time.perf_counter() - t0) * 1e3)
     return float(np.median(times))
@@ -2084,6 +2103,315 @@ def phase_sweep(torch, work, card, run_dir):
         f"s): bit-equal")
 
 
+# ---------------------------------------------------------------- phase m
+
+MESH_RANKS = 2
+MESH_TIMEOUT_S = 600.0
+M2_FRAMES = 8  # frames of the flagship sequence timed in m2 (2 warm-up)
+
+
+def record_writes(root, into):
+    """An audit hook: every file this process opens for writing, and every
+    directory it makes or file it renames or removes, under ``root``."""
+    root = os.path.realpath(root)
+    events = ("os.mkdir", "os.rename", "os.remove", "os.rmdir", "shutil.rmtree")
+
+    def hook(event, args):
+        if event == "open":
+            path, mode, flags = args
+            writes = (any(c in mode for c in "wax+") if isinstance(mode, str)
+                      else bool(flags & (os.O_WRONLY | os.O_RDWR | os.O_CREAT)))
+        elif event in events:
+            path, writes = args[0], True
+        else:
+            return
+        if writes and isinstance(path, (str, bytes, os.PathLike)) and os.path.realpath(
+                os.fsdecode(path)).startswith(root):
+            into.append((event, os.fsdecode(path)))
+
+    sys.addaudithook(hook)
+
+
+def m2_models(torch):
+    """m2's two cases: (tag, model, InferenceParams kwargs)."""
+    return (("bf16 fused", flagship_model(torch, "bfloat16", True),
+             dict(dtype="bfloat16", fused_cell=True)),
+            ("int8 unfused", flagship_int8_model(torch, False),
+             dict(dtype="int8", fused_cell=False)))
+
+
+def m2_logits(torch, engine, frame):
+    """One step of ``engine``'s model from a zero state on ``frame`` [1, H, W,
+    1] (a rank's rows of it under the engine's split), the whole logits."""
+    model, split = engine.model, engine.model.split
+    b, h, w = 1, frame.shape[1], frame.shape[2]
+    with torch.inference_mode():
+        if split is None:
+            return model.step(model.init_state(b, h, w), frame)[1]
+        x = split.take(frame, 0, 1).contiguous()
+        _, logits = model.step(model.init_state(*split.block(b, h), w), x)
+        return split.gather(logits, lane_dim=0, row_dim=1)
+
+
+def m4_args(root, save_root, mesh, device):
+    return ["--device", device, "--root_data_dir", root,
+            "--train_sequence_list", "Synth-N2DH-SIM:01", "--crop_size", "256", "256",
+            "--batch_size", "4", "--unroll_len", "7", "--dtype", "float32",
+            "--num_iterations", "3", "--print_to_console_interval", "1",
+            "--validation_interval", str(10 ** 9), "--save_checkpoint_iteration", str(10 ** 9),
+            "--root_save_dir", save_root, "--experiment_name", "mesh",
+            *(["--mesh_shape", json.dumps(mesh)] if mesh else [])]
+
+
+def block_heights(model, height, spatial):
+    """The heights of the halo-extended blocks K4 and the 5x5 int8 convs
+    see at each encoder level: a rank's rows plus ``k // 2`` rows of each
+    neighbour."""
+    nkp = model.cfg.nkp
+    return sorted({height // spatial // 2 ** lvl + 2 * (k // 2)
+                   for lvl, cells in enumerate(nkp.lstm_kernels) for k, _ in cells})
+
+
+def mesh_rank(rank, device, work, frames_dir, m3_seqs):
+    """One of phase m's two ranks on one card (over gloo): m1-m4, each on
+    the port's entry points; returns what the parent checks, and this
+    rank's kernel launches (counted from 0 here)."""
+    import torch
+
+    from lstm_unet_tpu_torch.cli.inference2d import main as infer_main
+    from lstm_unet_tpu_torch.cli.train2d import main as train_main
+    from lstm_unet_tpu_torch.config import InferenceParams
+    from lstm_unet_tpu_torch.engine.infer import StreamingInferenceEngine, run_inference_batched
+    from lstm_unet_tpu_torch.io.dataset import CTCInferenceReader
+    from lstm_unet_tpu_torch.ops import convlstm, kernels, quant
+
+    kernels.reset_counts()
+    out = {}
+    # m1: the golden sequence through the CLI with a {"spatial": 2} recipe
+    recipe = os.path.join(work, "mesh_spatial.json")
+    seq = os.path.join(work, "golden", "Synth-N2DH-SIM", "01")
+    for tag, extra in (("f32_fused", ["--dtype", "float32", "--fused_cell"]),
+                       ("int8", ["--dtype", "int8"])):
+        out[f"m1_{tag}"] = infer_main([
+            "--model_path", os.path.join(GOLDEN, "torch_ckpt"), "--sequence_path", seq,
+            "--output_path", os.path.join(work, f"m1_{tag}_rank{rank}"), "--device",
+            str(device), "--pre_sequence_frames", "2", "--min_cell_size", "5",
+            "--recipe", recipe, *extra])
+
+    # m2: the flagship at 512^2, B = 1, {"spatial": 2}: logits of one frame,
+    # the heights K4 and the int8 convs ran at, steady ms/frame
+    heights = {"k4": set(), "int8": set()}
+    wrapped = {}
+
+    def recording(mod, name, key):
+        fn = wrapped[(mod, name)] = getattr(mod, name)
+
+        def rec(*args, **kw):
+            t = args[1] if key == "k4" else args[0]  # K4's h, the int8 conv's x
+            heights[key].add(int(t.shape[1]))
+            return fn(*args, **kw)
+
+        setattr(mod, name, rec)
+
+    recording(convlstm, "fused_convlstm_level", "k4")
+    recording(quant, "conv2d_int8_wgmma", "int8")
+    recording(quant, "conv2d_int8_smallk", "int8")
+    frames = [f for _, f in CTCInferenceReader(frames_dir, pre_sequence_frames=0,
+                                               normalize=False)][:M2_FRAMES]
+    frame = torch.rand(1, 512, 512, 1, device=device,
+                       generator=torch.Generator(device=device).manual_seed(2))
+    try:
+        for tag, model, kw in m2_models(torch):
+            ip = InferenceParams(mesh_shape={"spatial": 2}, **kw)
+            before = kernels.counts()
+            engine = StreamingInferenceEngine(model, ip, device)
+            engine.process_frame(frames[0])  # builds the split
+            out[f"m2_{tag}_logits"] = m2_logits(torch, engine, frame).float().cpu().numpy()
+            out[f"m2_{tag}_ms"] = step_ms(torch, model, ip, frames, device=device)
+            after = kernels.counts()
+            out[f"m2_{tag}_launches"] = {k: after[k]["kernel"] - before[k]["kernel"]
+                                         for k in after if after[k]["kernel"] > before[k]["kernel"]}
+            out["m2_want_heights"] = block_heights(model, 512, 2)
+            del engine, model
+    finally:
+        for (mod, name), fn in wrapped.items():
+            setattr(mod, name, fn)
+    out["m2_heights"] = {k: sorted(v) for k, v in heights.items()}
+
+    # m3: 4 lanes of the int8 flagship, {"data": 2}
+    out["m3_n"] = run_inference_batched(
+        InferenceParams(dtype="int8", pre_sequence_frames=1, mesh_shape={"data": 2}), m3_seqs,
+        [os.path.join(work, f"m3_rank{rank}", str(i)) for i in range(len(m3_seqs))],
+        device=device, model=flagship_int8_model(torch, False))
+    torch.cuda.empty_cache()
+
+    # m4: flagship training, {"data": 2} then {"spatial": 2}; rank 1's writes
+    writes = []
+    runs = os.path.join(work, "m4_runs")
+    if rank == 1:
+        record_writes(runs, writes)
+    for tag, mesh in (("data", {"data": 2}), ("spatial", {"spatial": 2})):
+        before = kernels.counts()
+        trainer = train_main(m4_args(os.path.join(work, "train_data"),
+                                     os.path.join(runs, tag), mesh, str(device)))
+        torch.cuda.synchronize()
+        after = kernels.counts()
+        out[f"m4_{tag}_losses"] = [h["loss"] for h in trainer.history]
+        out[f"m4_{tag}_split"] = (trainer.model.split.lanes, trainer.model.split.rows)
+        out[f"m4_{tag}_k1k2"] = tuple(after[k]["kernel"] - before[k]["kernel"]
+                                      for k in ("lstm_gate_update", "lstm_gate_update_bwd"))
+        out[f"m4_{tag}_save_dir"] = trainer.p.experiment_save_dir
+        del trainer
+        torch.cuda.empty_cache()
+    out["m4_writes"] = writes
+    out["counts"] = kernels.counts()
+    return out
+
+
+def phase_mesh(torch, work, card, launched, device="cuda"):
+    """(m): two ranks on the one card over gloo (``parallel.run_ranks``),
+    each phase held to the same card's single-process run: m1 the golden
+    sequence through ``inference2d`` with a {"spatial": 2} recipe, f32 fused
+    and int8, 0 px from phases d and d2's runs; m2 the flagship at 512^2, B
+    = 1, {"spatial": 2}, bf16 fused (K4 wgmma on blocks of 256 + 4, 128 + 4,
+    64 + 4, 32 + 4 rows) and int8 unfused (dynamic scales all-reduced): the
+    logits of one frame (bf16 within K4's tolerance, int8 equal), the heights
+    each kernel ran at, steady ms/frame; m3 ``run_inference_batched`` with 4
+    int8 lanes under {"data": 2}: masks 0 px from the single-process run,
+    written by rank 0 alone; m4 flagship training B4 T7 256^2 f32, 3 steps,
+    under {"data": 2} and {"spatial": 2}: losses within rtol 2e-4 of the
+    single-process run, K1 and K2 launched, rank 1 writing nothing. Adds the
+    ranks' launches to ``launched``."""
+    from lstm_unet_tpu_torch.cli.train2d import main as train_main
+    from lstm_unet_tpu_torch.config import InferenceParams
+    from lstm_unet_tpu_torch.engine.infer import StreamingInferenceEngine, run_inference_batched
+    from lstm_unet_tpu_torch.io.dataset import CTCInferenceReader
+    from lstm_unet_tpu_torch.io.synthetic import write_ctc_dataset
+    from lstm_unet_tpu_torch.parallel import run_ranks
+
+    t_phase = time.perf_counter()
+    with open(os.path.join(work, "mesh_spatial.json"), "w") as f:
+        json.dump({"mesh_shape": {"spatial": 2}}, f)
+    frames_dir = os.path.join(work, "flagship", "Synth-N2DH-SIM", "01")
+    m3_seqs = [write_ctc_dataset(os.path.join(work, "m3_data"), seq=f"0{i}", num_frames=4,
+                                 height=512, width=512, num_cells=40, seed=30 + i)[0]
+               for i in range(1, 5)]
+    # the single-process runs on this card (m1's are phases d and d2's)
+    single = {}
+    frames = [f for _, f in CTCInferenceReader(frames_dir, pre_sequence_frames=0,
+                                               normalize=False)][:M2_FRAMES]
+    frame = torch.rand(1, 512, 512, 1, device=device,
+                       generator=torch.Generator(device=device).manual_seed(2))
+    for tag, model, kw in m2_models(torch):
+        ip = InferenceParams(**kw)
+        engine = StreamingInferenceEngine(model, ip, device)
+        engine.process_frame(frames[0])
+        single[f"m2_{tag}_logits"] = m2_logits(torch, engine, frame).float().cpu().numpy()
+        single[f"m2_{tag}_ms"] = step_ms(torch, model, ip, frames, device=device)
+        del engine, model
+    single["m3_n"] = run_inference_batched(
+        InferenceParams(dtype="int8", pre_sequence_frames=1), m3_seqs,
+        [os.path.join(work, "m3_single", str(i)) for i in range(len(m3_seqs))],
+        device=device, model=flagship_int8_model(torch, False))
+    trainer = train_main(m4_args(os.path.join(work, "train_data"),
+                                 os.path.join(work, "m4_single"), None, device))
+    single["m4_losses"] = [h["loss"] for h in trainer.history]
+    del trainer
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t_ranks = time.perf_counter()
+    ranks = run_ranks(mesh_rank, MESH_RANKS, (work, frames_dir, m3_seqs),
+                      device="cuda:0" if device == "cuda" else device, timeout_s=MESH_TIMEOUT_S,
+                      work_dir=work)
+    secs = time.perf_counter() - t_ranks
+    r0, r1 = ranks
+
+    # m1: 0 px from the single-process runs of phases d and d2
+    for tag, want in (("f32_fused", "golden_res_1"), ("int8", "golden_int8_dynamic_cuda")):
+        if r0[f"m1_{tag}"] != GOLDEN_DATA["num_frames"] or r1[f"m1_{tag}"] != 0:
+            raise AssertionError(f"m1 {tag}: masks written {r0[f'm1_{tag}']}, {r1[f'm1_{tag}']}")
+        diffs = compare_dirs(f"m1 {tag}", os.path.join(work, f"m1_{tag}_rank0"),
+                             os.path.join(work, want), 0)
+        if os.path.exists(os.path.join(work, f"m1_{tag}_rank1")):
+            raise AssertionError(f"m1 {tag}: rank 1 wrote its output dir")
+        log(f"m1 golden {tag} under {{'spatial': 2}}: differing px per frame against the "
+            f"single-process run {diffs} (bar: 0 px)")
+
+    # m2: logits, heights, launches by route, ms/frame
+    for tag in ("bf16 fused", "int8 unfused"):
+        want = single[f"m2_{tag}_logits"]
+        for r in ranks:
+            got = r[f"m2_{tag}_logits"]
+            if tag.startswith("int8"):
+                if not np.array_equal(got, want):
+                    raise AssertionError(f"m2 int8: logits differ from the single-process run "
+                                         f"by {np.abs(got - want).max()}")
+                err = 0.0
+            else:
+                atol, rtol = k4_tolerance(torch, 5, 512, torch.bfloat16)
+                err = float(np.abs(got - want).max())
+                bad = np.abs(got - want) > atol + rtol * np.abs(want)
+                if bad.any():
+                    raise AssertionError(f"m2 bf16: {int(bad.sum())} logits outside atol={atol} "
+                                         f"rtol={rtol} of the single-process run, max err {err}")
+        log(f"m2 flagship 512^2 {tag} under {{'spatial': 2}}: logits max |diff| {err:.3g} "
+            f"against the single-process run; rank 0's launches over {M2_FRAMES + 1} frames "
+            f"{r0[f'm2_{tag}_launches']}, rank 1's {r1[f'm2_{tag}_launches']}; steady "
+            f"{r0[f'm2_{tag}_ms']:.3f} ms/frame on 2 ranks on one card, not a scaling figure "
+            f"(single process {single[f'm2_{tag}_ms']:.3f}) [{card}]")
+    want = set(r0["m2_want_heights"])
+    for key in ("k4", "int8"):
+        got = set(r0["m2_heights"][key])
+        if not want <= got:
+            raise AssertionError(f"m2: {key} ran at heights {sorted(got)}, not on every "
+                                 f"halo-extended block {sorted(want)}")
+    log(f"m2 block heights: K4 {r0['m2_heights']['k4']}, int8 convs "
+        f"{r0['m2_heights']['int8']} (blocks of 256, 128, 64, 32 rows + 2 * halo)")
+
+    # m3: 0 px, rank 0 alone writes
+    if (r0["m3_n"], r1["m3_n"]) != (single["m3_n"], 0) or single["m3_n"] != 16:
+        raise AssertionError(f"m3: masks {r0['m3_n']}, {r1['m3_n']}, single {single['m3_n']}")
+    if os.path.exists(os.path.join(work, "m3_rank1")):
+        raise AssertionError("m3: rank 1 wrote its output dir")
+    diffs = [compare_dirs(f"m3 lane {i}", os.path.join(work, "m3_rank0", str(i)),
+                          os.path.join(work, "m3_single", str(i)), 0) for i in range(4)]
+    log(f"m3 int8 flagship 4 lanes under {{'data': 2}}: differing px per lane and frame "
+        f"{diffs} (bar: 0 px); rank 1 wrote nothing")
+
+    # m4: losses, K1 and K2, rank 1's writes
+    for tag, split in (("data", (True, False)), ("spatial", (False, True))):
+        for r in ranks:
+            got = r[f"m4_{tag}_losses"]
+            if r[f"m4_{tag}_split"] != split or len(got) != 3 or not np.allclose(
+                    got, single["m4_losses"], rtol=2e-4, atol=0):
+                raise AssertionError(f"m4 {tag}: split {r[f'm4_{tag}_split']}, losses {got} "
+                                     f"against {single['m4_losses']} (rtol 2e-4)")
+            if min(r[f"m4_{tag}_k1k2"]) == 0:
+                raise AssertionError(f"m4 {tag}: K1, K2 launches {r[f'm4_{tag}_k1k2']}")
+        saved = sorted(os.listdir(r0[f"m4_{tag}_save_dir"]))
+        if "3" not in saved:
+            raise AssertionError(f"m4 {tag}: rank 0 saved {saved}")
+        log(f"m4 flagship B4 T7 256^2 f32 under {{'{tag}': 2}}: losses "
+            f"{[round(v, 6) for v in r0[f'm4_{tag}_losses']]} against the single-process "
+            f"{[round(v, 6) for v in single['m4_losses']]} (rtol 2e-4); K1, K2 per rank "
+            f"{[r[f'm4_{tag}_k1k2'] for r in ranks]}; rank 0 saved {saved}")
+    if r1["m4_writes"]:
+        raise AssertionError(f"m4: rank 1 wrote {r1['m4_writes'][:5]}")
+
+    for r in ranks:
+        if any(v["plain"] for v in r["counts"].values()):
+            raise AssertionError(f"phase m: plain versions ran on a rank: {r['counts']}")
+        add_counts(launched, r["counts"])
+    ran = {k: r0["counts"][k]["kernel"] + r1["counts"][k]["kernel"] for k in r0["counts"]}
+    for k in ("lstm_gate_update", "lstm_gate_update_bwd", "ccl", "fused_convlstm_level_wgmma",
+              "fused_convlstm_level_narrow", "conv2d_int8_wgmma", "conv2d_int8_smallk"):
+        if ran[k] == 0:
+            raise AssertionError(f"phase m: {k} never launched: {ran}")
+    log(f"phase m: 2 ranks on one card over gloo, {secs:.1f} s for the ranks "
+        f"({time.perf_counter() - t_phase:.1f} s with the single-process runs); launches "
+        f"over both ranks {ran}; rank 1 wrote nothing")
+
+
 def main() -> int:
     try:
         import torch
@@ -2210,6 +2538,8 @@ def main() -> int:
         if any(v["plain"] for v in sweep.values()):
             raise AssertionError(f"sweep path: plain versions ran: {sweep}")
         add_counts(launched, sweep)
+        # (m): the meshes, two ranks sharing the card, counted from 0 on the ranks
+        phase_mesh(torch, work, smi, launched)
     phase_train_vs_plain(torch)
     # the kernels the narrow K4 and the small-K int8 routes replaced are held
     # against their plain versions and timed in (c) and (c3), and no main

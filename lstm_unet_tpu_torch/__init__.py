@@ -15,6 +15,7 @@ its JAX counterpart:
 - ``metrics``    — SEG and DET scores (numpy)
 - ``checkpoint`` — the JAX param tree <-> ``state_dict`` bridge, checkpoints
 - ``engine``     — streaming inference, the train step and the trainer
+- ``parallel``   — process groups, the 'data' / 'spatial' mesh, halo exchange
 - ``cli``        — ``python -m lstm_unet_tpu_torch.cli.{inference2d,train2d,
                    ctc_sweep,ctc_score,ckpt_avg,import_tf}``
 """

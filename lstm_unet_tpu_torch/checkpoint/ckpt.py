@@ -63,12 +63,15 @@ def _load_npz(path: str) -> Dict[str, np.ndarray]:
 
 
 class CheckpointManager:
-    """Save and restore ``(params, opt_state, step)`` as flat numpy dicts."""
+    """Save and restore ``(params, opt_state, step)`` as flat numpy dicts.
+    ``create=False`` (the ranks of a multi-process run that do not write)
+    reads the directory and does not make it."""
 
-    def __init__(self, directory: str, max_to_keep: int = 5):
+    def __init__(self, directory: str, max_to_keep: int = 5, create: bool = True):
         self.directory = os.path.abspath(directory)
         self.max_to_keep = max_to_keep
-        os.makedirs(self.directory, exist_ok=True)
+        if create:
+            os.makedirs(self.directory, exist_ok=True)
 
     def save(self, step: int, params: Dict[str, np.ndarray],
              opt_state: Optional[Dict[str, np.ndarray]]) -> str:

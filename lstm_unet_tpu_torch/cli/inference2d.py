@@ -7,13 +7,19 @@ runs the convs as int8 (dynamic scales, or the calibrated ones of
 them on the sequence's first N frames, on the same device;
 ``--int8_keep_float`` keeps sites float. ``--tta`` averages the flip
 (``--tta_mode d4``: the dihedral) variants of each frame; ``--reset_on_jump X``
-zeroes the LSTM state at a scene cut. Flags of features not ported are
-accepted by the parser and raise ``NotImplementedError`` naming where
-``ROADMAP.md`` tracks them.
+zeroes the LSTM state at a scene cut. A recipe's ``mesh_shape`` (``{"data":
+N}``, ``{"data": N, "spatial": M}``) splits the stream over the ranks of a
+multi-process run, as the reference reads it from the recipe; ``--device
+cuda`` is then each rank's own card (``cuda:LOCAL_RANK``, over nccl), a
+named card (``cuda:0``) one that the ranks share (over gloo). Flags of
+features not ported are accepted by the parser and raise
+``NotImplementedError`` naming where ``ROADMAP.md`` tracks them.
 
 Usage:
     python -m lstm_unet_tpu_torch.cli.inference2d --model_path MODEL_DIR \
         --sequence_path data/Fluo-N2DH-SIM+/01 --output_path out/01_RES
+    torchrun --nproc_per_node 2 -m lstm_unet_tpu_torch.cli.inference2d ... \
+        --recipe mesh.json      # {"mesh_shape": {"spatial": 2}}
 """
 
 from __future__ import annotations
@@ -23,8 +29,9 @@ import dataclasses
 
 from ..config import InferenceParams, load_recipe
 from ..engine.infer import calibrate_model_dir, run_inference
+from ..parallel.distributed import barrier, initialize, is_writer, world_size
+from ..parallel.mesh import mesh_layout
 
-_MESH = "ROADMAP.md queue 1 item 12 (parallelism)"
 _TPU_ONLY = "ROADMAP.md 'Do not port' (a TPU lowering or layout knob)"
 
 # flag -> where the roadmap tracks it; given on the command line, each raises
@@ -116,17 +123,18 @@ def main(argv=None) -> int:
             if rec.get(key, off) != off:
                 raise NotImplementedError(
                     f"recipe key {key}={rec[key]!r} is not ported yet: {where}")
-        # a mesh of one data shard is no mesh, as the trainer reads it
-        if dict(rec.get("mesh_shape") or {}) not in ({}, {"data": 1}):
-            raise NotImplementedError(
-                f"recipe key mesh_shape={rec['mesh_shape']!r} is not ported yet: {_MESH}")
         known = {f.name for f in dataclasses.fields(params)}
         params.override(**{k: v for k, v in rec.items() if k in known})
     params.override(**args)
-    if calibrate:
-        calibrate_model_dir(params.model_path, params.sequence_path, n_frames=calibrate,
-                            filename_format=params.filename_format,
-                            step=params.ckpt_step or None, device=device)
+    device = initialize(device)
+    if params.mesh_shape:  # refuse a mesh the run cannot hold before loading anything
+        mesh_layout(params.mesh_shape, world_size())
+    if calibrate:  # rank 0 writes act_scales.json; every rank then reads it
+        if is_writer():
+            calibrate_model_dir(params.model_path, params.sequence_path, n_frames=calibrate,
+                                filename_format=params.filename_format,
+                                step=params.ckpt_step or None, device=device)
+        barrier()
     return run_inference(params, device=device)
 
 

@@ -4,13 +4,19 @@ Same flags as ``python -m lstm_unet_tpu.cli.train2d``, plus ``--device``
 (default ``cuda``; ``cpu`` runs the plain PyTorch path; ``cuda`` without a
 GPU raises). Every flag maps onto the :class:`CTCParams` knob of its name;
 knobs without a flag (``elastic_augmentation``, ``spike_warmup``, ...) come
-from ``--recipe``, as in the reference. The flags of the mesh and of the
+from ``--recipe``, as in the reference. ``--mesh_shape`` (``'{"data": N}'``,
+``'{"data": N, "spatial": M}'``) trains over the ranks of a multi-process
+run; ``--device cuda`` is then each rank's own card (``cuda:LOCAL_RANK``,
+over nccl), a named card (``cuda:0``) one that the ranks share (over
+gloo), and rank 0 alone writes the run's files. The flags of the
 reference's TPU workarounds are accepted by the parser and raise
 ``NotImplementedError`` naming where ``ROADMAP.md`` tracks them.
 
 Usage:
     python -m lstm_unet_tpu_torch.cli.train2d --root_data_dir ./data \\
         --train_sequence_list Fluo-N2DH-SIM+:01 --num_iterations 10000
+    torchrun --nproc_per_node 2 -m lstm_unet_tpu_torch.cli.train2d --device cpu \\
+        --mesh_shape '{"data": 2}' ...
 """
 
 from __future__ import annotations
@@ -20,14 +26,14 @@ import json
 
 from ..config import CTCParams, NetKernelParams, load_recipe
 from ..engine.train import Trainer
+from ..parallel.distributed import initialize
 from ..utils import log_print
 
-_MESH = "ROADMAP.md queue 1 item 12 (parallelism)"
 _TPU_ONLY = "ROADMAP.md 'Do not port' (a workaround of the TPU or its client)"
 
 # flag -> where the roadmap tracks it; given on the command line, each raises
 _UNPORTED_FLAGS = {
-    "mesh_shape": _MESH, "conv_method": _TPU_ONLY, "entry_layouts": _TPU_ONLY,
+    "conv_method": _TPU_ONLY, "entry_layouts": _TPU_ONLY,
     "compact_upload": _TPU_ONLY, "rss_relaunch_gb": _TPU_ONLY,
 }
 
@@ -95,14 +101,15 @@ def build_parser() -> argparse.ArgumentParser:
                     choices=["CTCRAMReaderSequence2D", "GrainCTCReaderSequence2D"],
                     help="the threaded reader, or the deterministic one whose batch is "
                          "a function of (seed, step), so a resumed run replays the stream")
+    ap.add_argument("--mesh_shape", type=json.loads,
+                    help="JSON, e.g. '{\"data\": 2, \"spatial\": 2}': train over the "
+                         "ranks of a multi-process run")
     # not ported: accepted, then rejected by name in main()
     ap.add_argument("--rss_relaunch_gb", type=float)
     ap.add_argument("--compact_upload", action=argparse.BooleanOptionalAction,
                     default=None)
     ap.add_argument("--conv_method", type=str, choices=["conv", "dots", "auto"])
     ap.add_argument("--entry_layouts", action="store_true", default=None)
-    ap.add_argument("--mesh_shape", type=json.loads,
-                    help="(not ported) JSON, e.g. '{\"data\": 4}'")
     return ap
 
 
@@ -131,7 +138,7 @@ def main(argv=None) -> Trainer:
         if args.get(k):
             args[k] = tuple(args[k])
     params.override(**args)
-    trainer = Trainer(params, seed=seed, device=device)
+    trainer = Trainer(params, seed=seed, device=initialize(device))
     log_print(f"training: save_dir={params.experiment_save_dir}")
     trainer.train()
     return trainer

@@ -270,6 +270,7 @@ class InferenceParams:
     tta_mode: str = "flip"         # 'flip' (4 variants) | 'd4' (8, pads square); needs tta
     reset_on_jump: float = 0.0     # >0: zero a lane's state when the clipped mean
                                    # |frame delta| exceeds this (a scene cut)
+    mesh_shape: Dict[str, int] = field(default_factory=dict)  # {'data': N, 'spatial': M}
 
     def override(self, **kwargs) -> "InferenceParams":
         """Set each knob that is not None (argparse leaves unset flags None)."""

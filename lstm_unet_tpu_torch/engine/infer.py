@@ -1,6 +1,6 @@
 """Streaming inference engine.
 
-Counterpart of ``lstm_unet_tpu/engine/infer.py`` (no mesh). Per step, on
+Counterpart of ``lstm_unet_tpu/engine/infer.py``. Per step, on
 the model's device, for B lanes (one sequence each; B = 1 for
 :func:`run_inference`, up to ``--max_batch`` for
 :func:`run_inference_batched`)::
@@ -28,6 +28,19 @@ restored), with the static activation scales of ``act_scales.json`` in the model
 its provenance stamp matches the checkpoint (:func:`load_act_scales`), else
 dynamic scales, one per conv call over all of its lanes, as the reference
 takes them. :func:`calibrate_model_dir` writes that file.
+
+``ip.mesh_shape`` (``{'data': N}``, ``{'data': N, 'spatial': M}``) runs the
+stream over the ranks of a multi-process run (``parallel/``), by the
+reference's rules (``lstm_unet_tpu/engine/infer.py:411-435``): lanes over
+'data' when B divides (never under TTA), rows over 'spatial' when H %
+(M * 2^depth) == 0, else replicated, with its log lines. Every rank reads,
+pads and normalizes the whole frame, builds the TTA variants and takes
+``reset_on_jump``'s decision from it, then steps the model on its block
+(halo convs, ``parallel/halo.py``). The logits are gathered over 'spatial'
+(the softmax is per pixel, so gathering them is gathering the
+probabilities), the inverse TTA transforms and ``postprocess_frame`` run
+once per lane on one rank, and the label maps are gathered over 'data' to
+rank 0, whose writer alone writes masks and intermediates.
 """
 
 from __future__ import annotations
@@ -52,6 +65,8 @@ from ..models import ULSTMnet2D
 from ..models.ulstm_unet import QConv, quantize_model_int8
 from ..ops.convlstm import QConvLSTMCell
 from ..ops.postprocess import UINT16_MAX, postprocess_frame
+from ..parallel.distributed import is_writer
+from ..parallel.mesh import make_mesh, mesh_axis_sizes, plan_split
 from ..utils import StallWatchdog, log_print, resolve_device
 
 
@@ -193,7 +208,9 @@ class StreamingInferenceEngine:
     after the inverse transforms. ``ip.reset_on_jump`` > 0 zeroes a lane's
     state (all of its variants) before a frame whose normalized, [0, 1]
     clipped mean absolute difference from the lane's previous frame exceeds
-    it; the first frame never resets."""
+    it; the first frame never resets. ``ip.mesh_shape`` splits the stream
+    over this run's ranks (module docstring); then :meth:`step_batch_async`
+    returns the outputs on rank 0 only, and None on the others."""
 
     def __init__(self, model: ULSTMnet2D, ip: InferenceParams, device):
         self.model = model
@@ -214,6 +231,8 @@ class StreamingInferenceEngine:
         self._state = None
         self._prev: Optional[torch.Tensor] = None  # reset_on_jump: last normalized frames
         self._shape: Optional[Tuple[int, int, int]] = None  # (B, oh, ow)
+        self.mesh = make_mesh(ip.mesh_shape)
+        self._split = None  # this rank's block of the lanes and rows
 
     def _padded_hw(self, oh: int, ow: int) -> Tuple[int, int]:
         """The model's frame size for an original (oh, ow): multiples of
@@ -239,10 +258,34 @@ class StreamingInferenceEngine:
             pw -= dw
         return frame
 
+    def _plan(self, batch: int, h: int):
+        """The split of ``batch`` lanes of ``h`` rows over the mesh, with the
+        reference's log lines for what replicates."""
+        if self.mesh is None:
+            return None
+        sizes = mesh_axis_sizes(self.mesh)
+        data_n, spatial_n = sizes.get("data", 0), sizes.get("spatial", 0)
+        depth = self.model.cfg.nkp.depth
+        if self.n_var > 1 and data_n > 1 and batch % data_n == 0:
+            log_print("mesh: tta active — replicating the batch dim")
+        split = plan_split(self.mesh, batch, h, depth, replicate_lanes=self.n_var > 1)
+        if data_n > 1 and not (split and split.lanes):
+            log_print(f"mesh: batch={batch} not divisible by data={data_n}"
+                      " — replicating the batch dim")
+        if spatial_n > 1 and not (split and split.rows):
+            log_print(f"mesh: H={h} not divisible by spatial={spatial_n}"
+                      f"*2^{depth} — replicating the H dim")
+        return split
+
     def _build(self, oh: int, ow: int, batch: int = 1) -> None:
         h, w = self._padded_hw(oh, ow)
-        self._state = self.model.init_state(batch * self.n_var, h, w, device=self.device)
-        self._prev = (torch.full((batch, h, w), float("nan"), device=self.device)
+        split = self.model.split = self._split = self._plan(batch, h)
+        lanes = batch * self.n_var
+        if split is not None:
+            lanes, h = split.block(lanes, h)
+        self._state = self.model.init_state(lanes, h, w, device=self.device)
+        self._prev = (torch.full((batch,) + self._padded_hw(oh, ow), float("nan"),
+                                 device=self.device)
                       if self.jump_thresh > 0 else None)
         self._shape = (batch, oh, ow)
 
@@ -278,23 +321,40 @@ class StreamingInferenceEngine:
                         for v in (lv[4], lv[5].flip(1), lv[6].flip(2), lv[7].flip(1, 2))]
         return torch.softmax(torch.stack(aligned)[:, :, :oh, :ow], dim=-1).mean(dim=0)
 
+    def _postprocesses(self) -> bool:
+        """Whether this rank postprocesses its lanes: each lane on one rank,
+        spatial index 0 of the ranks that hold it."""
+        split, mesh = self._split, self.mesh
+        if mesh is None:
+            return True
+        return mesh.index("spatial") == 0 and (
+            (split is not None and split.lanes) or mesh.index("data") == 0)
+
     @torch.inference_mode()
     def step_batch_async(self, frames: np.ndarray):
         """Enqueue one raw frame per lane, ``[B, H, W]``; returns the device
         tensors (labels ``[B, H, W]`` int32, probs ``[B, H, W, 3]`` or None)
-        without waiting for them."""
+        without waiting for them; under a mesh, (None, None) on every rank but
+        rank 0."""
         b, oh, ow = frames.shape
         if self._shape != (b, oh, ow):
             self._build(oh, ow, b)
         x = normalize_frames(self._upload(self._pad_frame(frames)), oh, ow)
-        state = self._state
+        state, split = self._state, self._split
         if self.jump_thresh > 0:
             jumps = (x.clamp(0.0, 1.0) - self._prev.clamp(0.0, 1.0)).abs().mean(dim=(1, 2))
             cut = (jumps > self.jump_thresh).float().repeat(self.n_var)
-            state = ULSTMnet2D.reset_lanes(state, cut)
+            state = ULSTMnet2D.reset_lanes(state, cut if split is None else split.take(cut))
             self._prev = x
-        self._state, logits = self.model.step(state, self._variants(x)[..., None])
-        probs = self._probs(logits, b, oh, ow)
+        lanes = self._variants(x)[..., None]
+        if split is not None:
+            lanes = split.take(lanes, 0, 1).contiguous()
+        self._state, logits = self.model.step(state, lanes)
+        if split is not None:
+            logits = split.gather(logits, row_dim=1)
+        if not self._postprocesses():
+            return None, None
+        probs = self._probs(logits, logits.shape[0] // self.n_var, oh, ow)
         ip = self.ip
         labels = torch.stack([
             postprocess_frame(p, cell_thresh=ip.cell_thresh,
@@ -315,7 +375,13 @@ class StreamingInferenceEngine:
                               split_hi_thresh=ip.split_hi_thresh,
                               split_erode=ip.split_erode)
             for p in probs])
-        return labels, (probs if ip.save_intermediate else None)
+        probs = probs if ip.save_intermediate else None
+        if split is not None and split.lanes:
+            labels = split.gather(labels, lane_dim=0)
+            probs = None if probs is None else split.gather(probs, lane_dim=0)
+        if not is_writer():
+            return None, None
+        return labels, probs
 
     def step_async(self, frame: np.ndarray):
         """:meth:`step_batch_async` of one raw frame ``[H, W]`` (B = 1)."""
@@ -323,8 +389,11 @@ class StreamingInferenceEngine:
 
     def process_frame(self, frame: np.ndarray):
         """One frame -> (labels ``[H, W]`` int32, probs ``[H, W, 3]`` or None)
-        on the host; waits for the device."""
+        on the host; waits for the device. (None, None) on a rank that does
+        not write."""
         labels, probs = self.step_async(frame)
+        if labels is None:
+            return None, None
         return (labels[0].cpu().numpy(),
                 None if probs is None else probs[0].cpu().numpy())
 
@@ -464,7 +533,9 @@ def run_inference_batched(ip: InferenceParams, sequence_paths: List[str],
     ``<output>/intermediate`` (one lane: ``ip.save_intermediate_path`` when
     set). Frame t is dispatched before the labels of frame t-1 are waited
     for and written, so the label copy and the TIFF encode overlap the
-    device. ``model`` replaces loading ``ip.model_path``.
+    device. ``model`` replaces loading ``ip.model_path``. Under
+    ``ip.mesh_shape`` every rank of the run calls this with the same
+    arguments, and rank 0 writes (the others return 0).
     """
     return _stream(ip, sequence_paths, output_paths, device, model, fixed_shape=True)
 
@@ -510,7 +581,7 @@ def _stream(ip: InferenceParams, sequence_paths: List[str], output_paths: List[s
         shapes = [f.shape for _, f in cur]
         if len(set(shapes)) != 1:
             raise ValueError(f"batched inference requires equal frame shapes, got {shapes}")
-        writer = _AsyncWriter()
+        writer = _AsyncWriter() if is_writer() else None
         done = [False] * b
         pending = None
         while not all(done):
@@ -525,7 +596,9 @@ def _stream(ip: InferenceParams, sequence_paths: List[str], output_paths: List[s
                       if cur[lane][0] is not None and not done[lane]]
             if pending is not None:
                 emit(*pending)
-            pending = (writes, *_to_host_async(labels_dev), probs_dev)
+            # under a mesh only rank 0 gets labels, and only it writes
+            pending = (None if labels_dev is None
+                       else (writes, *_to_host_async(labels_dev), probs_dev))
             for lane in range(b):
                 if not done[lane]:
                     try:

@@ -19,6 +19,11 @@ each quantized site becomes a :class:`QConv` or ``QConvLSTMCell`` and the
 model dispatches on the module, as the reference on the presence of
 ``kernel_q``. ``step(..., collect_scales=d)`` records each conv site's
 input abs-max under the reference's site names, for calibration.
+
+Under a mesh the engine or the trainer sets :attr:`ULSTMnet2D.split`
+(``parallel/mesh.py::Split``, None by default): ``step`` then runs on this
+rank's block of lanes and rows, and every conv site takes the split (halo
+convs, all-reduced int8 scales). State and logits are this rank's blocks.
 """
 
 from __future__ import annotations
@@ -115,12 +120,12 @@ class Conv(nn.Module):
             self.ln_bias = nn.Parameter(torch.zeros(cout, device=device))
         self.activation = activation
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return _norm_act(self, conv2d(x, self.kernel, self.bias))
+    def forward(self, x: torch.Tensor, split=None) -> torch.Tensor:
+        return _norm_act(self, conv2d(x, self.kernel, self.bias, split))
 
-    def forward_pair(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    def forward_pair(self, a: torch.Tensor, b: torch.Tensor, split=None) -> torch.Tensor:
         """``forward(concat([a, b]))``."""
-        return self(torch.cat([a, b], dim=-1))
+        return self(torch.cat([a, b], dim=-1), split)
 
 
 def _norm_act(conv: nn.Module, x: torch.Tensor) -> torch.Tensor:
@@ -158,13 +163,13 @@ class QConv(nn.Module):
     def kernel_q(self) -> torch.Tensor:
         return self.weight.kernel_q
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return _norm_act(self, conv2d_q(x, self.weight, self.x_scale, x.dtype))
+    def forward(self, x: torch.Tensor, split=None) -> torch.Tensor:
+        return _norm_act(self, conv2d_q(x, self.weight, self.x_scale, x.dtype, split))
 
-    def forward_pair(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    def forward_pair(self, a: torch.Tensor, b: torch.Tensor, split=None) -> torch.Tensor:
         """``conv(concat([a, b]))`` with each operand quantized on its own
         scale (``conv2d_q_pair``)."""
-        y = conv2d_q_pair(a, b, self.weight, self.x_scale_a, self.x_scale_b, a.dtype)
+        y = conv2d_q_pair(a, b, self.weight, self.x_scale_a, self.x_scale_b, a.dtype, split)
         return _norm_act(self, y)
 
 
@@ -279,6 +284,7 @@ class ULSTMnet2D(nn.Module):
             decoder[lvl] = level
         self.decoder = nn.ModuleList(decoder)
         self.head = Conv(1, dec_cin, cfg.num_classes, **kw)
+        self.split = None  # this rank's block of a mesh (parallel/mesh.py::Split)
 
     # -- state ------------------------------------------------------------
 
@@ -338,7 +344,7 @@ class ULSTMnet2D(nn.Module):
                 lvl_state.append(carry)
                 pool = False
             x = run(self._conv_stack, level.convs, f"encoder/{lvl}/convs", pool, x,
-                    collect_scales)
+                    collect_scales, self.split)
             skips.append(x)
             new_state.append(lvl_state)
         return new_state, run(self._decode, skips, collect_scales)
@@ -350,39 +356,39 @@ class ULSTMnet2D(nn.Module):
         _collect(collect, site + "/x", x)
         _collect(collect, site + "/h", carry[0])
         carry, x = cell(carry, x, recurrent_activation=self.cfg.recurrent_activation,
-                        fused_cell=self.cfg.fused_cell)
+                        fused_cell=self.cfg.fused_cell, split=self.split)
         return carry, x.to(self.cfg.compute_dtype)  # the carry may be f32 under bf16
 
     @staticmethod
     def _conv_stack(convs: nn.ModuleList, site: str, pool: bool, x: torch.Tensor,
-                    collect: Optional[dict]):
+                    collect: Optional[dict], split):
         if pool:
             x = max_pool_2x2(x)
         for j, conv in enumerate(convs):
             _collect(collect, f"{site}/{j}", x)
-            x = conv(x)
+            x = conv(x, split)
         return x
 
     def _decode(self, skips: List[torch.Tensor], collect: Optional[dict]) -> torch.Tensor:
-        cfg = self.cfg
+        cfg, split = self.cfg, self.split
         x = max_pool_2x2(skips[-1])
         for lvl in reversed(range(len(self.decoder))):
-            x = upsample_2x(x, cfg.upsample)
+            x = upsample_2x(x, cfg.upsample, split)
             convs = self.decoder[lvl].convs
             site = f"decoder/{lvl}/convs/0"
             if cfg.split_skip_convs:
                 _collect(collect, site + ".a", x)
                 _collect(collect, site + ".b", skips[lvl])
-                x = convs[0].forward_pair(x, skips[lvl])
+                x = convs[0].forward_pair(x, skips[lvl], split)
             else:
                 x = torch.cat([x, skips[lvl]], dim=-1)
                 _collect(collect, site, x)
-                x = convs[0](x)
+                x = convs[0](x, split)
             for j, conv in enumerate(convs[1:], start=1):
                 _collect(collect, f"decoder/{lvl}/convs/{j}", x)
-                x = conv(x)
+                x = conv(x, split)
         _collect(collect, "head", x)
-        return self.head(x).float()
+        return self.head(x, split).float()
 
     def apply(self, state: State, x: torch.Tensor, remat: Union[bool, str] = False
               ) -> Tuple[State, torch.Tensor]:

@@ -5,6 +5,11 @@ NHWC layout ``[B, H, W, C]``; each op views it as NCHW with
 ``torch.channels_last`` strides (a free permute), so cuDNN and oneDNN run
 their NHWC kernels and no layout copy is made. Conv weights are OIHW. The
 plain convs are left to cuDNN, as the reference leaves them to XLA.
+
+A ``split`` (``parallel/mesh.py::Split``) whose rows are split over the
+'spatial' group makes :func:`conv2d` a halo conv (``parallel/halo.py``) and
+:func:`upsample_2x` exchange the row a bilinear sample needs; max-pool and
+nearest upsampling need no neighbour row.
 """
 
 from __future__ import annotations
@@ -15,6 +20,8 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+
+from ..parallel.halo import exchange_halo_h, on_extended_rows
 
 
 def _nchw(x: torch.Tensor) -> torch.Tensor:
@@ -37,16 +44,21 @@ def init_conv(kh: int, kw: int, cin: int, cout: int, *,
 
 
 def conv2d(x: torch.Tensor, kernel: torch.Tensor,
-           bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+           bias: Optional[torch.Tensor] = None, split=None) -> torch.Tensor:
     """SAME, stride-1 conv of ``x [B,H,W,Cin]`` with an odd OIHW kernel, in
-    x's dtype; returns ``[B,H,W,Cout]``."""
+    x's dtype; returns ``[B,H,W,Cout]``. Under a ``split`` of the rows, x
+    is this rank's rows and so is the result (a halo conv)."""
     kh, kw = kernel.shape[2], kernel.shape[3]
     if kh % 2 == 0 or kw % 2 == 0:
         raise ValueError(f"SAME conv needs odd kernel sizes, got {kh}x{kw}")
-    y = F.conv2d(_nchw(x), kernel.to(x.dtype),
-                 None if bias is None else bias.to(x.dtype),
-                 padding=(kh // 2, kw // 2))
-    return _nhwc(y)
+
+    def conv(xe):
+        y = F.conv2d(_nchw(xe), kernel.to(xe.dtype),
+                     None if bias is None else bias.to(xe.dtype),
+                     padding=(kh // 2, kw // 2))
+        return _nhwc(y)
+
+    return on_extended_rows(conv, x, kh // 2, None if split is None else split.spatial)
 
 
 @functools.lru_cache(maxsize=None)
@@ -73,13 +85,23 @@ def max_pool_2x2(x: torch.Tensor) -> torch.Tensor:
     return _nhwc(F.max_pool2d(_nchw(x), 2))
 
 
-def upsample_2x(x: torch.Tensor, method: str = "nearest") -> torch.Tensor:
+def upsample_2x(x: torch.Tensor, method: str = "nearest", split=None) -> torch.Tensor:
     """2x upsample: nearest repeats each pixel; bilinear samples half-pixel
-    centres with edge clamping, as ``jax.image.resize`` does when enlarging."""
+    centres with edge clamping, as ``jax.image.resize`` does when enlarging.
+    Under a ``split`` of the rows, bilinear takes one row of each neighbour
+    and drops the two output rows each adds; at the frame's top and bottom
+    its own clamping is the frame's."""
     if method == "nearest":
         return _nhwc(F.interpolate(_nchw(x), scale_factor=2, mode="nearest"))
-    if method == "bilinear":
-        y = F.interpolate(_nchw(x).float(), scale_factor=2, mode="bilinear",
-                          align_corners=False)
-        return _nhwc(y).to(x.dtype)
-    raise ValueError(f"unknown upsample method {method!r}")
+    if method != "bilinear":
+        raise ValueError(f"unknown upsample method {method!r}")
+    group = None if split is None else split.spatial
+    top = bottom = 0
+    if group is not None:
+        xe = exchange_halo_h(x, 1, group)
+        top, bottom = (int(split.mesh.index("spatial") > 0),
+                       int(split.mesh.index("spatial") < split.mesh.axis_size("spatial") - 1))
+        x = xe[:, 1 - top:xe.shape[1] - 1 + bottom]
+    y = F.interpolate(_nchw(x).float(), scale_factor=2, mode="bilinear",
+                      align_corners=False)
+    return _nhwc(y)[:, 2 * top:y.shape[2] - 2 * bottom].contiguous().to(x.dtype)

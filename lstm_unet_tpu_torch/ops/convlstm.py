@@ -23,6 +23,12 @@ dtype and Wh dequantized to that dtype (h is not quantized), then K4;
 unfused, ``conv2d_q(x) + conv2d_q(h)`` each in x's dtype (the bias in the
 x-conv only), then K1. The two differ by design (the reference holds them
 within 5e-3).
+
+Under a ``split`` of the rows (``parallel/mesh.py::Split``) both convs are
+halo convs (``ops/conv.py``, ``ops/quant.py``) and the fused kernel runs on
+the extended block: h with ``k // 2`` rows of each neighbour, gx and c with
+as many zero rows, whose outputs are cropped off (an output row of K4 reads
+only its own row of gx and c).
 """
 
 from __future__ import annotations
@@ -31,8 +37,10 @@ import math
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.halo import exchange_halo_h
 from .conv import conv2d
 from .kernels.convlstm_cell import fused_convlstm_level, pack_for_route, route, supported
 from .kernels.lstm_gates import lstm_gate_update
@@ -54,6 +62,22 @@ def _kept_pack(cache: dict, key: tuple, wh: torch.Tensor, b: int, hh: int, ww: i
     if hit is None or hit[0] != (which, *key):
         hit = cache[x.dtype] = ((which, *key), pack_for_route(wh, which))
     return hit[1]
+
+
+def _fused_level(gx: torch.Tensor, h: torch.Tensor, c: torch.Tensor, wh: torch.Tensor,
+                 recurrent_activation: str, packed: Optional[torch.Tensor], split
+                 ) -> Carry:
+    """K4 on this rank's rows: ``fused_convlstm_level``, on the block
+    extended by ``k // 2`` rows when the rows are split."""
+    group = None if split is None else split.spatial
+    halo = wh.shape[0] // 2
+    if group is None or halo == 0:
+        return fused_convlstm_level(gx, h, c, wh, recurrent_activation, packed)
+    rows = (0, 0, 0, 0, halo, halo)  # zero rows above and below, NHWC
+    h_new, c_new = fused_convlstm_level(F.pad(gx, rows), exchange_halo_h(h, halo, group),
+                                        F.pad(c, rows), wh, recurrent_activation, packed)
+    keep = slice(halo, halo + h.shape[1])
+    return h_new[:, keep].contiguous(), c_new[:, keep].contiguous()
 
 
 class ConvLSTMCell(nn.Module):
@@ -86,24 +110,25 @@ class ConvLSTMCell(nn.Module):
 
     def forward(self, carry: Carry, x: torch.Tensor, *,
                 recurrent_activation: str = "sigmoid",
-                fused_cell: bool = False) -> Tuple[Carry, torch.Tensor]:
+                fused_cell: bool = False, split=None) -> Tuple[Carry, torch.Tensor]:
         """One timestep: ``((h, c), x [B,H,W,Cin]) -> ((h', c'), h')``; the
-        carry keeps its dtype, the convs run in x's dtype."""
+        carry keeps its dtype, the convs run in x's dtype. Under a ``split``
+        of the rows, of this rank's rows."""
         h, c = carry
         b, hh, ww, _ = x.shape
         k = self.kernel_h.shape[-1]
         if fused_cell and supported(hh, ww, self.filters, k, k, b, x.dtype):
-            gx = conv2d(x, self.kernel_x, self.bias)
+            gx = conv2d(x, self.kernel_x, self.bias, split)
             # an HWIO view: the kernel's wrapper packs or copies it once, or
             # takes the pack kept here
             wh = self.kernel_h.to(x.dtype).permute(2, 3, 1, 0)
             kh = self.kernel_h
             packed = _kept_pack(self._packs, (kh.device, kh.data_ptr(), kh._version), wh, b,
                                 hh, ww, x)
-            h_new, c_new = fused_convlstm_level(gx, h, c, wh, recurrent_activation, packed)
+            h_new, c_new = _fused_level(gx, h, c, wh, recurrent_activation, packed, split)
             return (h_new, c_new), h_new
-        gates = conv2d(x, self.kernel_x, self.bias) + conv2d(h.to(x.dtype),
-                                                             self.kernel_h)
+        gates = (conv2d(x, self.kernel_x, self.bias, split)
+                 + conv2d(h.to(x.dtype), self.kernel_h, None, split))
         c_new, h_new = lstm_gate_update(gates, c, recurrent_activation)
         return (h_new, c_new), h_new
 
@@ -146,17 +171,17 @@ class QConvLSTMCell(nn.Module):
 
     def forward(self, carry: Carry, x: torch.Tensor, *,
                 recurrent_activation: str = "sigmoid",
-                fused_cell: bool = False) -> Tuple[Carry, torch.Tensor]:
+                fused_cell: bool = False, split=None) -> Tuple[Carry, torch.Tensor]:
         h, c = carry
         b, hh, ww, _ = x.shape
         k = self.wh.shape[-1]
         if fused_cell and supported(hh, ww, self.filters, k, k, b, x.dtype):
-            gx = conv2d_q(x, self.wx, self.x_scale, x.dtype)
+            gx = conv2d_q(x, self.wx, self.x_scale, x.dtype, split)
             wh = self.wh_dequantized(x.dtype)
             packed = _kept_pack(self._packs, (wh.device, wh.data_ptr()), wh, b, hh, ww, x)
-            h_new, c_new = fused_convlstm_level(gx, h, c, wh, recurrent_activation, packed)
+            h_new, c_new = _fused_level(gx, h, c, wh, recurrent_activation, packed, split)
             return (h_new, c_new), h_new
-        gates = (conv2d_q(x, self.wx, self.x_scale, x.dtype)
-                 + conv2d_q(h, self.wh, self.h_scale, x.dtype))
+        gates = (conv2d_q(x, self.wx, self.x_scale, x.dtype, split)
+                 + conv2d_q(h, self.wh, self.h_scale, x.dtype, split))
         c_new, h_new = lstm_gate_update(gates, c, recurrent_activation)
         return (h_new, c_new), h_new

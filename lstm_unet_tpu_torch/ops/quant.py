@@ -21,6 +21,13 @@ tensor code, as the reference leaves it to XLA outside any Pallas kernel,
 then its kernel. On the CPU all take the plain versions:
 :func:`quantize_act`, then the exact conv and the dequant.
 
+Under a ``split`` (``parallel/mesh.py::Split``) a dynamic scale stays the
+reference's one scale over the whole ``[B,H,W,C]`` tensor, all its lanes and
+rows: each rank's abs-max of its own block, all-reduced with MAX over
+:attr:`Split.parts`, then formed as :func:`quantize_act` forms it and passed
+to the kernel as a given scale (a static scale needs no collective); with
+the rows split, each conv with ``k > 1`` runs on the halo-extended block.
+
 Gate math, LayerNorm and softmax stay as in the float model.
 :class:`QWeight` holds one conv's int8 weights, packed once for its route's
 kernel; ``models/ulstm_unet.py::quantize_model_int8`` builds the model's
@@ -34,6 +41,8 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch import nn
 
+from ..parallel.comm import all_reduce_
+from ..parallel.halo import on_extended_rows
 from .kernels.conv_int8 import (conv2d_int8, conv2d_int8_smallk, conv2d_int8_wgmma,
                                  pack_weight, pack_weight_smallk, pack_weight_wgmma,
                                  quantize_act, unpack_weight, unpack_weight_smallk,
@@ -123,11 +132,25 @@ class QWeight(nn.Module):
         return p
 
 
+def split_scale(x: torch.Tensor, split) -> torch.Tensor:
+    """The dynamic scale of the whole tensor whose block this rank holds:
+    ``max(max|x|, 1e-8) / 127`` over every rank of ``split.parts``, formed
+    as :func:`quantize_act` forms it from one tensor."""
+    amax = torch.linalg.vector_norm(x, ord=float("inf")).float().reshape(1)
+    return torch.clamp(all_reduce_(amax, "max", split.parts)[0], min=1e-8) / 127.0
+
+
 def _conv(x: torch.Tensor, scale: Optional[torch.Tensor], packed: torch.Tensor,
           w_scale: torch.Tensor, bias: Optional[torch.Tensor], kh: int, kw: int,
-          out_dtype: torch.dtype) -> torch.Tensor:
+          out_dtype: torch.dtype, split=None) -> torch.Tensor:
     """The int8 conv of float ``x`` on its site's route (``packed`` is the
     pack :class:`QWeight` made for that route)."""
+    if split is not None:
+        if scale is None:
+            scale = split_scale(x, split)
+        return on_extended_rows(
+            lambda xe: _conv(xe, scale, packed, w_scale, bias, kh, kw, out_dtype), x,
+            kh // 2, split.spatial)
     # the wgmma and small-K kernels quantize x as they stage it
     if packed.dim() == 7:
         return conv2d_int8_wgmma(x, scale, packed, w_scale, bias, kh, out_dtype)
@@ -138,17 +161,19 @@ def _conv(x: torch.Tensor, scale: Optional[torch.Tensor], packed: torch.Tensor,
 
 
 def conv2d_q(x: torch.Tensor, weight: QWeight, x_scale: Optional[torch.Tensor] = None,
-             out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+             out_dtype: torch.dtype = torch.float32, split=None) -> torch.Tensor:
     """NHWC int8 conv of ``x`` (quantized dynamically, or with the static
-    ``x_scale``) with the f32 dequant epilogue, in ``out_dtype``."""
+    ``x_scale``) with the f32 dequant epilogue, in ``out_dtype``; under a
+    ``split``, of this rank's block."""
     _, _, kh, kw = weight.shape
-    return _conv(x, x_scale, weight.packed, weight.w_scale, weight.bias, kh, kw, out_dtype)
+    return _conv(x, x_scale, weight.packed, weight.w_scale, weight.bias, kh, kw, out_dtype,
+                 split)
 
 
 def conv2d_q_pair(a: torch.Tensor, b: torch.Tensor, weight: QWeight,
                   scale_a: Optional[torch.Tensor] = None,
                   scale_b: Optional[torch.Tensor] = None,
-                  out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                  out_dtype: torch.dtype = torch.float32, split=None) -> torch.Tensor:
     """Quantized ``conv(concat([a, b]), W)`` as two channel-sliced convs, each
     operand with its own scale: ``acc_a * (s_a * w) + acc_b * (s_b * w)``, then
     the bias, in f32 (the reference's order), then ``out_dtype``. Two launches
@@ -157,7 +182,7 @@ def conv2d_q_pair(a: torch.Tensor, b: torch.Tensor, weight: QWeight,
     _, cin, kh, kw = weight.shape
     ca = a.shape[-1]
     ys = [_conv(x, scale, weight.packed_slice(c0, c1), weight.w_scale, None, kh, kw,
-                torch.float32)
+                torch.float32, split)
           for x, c0, c1, scale in ((a, 0, ca, scale_a), (b, ca, cin, scale_b))]
     y = ys[0] + ys[1]
     if weight.bias is not None:

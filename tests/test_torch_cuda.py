@@ -729,3 +729,114 @@ def test_batched_stream_on_the_card_equals_cpu(cuda, tmp_path):
         for p in sorted(glob.glob(os.path.join(want_dir, "mask*.tif"))):
             np.testing.assert_array_equal(
                 read_tiff(os.path.join(got_dir, os.path.basename(p))), read_tiff(p))
+
+
+# ---------------------------------------------------------------- the meshes
+#
+# Under a 'spatial' mesh each rank runs the kernels on its rows plus the
+# halo: blocks of Hs + 2 * (k // 2) rows (260, 132, 68, 36 at the flagship's
+# 5x5 levels, 18 and 10 at the tiny model's 3x3 ones), heights no
+# single-process path gives them.
+
+
+@pytest.mark.parametrize("b,h,w,feat,k,dt,sdt", [
+    (1, 260, 64, 128, 5, torch.bfloat16, torch.bfloat16),   # flagship level 0 block
+    (1, 132, 64, 256, 5, torch.bfloat16, torch.float32),    # level 1
+    (1, 36, 64, 512, 5, torch.bfloat16, torch.bfloat16),    # level 3
+    (1, 260, 64, 128, 5, torch.float32, torch.float32),     # 3xTF32
+    (1, 68, 64, 256, 5, torch.float32, torch.float32),      # level 2
+    (2, 18, 32, 8, 3, torch.float32, torch.float32),        # tiny level 0, narrow
+    (2, 10, 16, 16, 3, torch.bfloat16, torch.bfloat16),     # tiny level 1, narrow
+    (1, 18, 32, 10, 3, torch.float32, torch.float32),       # F % 8 != 0: SIMT
+])
+def test_fused_level_at_halo_extended_heights_matches_plain(cuda, b, h, w, feat, k, dt, sdt):
+    ins = _level(cuda, b, h, w, feat, k, dt, sdt, seed=h)
+    which = convlstm_cell.route(h, w, feat, k, b, dt)
+    name = {"simt": "fused_convlstm_level", "wgmma": "fused_convlstm_level_wgmma",
+            "tf32x3": "fused_convlstm_level_tf32x3",
+            "narrow": "fused_convlstm_level_narrow"}[which]
+    reset_counts()
+    got = convlstm_cell.fused_convlstm_level(*ins)
+    want = convlstm_cell.fused_convlstm_level_plain(*ins)
+    assert counts()[name] == {"kernel": 1, "plain": 1}
+    if which == "simt":
+        _close(got, want, sdt, atol=2e-5)
+    else:
+        _tc_close(got, want, sdt, k, feat)
+
+
+@pytest.mark.parametrize("b,h,w,cin,k,cout", [
+    (1, 260, 64, 128, 5, 512),   # the flagship's level 0 h-conv block: wgmma
+    (1, 34, 64, 512, 3, 512),    # a 3x3 decoder conv at level 3: wgmma
+    (1, 260, 64, 1, 5, 512),     # the cin = 1 x-conv block: small-K
+    (2, 18, 32, 8, 3, 32),       # the tiny model's cin 8 site: small-K
+])
+def test_conv2d_int8_at_halo_extended_heights_equals_plain(cuda, b, h, w, cin, k, cout):
+    from lstm_unet_tpu_torch.ops.kernels import conv_int8
+    from lstm_unet_tpu_torch.ops.quant import _pack
+
+    g = torch.Generator(device=cuda).manual_seed(h + cin)
+    kq = torch.randint(-127, 128, (cout, cin, k, k), device=cuda, generator=g,
+                       dtype=torch.int32).to(torch.int8)
+    which = conv_int8.weight_route(kq)
+    packed = _pack(kq)
+    w_scale = torch.rand(cout, device=cuda, generator=g) * 1e-3
+    bias = torch.randn(cout, device=cuda, generator=g)
+    x = (torch.randn(b, h, w, cin, device=cuda, generator=g) * 3).to(torch.bfloat16)
+    fn, plain, kk = {"wgmma": (conv_int8.conv2d_int8_wgmma, conv_int8.conv2d_int8_wgmma_plain,
+                               (k,)),
+                     "smallk": (conv_int8.conv2d_int8_smallk,
+                                conv_int8.conv2d_int8_smallk_plain, (k, k))}[which]
+    for scale in (None, torch.tensor(2.5 / 127, device=cuda)):  # dynamic, static
+        args = (x, scale, packed, w_scale, bias, *kk, torch.bfloat16)
+        reset_counts()
+        got, want = fn(*args), plain(*args)
+        assert counts()[f"conv2d_int8_{which}"] == {"kernel": 1, "plain": 1}
+        assert torch.equal(got, want), (which, scale)
+
+
+def _halo_rank(rank, device):
+    """One of two ranks on one card over gloo: its rows of a [2, 12, 20, 8]
+    frame through ``exchange_halo_h`` (forward and backward) and a 5x5
+    ``halo_conv2d``; returns them gathered, as numpy."""
+    from lstm_unet_tpu_torch.parallel import halo_conv2d, make_mesh, plan_split
+    from lstm_unet_tpu_torch.parallel.halo import exchange_halo_h
+
+    torch.backends.cudnn.allow_tf32 = False  # as the cuda fixture sets it in the test
+    split = plan_split(make_mesh({"spatial": 2}), 2, 12, 0)
+    g = np.random.default_rng(3)
+    x = torch.from_numpy(g.normal(size=(2, 12, 20, 8)).astype(np.float32))
+    k = torch.from_numpy(g.uniform(-0.2, 0.2, (16, 8, 5, 5)).astype(np.float32))
+    r = torch.from_numpy(g.normal(size=(2, 16, 20, 8)).astype(np.float32))
+    rows = split.row_slice(12)
+    xl = x[:, rows].to(device).requires_grad_()
+    xe = exchange_halo_h(xl, 2, split.spatial)
+    assert xe.device == xl.device and xe.shape == (2, 10, 20, 8)
+    (xe * r[:, 6 * rank:6 * rank + 10].to(device)).sum().backward()
+    y = halo_conv2d(xl.detach(), k.to(device), None, group=split.spatial)
+    return (xe.detach().cpu().numpy(), xl.grad.cpu().numpy(),
+            split.gather(y, row_dim=1).cpu().numpy())
+
+
+def test_exchange_halo_h_on_the_card_over_two_gloo_ranks(cuda, tmp_path):
+    """CUDA tensors through the halo exchange of two ranks sharing the card
+    (gloo sends through host memory): the rows of each neighbour, zeros at
+    the frame's edges, the gradient returned to the rows' owner; the halo
+    conv equal to the whole frame's conv."""
+    from lstm_unet_tpu_torch.ops.conv import conv2d
+    from lstm_unet_tpu_torch.parallel import run_ranks
+
+    got = run_ranks(_halo_rank, 2, device="cuda:0", timeout_s=180, work_dir=str(tmp_path))
+    g = np.random.default_rng(3)
+    x = g.normal(size=(2, 12, 20, 8)).astype(np.float32)
+    k = g.uniform(-0.2, 0.2, (16, 8, 5, 5)).astype(np.float32)
+    r = g.normal(size=(2, 16, 20, 8)).astype(np.float32)
+    padded = np.pad(x, ((0, 0), (2, 2), (0, 0), (0, 0)))  # the frame's zero rows
+    grad = np.zeros_like(padded)
+    for rank in (0, 1):  # each rank's extended block is rows 6 * rank .. + 10
+        grad[:, 6 * rank:6 * rank + 10] += r[:, 6 * rank:6 * rank + 10]
+    for rank, (xe, gx, y) in enumerate(got):
+        np.testing.assert_array_equal(xe, padded[:, 6 * rank:6 * rank + 10])
+        np.testing.assert_allclose(gx, grad[:, 2:14][:, 6 * rank:6 * rank + 6], atol=1e-6)
+        want = conv2d(torch.from_numpy(x).to(cuda), torch.from_numpy(k).to(cuda)).cpu().numpy()
+        np.testing.assert_allclose(y, want, atol=1e-5)

@@ -28,6 +28,8 @@ from lstm_unet_tpu_torch.io.dataset import CTCRAMReaderSequence2D
 from lstm_unet_tpu_torch.models import ModelConfig, ULSTMnet2D
 from lstm_unet_tpu_torch.ops.kernels import conv_int8
 from lstm_unet_tpu_torch.models import quantize_model_int8
+from lstm_unet_tpu_torch.parallel import comm, distributed, halo, mesh
+assert mesh.make_mesh({"data": 1}) is None and distributed.initialize("cpu").type == "cpu"
 model = ULSTMnet2D(ModelConfig.make(tiny_net_kernel_params()),
                    generator=torch.Generator().manual_seed(0))
 with torch.no_grad():

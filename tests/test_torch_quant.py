@@ -568,7 +568,8 @@ def test_cli_int8_keep_float_and_recipe(tmp_path):
     # encoder/0 (x-conv, h-conv, conv) and the head stay float: 9 - 4 int8 convs
     # (encoder/1's x-conv and decoder/0's conv on small-K)
     assert _int8_plain() == (10 * 2, 10 * 3)
+    # a mesh of more ranks than the run has is refused before the model loads
     recipe.write_text(json.dumps({"mesh_shape": {"data": 2}}))
-    with pytest.raises(NotImplementedError, match="mesh_shape"):
+    with pytest.raises(ValueError, match="mesh needs 2 ranks, have 1"):
         cli_main(["--model_path", "m", "--sequence_path", "s", "--output_path",
                   str(tmp_path), "--device", "cpu", "--recipe", str(recipe)])

@@ -455,16 +455,22 @@ def test_dry_run_writes_nothing(ctc_root, tmp_path):
     ["--mesh_shape", '{"data": 2}'], ["--conv_method", "dots"], ["--entry_layouts"],
     ["--no-compact_upload"], ["--rss_relaunch_gb", "5"]])
 def test_unported_train_flags_raise(flag, tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # --mesh_shape is ported: in one process, a mesh of 2 ranks is refused
+    err, match = ((ValueError, "mesh needs 2 ranks, have 1") if flag[0] == "--mesh_shape"
+                  else (NotImplementedError, "ROADMAP"))
+    with pytest.raises(err, match=match):
         train2d.main(["--device", "cpu", "--root_save_dir", str(tmp_path), *flag])
 
 
 @pytest.mark.parametrize("knob,value", [("mesh_shape", {"data": 1, "spatial": 2})])
 def test_trainer_rejects_unported_knobs(knob, value):
+    """The mesh is ported (``check_ported`` takes it); a trainer of one
+    process refuses a mesh of 2 ranks before it reads any data."""
     p = config.CTCParams(dry_run=True)
     setattr(p, knob, value)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        check_ported(p)
+    assert check_ported(p) is None
+    with pytest.raises(ValueError, match="mesh needs 2 ranks, have 1"):
+        Trainer(p, device="cpu")
 
 
 def test_cuda_device_without_a_gpu_raises(ctc_root, tmp_path):
