@@ -122,6 +122,22 @@ Phases, each of which raises (exit != 0) when it fails:
      m4 flagship training B4 T7 256^2 f32, 3 steps, under {"data": 2} and
      {"spatial": 2}: losses within rtol 2e-4, K1 and K2 launched, rank 1
      writing nothing.
+  n. (counted from 0, after k) the workflow scripts of
+     ``lstm_unet_tpu_torch/scripts`` on the card: n1 held-out data from
+     ``heldout_protocol``'s tables (train 03, eval 01-02 at 512^2, cut to 6
+     frames); n2 ``select_best --prune`` on phase g's bf16 run, its
+     ``ctc_sweep`` children (ranking, soup, eval and int8 confirms) on the
+     card, ``act_scales.json`` in ``best/``, ``inference2d`` from it; n3
+     ``ctc_sweep --save_intermediate`` of ``best/`` and ``calibrate_recipe``
+     on the dumps (``--baseline_check`` bit for bit); n4 ``postprocess_sweep``
+     (2x2 grid, 'prob' split) with rows equal to the CPU's, ms per (config,
+     frame) beside the CPU's; n5 ``oracle_ceiling`` with and without the
+     split, equal to the CPU's; n6 ``mask_agreement`` of phase d's golden
+     masks (1.0000 over 8 frames), ``seg_error_decomposition`` and
+     ``split_sweep`` on n3's masks; n7 ``carry_drift`` at 512^2, 300 frames,
+     on phase g's flagship (K1, K3) and on the golden model with
+     ``fused_cell`` (K4's narrow route, K3), its rows and ms/frame. Its wall
+     time is printed beside a budget of 150 s.
 The last two lines are a JSON kernel summary (K3's two routes as ``ccl`` and
 ``ccl_grid``; ``conv2d_int8_wgmma`` summed over the 24 convs of one unfused
 int8 frame it takes, with each shape beside; ``conv2d_int8_smallk`` at the
@@ -140,6 +156,7 @@ import dataclasses
 import glob
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -2103,6 +2120,348 @@ def phase_sweep(torch, work, card, run_dir):
         f"s): bit-equal")
 
 
+# ---------------------------------------------------------------- phase n
+
+HELDOUT_FRAMES = 6  # each held-out sequence of phase n, cut from 40 frames
+GT_DUMP_FRAMES = 3  # frames of each sequence dumped from its GT
+CARRY_FRAMES, CARRY_SEGMENT, CARRY_EVERY = 300, 40, 100
+# phase n took 109.6-165.8 s on an H100, 74-105 s of it in the eight sweep
+# children (each a new process that imports torch, starts CUDA and loads the
+# model to stream 6-8 frames)
+PHASE_N_BUDGET_S = 240.0
+
+
+def launched_since(kernels, before, name, need):
+    """The kernels launched since ``before``; raises unless each of ``need``
+    launched and no plain version ran."""
+    after = kernels.counts()
+    ran = {k: {s: after[k][s] - before[k][s] for s in ("kernel", "plain")} for k in after}
+    missing = [k for k in need if ran[k]["kernel"] == 0]
+    plain = {k: v["plain"] for k, v in ran.items() if v["plain"]}
+    if missing or plain:
+        raise AssertionError(f"{name}: {missing} never launched, plain versions ran "
+                             f"{plain}: {ran}")
+    return {k: v["kernel"] for k, v in ran.items() if v["kernel"]}
+
+
+def aside(kernels, fn, *args):
+    """``fn(*args)`` on the CPU, for comparison: its plain calls are no part
+    of the path's count."""
+    before = kernels.counts()
+    out = fn(*args)
+    for k in before:
+        kernels.KERNELS[k].plain = before[k]["plain"]
+    return out
+
+
+def captured(fn, *args):
+    """(``fn(*args)``, what it printed)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args)
+    text = buf.getvalue()
+    sys.stdout.write(text)
+    return out, text
+
+
+def gt_dumps(torch, kernels, gt_root, out_root, dataset):
+    """``ctc_sweep --save_intermediate``'s layout for the first
+    ``GT_DUMP_FRAMES`` frames of each sequence under ``gt_root``, made from
+    the GT: each frame's three classes (the port's
+    ``instance_to_three_class``) as logits of 3 plus seeded unit noise,
+    softmaxed, and the masks that phase n's production config (0.5, 0.3,
+    50) makes of them on the CPU. Returns the instances in
+    those masks per sequence."""
+    from lstm_unet_tpu_torch.io.preprocess import instance_to_three_class
+    from lstm_unet_tpu_torch.io.tiff import read_tiff, write_tiff
+    from lstm_unet_tpu_torch.ops.postprocess import postprocess_frame
+
+    rng = np.random.default_rng(0)
+    found = {}
+    for gt_dir in sorted(glob.glob(os.path.join(gt_root, dataset, "*_GT"))):
+        seq = os.path.basename(gt_dir)[:-3]
+        pred_dir = os.path.join(out_root, dataset, f"{seq}_RES")
+        os.makedirs(os.path.join(pred_dir, "intermediate"))
+        found[seq] = 0
+        paths = sorted(glob.glob(os.path.join(gt_dir, "SEG", "man_seg*.tif")))
+        for path in paths[:GT_DUMP_FRAMES]:
+            t = int(os.path.basename(path)[len("man_seg"):-len(".tif")])
+            three = instance_to_three_class(read_tiff(path))
+            logits = (3 * np.eye(3, dtype=np.float32)[three]
+                      + rng.standard_normal(three.shape + (3,), dtype=np.float32))
+            probs = torch.softmax(torch.from_numpy(logits), -1).numpy()
+            np.save(os.path.join(pred_dir, "intermediate", f"probs{t:03d}.npy"), probs)
+            labels = aside(kernels, lambda: postprocess_frame(
+                torch.from_numpy(probs), cell_thresh=0.5, edge_thresh=0.3,
+                min_cell_size=50).numpy().astype(np.uint16))
+            found[seq] += len(np.unique(labels)) - 1
+            write_tiff(os.path.join(pred_dir, f"mask{t:03d}.tif"), labels)
+    return found
+
+
+def phase_scripts(torch, work, card, run_dir):
+    """(n): the workflow scripts (``lstm_unet_tpu_torch/scripts``) on the
+    card, counted from 0 (their children's launches are their own). n1
+    held-out data from the protocol's tables (TRAIN row 03, HELDOUT rows
+    01-02 at SIZE, cut to ``HELDOUT_FRAMES`` frames); n2 ``select_best`` on
+    phase g's bf16 run (steps 4, 5) with ``--prune``, the soup, the eval and
+    int8 confirms in ``ctc_sweep`` children on the card, then
+    ``inference2d`` from ``best/``; n3 ``ctc_sweep --save_intermediate`` of
+    ``best/`` on val and eval, then ``calibrate_recipe`` on dumps that hold
+    cells (``gt_dumps``: a 5-step model's masks are empty), its
+    ``--baseline_check`` holding the card's masks to the CPU's bit for bit
+    in its children; n4 ``postprocess_sweep`` (2x2 grid, 'prob' split) on
+    those dumps against the same sweep on the CPU: equal JSON, ms per
+    (config, frame); n5 ``oracle_ceiling`` with and without the split
+    against the CPU; n6 ``mask_agreement`` of phase d's golden masks,
+    ``seg_error_decomposition`` and ``split_sweep`` on n3's eval masks; n7
+    ``carry_drift`` on phase g's flagship run and on the golden model with
+    ``fused_cell``, at SIZE for ``CARRY_FRAMES`` frames. Raises past
+    ``PHASE_N_BUDGET_S``; returns the wall seconds."""
+    from lstm_unet_tpu_torch.cli.ctc_sweep import main as sweep_main
+    from lstm_unet_tpu_torch.cli.inference2d import main as infer_main
+    from lstm_unet_tpu_torch.io.synthetic import write_ctc_dataset
+    from lstm_unet_tpu_torch.ops import kernels
+    from lstm_unet_tpu_torch.scripts import (calibrate_recipe, carry_drift, heldout_protocol,
+                                             mask_agreement, oracle_ceiling, postprocess_sweep,
+                                             seg_error_decomposition, select_best, split_sweep)
+
+    t_phase = time.perf_counter()
+    hp = heldout_protocol
+    size, dataset = hp.SIZE, hp.DATASET
+
+    # n1: the protocol's own rows, cut in length only
+    root = os.path.join(work, "heldout")
+    held = (("train", hp.TRAIN[2]), ("eval", hp.HELDOUT[0]), ("eval", hp.HELDOUT[1]))
+    for sub, (seq, seed, cells, rs, frames, ov) in held:
+        write_ctc_dataset(os.path.join(root, sub), dataset=dataset, seq=seq,
+                          num_frames=HELDOUT_FRAMES, height=size, width=size, num_cells=cells,
+                          seed=seed, radius_scale=rs, overlap_frac=ov)
+    log(f"n1 held-out data: train/{held[0][1][0]} (val), eval/{held[1][1][0]}, "
+        f"eval/{held[2][1][0]} from the protocol's tables (seeds "
+        f"{[r[1] for _, r in held]}, cells {[r[2] for _, r in held]}, radius scales "
+        f"{[r[3] for _, r in held]}) at {size}^2, cut from {[r[4] for _, r in held]} to "
+        f"{HELDOUT_FRAMES} frames each")
+
+    # n2: selection, soup, confirms and the durable artifact
+    best = os.path.join(work, "best")
+    t0 = time.perf_counter()
+    summary = select_best.main(["--model_path", run_dir, "--data_root", root, "--val_seqs",
+                                "03", "--best_dir", best, "--prune", "--device", "cuda",
+                                "--out", os.path.join(work, "select_best.json")])
+    secs = time.perf_counter() - t0
+    want = ("val_ranking", "artifact_steps", "eval_soup_mean", "eval_soup_int8_mean")
+    if (len(summary["val_ranking"]) != 2 or any(k not in summary for k in want)
+            or summary["pruned_steps"] != []
+            or not os.path.exists(os.path.join(best, "act_scales.json"))):
+        raise AssertionError(f"select_best: {summary}")
+    log(f"n2 select_best --device cuda on phase g's bf16 run: ranking "
+        f"{[(r['step'], r['val_mean']) for r in summary['val_ranking']]}, soup val "
+        f"{summary.get('val_soup_mean')}, artifact steps {summary['artifact_steps']}, eval "
+        f"{summary['eval_soup_mean']} (int8 {summary['eval_soup_int8_mean']}), pruned "
+        f"{summary['pruned_steps']}, best/act_scales.json written; {secs:.1f} s for "
+        f"{3 + len(summary['val_ranking'])} ctc_sweep children [{card}]")
+    before = kernels.counts()
+    eval_seq = os.path.join(root, "eval", dataset, "01")
+    n = infer_main(["--model_path", best, "--sequence_path", eval_seq, "--output_path",
+                    os.path.join(work, "best_res"), "--device", "cuda",
+                    "--pre_sequence_frames", "2"])
+    ran = launched_since(kernels, before, "inference2d from best/", ("lstm_gate_update", "ccl"))
+    if n != HELDOUT_FRAMES:
+        raise AssertionError(f"inference2d from best/: {n} masks")
+    log(f"n2 inference2d from best/: {n} masks; launches {ran}")
+
+    # n3: probability dumps of best/ on val and eval, then the calibration
+    # on dumps that hold cells
+    before = kernels.counts()
+    for sub, seqs in (("train", "03"), ("eval", "")):
+        sweep_main(["--model_path", best, "--root_data_dir", os.path.join(root, sub),
+                    "--output_root", os.path.join(work, f"{sub}_best_dump"), "--device", "cuda",
+                    "--save_intermediate", "--min_cell_size", "50", "--pre_sequence_frames",
+                    "2", *(["--seqs", seqs] if seqs else [])])
+    ran = launched_since(kernels, before, "ctc_sweep --save_intermediate",
+                         ("lstm_gate_update", "ccl"))
+    n_dumps = sum(len(glob.glob(os.path.join(work, f"{sub}_best_dump", dataset, "*_RES",
+                                             "intermediate", "probs*.npy")))
+                  for sub in ("train", "eval"))
+    if n_dumps != 3 * HELDOUT_FRAMES:
+        raise AssertionError(f"ctc_sweep --save_intermediate of best/: {n_dumps} dumps")
+    dumps = {sub: os.path.join(work, f"{sub}_dump") for sub in ("train", "eval")}
+    found = {sub: gt_dumps(torch, kernels, os.path.join(root, sub), dumps[sub], dataset)
+             for sub in dumps}
+    if sorted(found["train"]) != ["03"] or sorted(found["eval"]) != ["01", "02"] or not all(
+            v > 0 for f in found.values() for v in f.values()):
+        raise AssertionError(f"the GT's dumps: instances {found}")
+    t0 = time.perf_counter()
+    calib = calibrate_recipe.main([
+        "--gt_root_val", os.path.join(root, "train"), "--pred_root_val", dumps["train"],
+        "--val_seqs", "03", "--gt_root_eval", os.path.join(root, "eval"),
+        "--pred_root_eval", dumps["eval"], "--out", os.path.join(work, "calibration.json"),
+        "--device", "cuda", "--cell_grid", "0.5,0.6", "--edge_grid", "0.3",
+        "--size_filter_grid", "pre,post", "--split_hi_grid", "0.8",
+        "--split_min_size_grid", "0,3500"])
+    if not (calib["val_baseline"] > 0.5 and calib["eval_baseline"] > 0.5):
+        raise AssertionError(f"calibrate_recipe: the baselines hold no cells: {calib}")
+    log(f"n3 ctc_sweep --save_intermediate of best/ (val, eval): {n_dumps} dumps, launches "
+        f"{ran}; dumps of the GT's first {GT_DUMP_FRAMES} frames (3 classes + noise, masks "
+        f"on the CPU: instances {found}); calibrate_recipe --device cuda on them (8 split + "
+        f"4 plain configs on val, its --baseline_check bit for bit) in "
+        f"{time.perf_counter() - t0:.1f} s: winner {calib['winner']}, val "
+        f"{calib['val_best']:.4f} (baseline {calib['val_baseline']:.4f}), eval "
+        f"{calib['eval_mean']:.4f} (baseline {calib['eval_baseline']:.4f})")
+
+    # n4: the postprocess sweep in this process, on the card and on the CPU
+    times = []
+    run_config = postprocess_sweep.run_config
+
+    def timed(probs, cfg):
+        t1 = time.perf_counter()
+        out = run_config(probs, cfg)  # ends in a copy to the host
+        times.append(time.perf_counter() - t1)
+        return out
+
+    grid = ["--gt_root", os.path.join(root, "eval"), "--pred_root", dumps["eval"],
+            "--min_cell_size", "50", "--baseline_check", "--cell_grid", "0.5,0.6",
+            "--edge_grid", "0.3,0.4", "--split_hi_grid", "0.8", "--limit_frames", "2"]
+    swept, ms = {}, {}
+    postprocess_sweep.run_config = timed
+    try:
+        for dev in ("cuda", "cpu"):
+            times.clear()
+            json_out = os.path.join(work, f"ppsweep_{dev}.json")
+            before = kernels.counts()
+            if dev == "cuda":
+                rc, text = captured(postprocess_sweep.main, grid + ["--device", dev,
+                                                                     "--json_out", json_out])
+                ran = launched_since(kernels, before, "postprocess_sweep", ("ccl",))
+            else:
+                rc, text = aside(kernels, captured, postprocess_sweep.main,
+                                 grid + ["--device", dev, "--json_out", json_out])
+            if rc != 0 or "BASELINE MISMATCH" in text:
+                raise AssertionError(f"postprocess_sweep --device {dev}: rc {rc}")
+            with open(json_out) as f:
+                swept[dev] = json.load(f)
+            ms[dev] = 1e3 * sum(times) / len(times)
+    finally:
+        postprocess_sweep.run_config = run_config
+    rows = swept["cuda"]["rows"]
+    if (swept["cuda"] != swept["cpu"] or len(rows) != 4 or swept["cpu"]["n_frames"] != 4
+            or not swept["cpu"]["baseline_mean"] > 0.5 or not all(r["mean"] > 0 for r in rows)):
+        raise AssertionError(f"postprocess_sweep: the card's JSON is not the CPU's, or holds "
+                             f"no cells: {swept['cuda']} vs {swept['cpu']}")
+    log(f"n4 postprocess_sweep (2x2 grid, 'prob' split, 2 frames of each eval sequence, "
+        f"--baseline_check): JSON equal on cuda and the CPU (baseline SEG "
+        f"{swept['cpu']['baseline_mean']:.4f}, rows {[round(r['mean'], 4) for r in rows]}); "
+        f"ms per (config, frame) incl. the copy to the host: cuda {ms['cuda']:.3f}, cpu "
+        f"{ms['cpu']:.3f} [{card}]; launches {ran}")
+
+    # n5: the oracle ceiling, split off and on, on the card and on the CPU
+    means = {}
+    before = kernels.counts()
+    for extra in ([], ["--instance_split"]):
+        argv = ["--root", os.path.join(root, "eval"), "--max_frames", "2", *extra]
+        means[bool(extra)] = (oracle_ceiling.main(argv + ["--device", "cuda"]),
+                              aside(kernels, oracle_ceiling.main, argv + ["--device", "cpu"]))
+        if means[bool(extra)][0] != means[bool(extra)][1]:
+            raise AssertionError(f"oracle_ceiling {extra}: {means[bool(extra)]}")
+    ran = launched_since(kernels, before, "oracle_ceiling", ("ccl",))
+    log(f"n5 oracle_ceiling (2 frames of each eval sequence): mean SEG split off "
+        f"{means[False][0]:.4f}, 'dist' split {means[True][0]:.4f}, each equal on cuda "
+        f"and the CPU; launches {ran}")
+
+    # n6: the host-side scorers
+    rc, text = captured(mask_agreement.main, [os.path.join(work, "golden_res_0"),
+                                              os.path.join(GOLDEN, "masks")])
+    if rc != 0 or text.strip() != "agreement=1.0000 frames=8":
+        raise AssertionError(f"mask_agreement: rc {rc}, {text!r}")
+    t0 = time.perf_counter()
+    seg_error_decomposition.main(["--gt_root", os.path.join(root, "eval"),
+                                  "--pred_root", dumps["eval"], "--top", "3"])
+    split_sweep.main(["--gt_root", os.path.join(root, "eval"), "--pred_root", dumps["eval"],
+                      "--seqs", "01", "--method", "prob"])
+    log(f"n6 mask_agreement of phase d's golden masks: {text.strip()}; "
+        f"seg_error_decomposition and split_sweep on n3's eval masks: "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # n7: carry drift on phase g's flagship, then on the golden model fused
+    frames, segment, every = CARRY_FRAMES, CARRY_SEGMENT, CARRY_EVERY
+    golden_fused = os.path.join(work, "golden_fused_model")
+    shutil.copytree(os.path.join(GOLDEN, "torch_ckpt"), golden_fused)
+    arch_path = os.path.join(golden_fused, "model_params.json")
+    with open(arch_path) as f:
+        arch = json.load(f)
+    arch["model_config"]["fused_cell"] = True
+    with open(arch_path, "w") as f:
+        json.dump(arch, f)
+    need = {"flagship": ("lstm_gate_update", "ccl"),
+            "golden fused": ("fused_convlstm_level_narrow", "ccl")}
+    for name, model_path in (("flagship", run_dir), ("golden fused", golden_fused)):
+        before = kernels.counts()
+        out = carry_drift.main(["--model_path", model_path, "--frames", str(frames),
+                                "--size", str(size), "--segment", str(segment),
+                                "--report_every", str(every), "--device", "cuda"])
+        ran = launched_since(kernels, before, f"carry_drift {name}", need[name])
+        if len(out["rows"]) != frames // every:
+            raise AssertionError(f"carry_drift {name}: {out['rows']}")
+        log(f"n7 carry_drift {name} at {size}^2, {frames} frames, segment {segment}: "
+            f"ms/frame (step + softmax + postprocess) "
+            + ", ".join(f"{k} {v:.3f}" for k, v in out["ms_per_frame"].items())
+            + f" [{card}]; launches {ran}")
+    secs = time.perf_counter() - t_phase
+    log(f"phase n: {secs:.1f} s (budget {PHASE_N_BUDGET_S:.0f} s)")
+    if secs > PHASE_N_BUDGET_S:
+        raise AssertionError(f"phase n took {secs:.1f} s, over its {PHASE_N_BUDGET_S:.0f} s")
+    return secs
+
+
+def scripts_alone():
+    """Phase n on its own, with the phases whose outputs it reads (d: the
+    golden masks, g: the trained flagship run); the kernels built first."""
+    import torch
+    from lstm_unet_tpu_torch.ops.kernels import _build
+
+    _build.library()
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True).stdout.strip().splitlines()[0]
+    log(card)
+    with tempfile.TemporaryDirectory() as work:
+        phase_golden(torch, work)
+        run_dir = phase_train(torch, work, card, {})
+        phase_scripts(torch, work, card, run_dir)
+
+
+def flagship_carry_drift(frames=1200, steps=5):
+    """The carry-drift protocol at full length: the flagship trained
+    ``steps`` bf16 steps as phase g trains it (B5 T7 256^2 crops of a 512^2
+    sequence; its validation SEG logged), then ``carry_drift`` at 512^2, one
+    coherent sequence of ``frames`` frames (``--segment`` = ``--frames``,
+    ``--velocity_scale 0.2``), reported every 100 frames."""
+    import torch
+    from lstm_unet_tpu_torch.cli.train2d import main as train_main
+    from lstm_unet_tpu_torch.io.synthetic import write_ctc_dataset
+    from lstm_unet_tpu_torch.scripts import carry_drift
+
+    log(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                       capture_output=True, text=True, check=True).stdout.strip())
+    with tempfile.TemporaryDirectory() as work:
+        root = os.path.join(work, "train_data")
+        write_ctc_dataset(root, num_frames=16, height=512, width=512, num_cells=40, seed=0)
+        trainer = train_main(train_args(root, os.path.join(work, "runs"), "bfloat16", steps))
+        run_dir = os.path.dirname(trainer.p.experiment_save_dir)
+        vm = trainer.last_val_metrics
+        log(f"flagship after {steps} bf16 steps: loss {trainer.history[-1]['loss']:.4f}, "
+            f"validation seg {vm['seg']:.4f} det {vm['det']:.4f}")
+        del trainer
+        torch.cuda.empty_cache()
+        carry_drift.main(["--model_path", run_dir, "--frames", str(frames), "--size", "512",
+                          "--segment", str(frames), "--velocity_scale", "0.2",
+                          "--report_every", "100", "--device", "cuda"])
+
+
 # ---------------------------------------------------------------- phase m
 
 MESH_RANKS = 2
@@ -2538,6 +2897,18 @@ def main() -> int:
         if any(v["plain"] for v in sweep.values()):
             raise AssertionError(f"sweep path: plain versions ran: {sweep}")
         add_counts(launched, sweep)
+        # (n): the workflow scripts on phase g's run, counted from 0
+        kernels.reset_counts()
+        phase_scripts(torch, work, smi, run_dir)
+        scripts = kernels.counts()
+        for k in ("lstm_gate_update", "ccl", "fused_convlstm_level_narrow"):
+            if scripts[k]["kernel"] == 0:
+                raise AssertionError(f"scripts path: {k} never launched: {scripts}")
+        if any(v["plain"] for v in scripts.values()):
+            raise AssertionError(f"scripts path: plain versions ran: {scripts}")
+        log(f"phase n launches in this process: "
+            f"{ {k: v['kernel'] for k, v in scripts.items() if v['kernel']} }")
+        add_counts(launched, scripts)
         # (m): the meshes, two ranks sharing the card, counted from 0 on the ranks
         phase_mesh(torch, work, smi, launched)
     phase_train_vs_plain(torch)

@@ -18,6 +18,9 @@ its JAX counterpart:
 - ``parallel``   — process groups, the 'data' / 'spatial' mesh, halo exchange
 - ``cli``        — ``python -m lstm_unet_tpu_torch.cli.{inference2d,train2d,
                    ctc_sweep,ctc_score,ckpt_avg,import_tf}``
+- ``scripts``    — the workflow scripts (``select_best``, ``calibrate_recipe``,
+                   ``postprocess_sweep``, ``carry_drift``, ...), the
+                   counterparts of the reference's ``scripts/*.py``
 """
 
 __version__ = "0.1.0"

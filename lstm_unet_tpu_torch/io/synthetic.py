@@ -67,10 +67,18 @@ def make_cell_sequence(
     for t in range(num_frames):
         for c in range(num_cells):
             y, x = cy[c] + vy[c] * t, cx[c] + vx[c] * t
-            d = ((yy - y) / ry[c]) ** 2 + ((xx - x) / rx[c]) ** 2
+            # the reference's full-frame ellipse, on the cell's box widened by
+            # a pixel: outside it d > 1 whatever the rounding, inside the
+            # same values come out
+            y0, y1 = max(int(y - ry[c]) - 1, 0), min(int(y + ry[c]) + 2, height)
+            x0, x1 = max(int(x - rx[c]) - 1, 0), min(int(x + rx[c]) + 2, width)
+            if y0 >= y1 or x0 >= x1:
+                continue
+            d = (((yy[y0:y1, x0:x1] - y) / ry[c]) ** 2
+                 + ((xx[y0:y1, x0:x1] - x) / rx[c]) ** 2)
             inside = d <= 1.0
-            labs[t][inside] = c + 1  # later cells overwrite earlier ones
-            imgs[t][inside] = inten[c] * np.exp(-d[inside])
+            labs[t, y0:y1, x0:x1][inside] = c + 1  # later cells overwrite earlier ones
+            imgs[t, y0:y1, x0:x1][inside] = inten[c] * np.exp(-d[inside])
         imgs[t] += rng.normal(0, noise, (height, width)).astype(np.float32)
     imgs = np.clip(imgs, 0, None)
     imgs_u16 = (imgs / max(imgs.max(), 1e-6) * 60000).astype(np.uint16)

@@ -25,9 +25,8 @@ def dense_ranks(labels: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
 
 def joint_histogram(gt_ranks: np.ndarray, n_gt: int, pred_ranks: np.ndarray,
                     n_pred: int) -> np.ndarray:
-    joint = np.zeros((n_gt, n_pred), np.int64)
-    np.add.at(joint, (gt_ranks.ravel(), pred_ranks.ravel()), 1)
-    return joint
+    flat = gt_ranks.ravel().astype(np.int64) * n_pred + pred_ranks.ravel()
+    return np.bincount(flat, minlength=n_gt * n_pred).reshape(n_gt, n_pred)
 
 
 def seg_measure(gt: np.ndarray, pred: np.ndarray) -> Tuple[float, int]:

@@ -29,6 +29,7 @@ from lstm_unet_tpu_torch.models import ModelConfig, ULSTMnet2D
 from lstm_unet_tpu_torch.ops.kernels import conv_int8
 from lstm_unet_tpu_torch.models import quantize_model_int8
 from lstm_unet_tpu_torch.parallel import comm, distributed, halo, mesh
+from lstm_unet_tpu_torch.scripts import carry_drift, postprocess_sweep, select_best
 assert mesh.make_mesh({"data": 1}) is None and distributed.initialize("cpu").type == "cpu"
 model = ULSTMnet2D(ModelConfig.make(tiny_net_kernel_params()),
                    generator=torch.Generator().manual_seed(0))
@@ -84,7 +85,8 @@ def test_port_runs_without_jax_or_the_reference():
 
 @pytest.mark.parametrize("path", sorted(glob.glob(os.path.join(PORT, "**", "*.py"),
                                                   recursive=True))
-                         + [os.path.join(ROOT, "chip_smoke.py")])
+                         + [os.path.join(ROOT, "chip_smoke.py")]
+                         + sorted(glob.glob(os.path.join(ROOT, "scripts", "profile_torch_*.py"))))
 def test_no_module_imports_jax_triton_at_top_or_the_reference(path):
     """Nothing in the port imports jax, lstm_unet_tpu or grain, and nothing
     imports triton (a CUDA-only package) when its module is imported."""

@@ -131,9 +131,12 @@ def test_tiff_rejects_unsupported_writes(tmp_path):
 
 @pytest.mark.parametrize("kw", [dict(), dict(overlap_frac=0.5, overlap_gap=(0.45, 0.95),
                                              overlap_match_intensity=True,
-                                             overlap_rel_velocity=0.3)])
+                                             overlap_rel_velocity=0.3),
+                                # cells that drift out of the frame, and wide ones
+                                dict(num_frames=12, velocity_scale=4.0, radius_scale=2.5)])
 def test_synthetic_sequence_equals_reference(kw):
-    args = dict(num_frames=3, height=40, width=36, num_cells=5, seed=7, **kw)
+    args = dict(num_frames=3, height=40, width=36, num_cells=5, seed=7)
+    args.update(kw)
     for got, want in zip(synthetic.make_cell_sequence(**args),
                          jax_synth.make_cell_sequence(**args)):
         np.testing.assert_array_equal(got, want)
