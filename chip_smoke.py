@@ -7,7 +7,8 @@ Phases, each of which raises (exit != 0) when it fails:
   a. device: the GPU's name and power limit;
   b. build: the CUDA kernels from ``lstm_unet_tpu_torch/csrc``;
   c. each kernel against its plain PyTorch version, at the flagship model's
-     shapes, with its tolerance; times from CUDA events. K4 has four
+     shapes (K1 also at its training levels at B = 5 and 8), with its
+     tolerance; times from CUDA events. K4 has four
      routes: the bf16 tensor-core kernel and the f32 one (3xTF32), each at
      all four flagship levels; the narrow kernel (bf16 and 3xTF32) at 512^2
      F = 32 and 96 5x5 and F = 64 7x7 and at the tiny model's levels (32^2
@@ -63,7 +64,7 @@ Phases, each of which raises (exit != 0) when it fails:
      tensor-core launches, 1 K3 (fused), no plain call; frames/s; one int8
      frame's logits within 0.15 of the bf16 frame's largest |logit|;
   f. K2 (the gate backward) against its plain version at the flagship
-     training shapes (B = 5, 256^2 crops), with K2's time;
+     training shapes (B = 5 and 8, 256^2 crops), with K2's time;
   g. the flagship trained through ``cli/train2d.main`` (B = 5, T = 7, 256^2
      crops of a synthetic 512^2 sequence) in float32 and bfloat16: a few
      steps, one validation, the final checkpoint (bf16: also one at step 4,
@@ -85,7 +86,8 @@ Phases, each of which raises (exit != 0) when it fails:
   h. one f32 flagship training step (loss and grads) with the kernels
      against the same step with the plain versions patched in;
   j (kernels). the kernels at the lane counts of TTA and batched streams:
-     K4's bf16 and 3xTF32 routes at B = 8 at the four flagship levels, the
+     K4's bf16 route at B = 4 and 8 and its 3xTF32 route at B = 8 at the
+     four flagship levels, the
      int8 conv at B = 4 at every flagship int8 shape (the wgmma route with
      the N tile it picks at B = 4, a static scale and the dynamic scale
      shared by the lanes; the mma_sync kernel at the cin = 1 site), each against
@@ -137,7 +139,17 @@ Phases, each of which raises (exit != 0) when it fails:
      ``split_sweep`` on n3's masks; n7 ``carry_drift`` at 512^2, 300 frames,
      on phase g's flagship (K1, K3) and on the golden model with
      ``fused_cell`` (K4's narrow route, K3), its rows and ms/frame. Its wall
-     time is printed beside a budget of 150 s.
+     time is printed beside a budget of 240 s.
+  o. (counted from 0, after n) the port's bench, ``lstm_unet_tpu_torch.bench
+     .main`` in this process on the flagship at full width and depth: o1 the
+     default line with ``--mfu`` (int8 calibrated unfused 512^2, B = 1, 32
+     frames, with training B8 T7 and the B5 parity line, bf16, full remat),
+     o2 bf16 fused, o3 bf16 fused at 4 lanes, o4 f32 fused (8 frames), o5
+     ``--mode train --remat_policy none --train_batch 5``; each one JSON line
+     (printed after the card's name and power limit) with ``value`` > 0 and
+     every ``mfu`` in (0, 1], launching its kernels (o1: both int8 routes,
+     K1, K3, K2; o2, o3: K4 wgmma; o4: K4 3xTF32; o5: K1, K2) and no plain
+     version. Its wall time is printed beside a budget of 120 s.
 The last two lines are a JSON kernel summary (K3's two routes as ``ccl`` and
 ``ccl_grid``; ``conv2d_int8_wgmma`` summed over the 24 convs of one unfused
 int8 frame it takes, with each shape beside; ``conv2d_int8_smallk`` at the
@@ -290,13 +302,16 @@ def phase_kernels(torch):
     g = torch.Generator(device=dev).manual_seed(0)
     out = {}
 
-    # K1 at the flagship's four ConvLSTM levels (rows = H*W, F); gates and
-    # state dtypes as dtype / state_dtype combine on the path
+    # K1 at the flagship's four ConvLSTM levels (rows = H*W, F), then at its
+    # training levels (256^2 crops) at B = 5 and 8, the bench's two training
+    # batches (rows = B*H*W); gates and state dtypes as dtype / state_dtype
+    # combine on the path
     tol = {torch.float32: (1e-6, 1e-6),        # ulp-level: same f32 formulas
            torch.bfloat16: (1e-6, 2.0 ** -7)}  # one bf16 ulp of output rounding
     errs, timing = [], None
-    for rows, feat in ((512 * 512, 128), (256 * 256, 256), (128 * 128, 256),
-                       (64 * 64, 512)):
+    shapes = [(hw * hw, feat) for hw, feat in FLAGSHIP_LEVELS]
+    shapes += [(b * (hw // 2) ** 2, feat) for b in (5, 8) for hw, feat in FLAGSHIP_LEVELS]
+    for rows, feat in shapes:
         for gdt, sdt in ((torch.float32, torch.float32),
                          (torch.bfloat16, torch.bfloat16),
                          (torch.bfloat16, torch.float32)):
@@ -649,7 +664,8 @@ def phase_k4_narrow(torch, g):
 
 def phase_k2(torch):
     """(f): K2 against its plain version at the flagship training shapes
-    (rows = 5 x H x W of each level); returns its summary."""
+    (rows = B x H x W of each level at B = 5 and 8, 256^2 crops: the
+    trainer's and the bench's batches); returns its summary."""
     from lstm_unet_tpu_torch.ops.kernels import lstm_gates
 
     dev = torch.device("cuda")
@@ -657,8 +673,8 @@ def phase_k2(torch):
     tol = {torch.float32: (1e-6, 1e-6),        # same f32 formulas, same rounding
            torch.bfloat16: (1e-6, 2.0 ** -7)}  # one bf16 ulp of output rounding
     errs, timing = [], None
-    for hw, feat in ((256, 128), (128, 256), (64, 256), (32, 512)):
-        rows = 5 * hw * hw
+    for b, hw, feat in [(b, hw // 2, feat) for b in (5, 8) for hw, feat in FLAGSHIP_LEVELS]:
+        rows = b * hw * hw
         for gdt, sdt in ((torch.float32, torch.float32),
                          (torch.bfloat16, torch.bfloat16),
                          (torch.bfloat16, torch.float32)):
@@ -1717,7 +1733,8 @@ def phase_batched_kernels(torch):
     """(j, kernels): the kernels at the lane counts of TTA and batched streams,
     against their plain versions. K4's two tensor-core routes at B = 8 (TTA
     'd4') at the four flagship levels: bf16 with bf16 and f32 state, 3xTF32
-    with f32 state, to K4's tolerances; the int8 conv at B = 4 (TTA 'flip', a
+    with f32 state, to K4's tolerances, and the bf16 route at B = 4 too (TTA
+    'flip', the bench's 4 lanes); the int8 conv at B = 4 (TTA 'flip', a
     batched sweep) at every flagship int8 shape: the wgmma route bit-equal
     from bf16 x with a static scale and with the dynamic scale (one abs-max
     over all four lanes) and with the N tile ``kernel_tile_n`` picks for
@@ -1729,10 +1746,10 @@ def phase_batched_kernels(torch):
     g = torch.Generator(device="cuda").manual_seed(21)
     out = {"fused_convlstm_level_wgmma": [], "fused_convlstm_level_tf32x3": [],
            "conv2d_int8_wgmma": [], "conv2d_int8": []}
-    b = 8
-    for name, dt, sdts in (("fused_convlstm_level_wgmma", torch.bfloat16,
-                            (torch.float32, torch.bfloat16)),
-                           ("fused_convlstm_level_tf32x3", torch.float32, (torch.float32,))):
+    for name, b, dt, sdts in (
+            ("fused_convlstm_level_wgmma", 4, torch.bfloat16, (torch.float32, torch.bfloat16)),
+            ("fused_convlstm_level_wgmma", 8, torch.bfloat16, (torch.float32, torch.bfloat16)),
+            ("fused_convlstm_level_tf32x3", 8, torch.float32, (torch.float32,))):
         for hw, feat in FLAGSHIP_LEVELS:
             rt = convlstm_cell.route(hw, hw, feat, 5, b, dt)
             if rt != ("wgmma" if dt == torch.bfloat16 else "tf32x3"):
@@ -2417,6 +2434,14 @@ def phase_scripts(torch, work, card, run_dir):
     return secs
 
 
+def card_name(torch):
+    """Card 0's name and power limit, as the bench's JSON line holds them."""
+    from lstm_unet_tpu_torch.bench import device_info
+
+    name, limit = device_info(torch.device("cuda", 0))
+    return f"{name}, {limit}"
+
+
 def scripts_alone():
     """Phase n on its own, with the phases whose outputs it reads (d: the
     golden masks, g: the trained flagship run); the kernels built first."""
@@ -2424,9 +2449,7 @@ def scripts_alone():
     from lstm_unet_tpu_torch.ops.kernels import _build
 
     _build.library()
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True, text=True,
-                          check=True).stdout.strip().splitlines()[0]
+    card = card_name(torch)
     log(card)
     with tempfile.TemporaryDirectory() as work:
         phase_golden(torch, work)
@@ -2445,8 +2468,7 @@ def flagship_carry_drift(frames=1200, steps=5):
     from lstm_unet_tpu_torch.io.synthetic import write_ctc_dataset
     from lstm_unet_tpu_torch.scripts import carry_drift
 
-    log(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                       capture_output=True, text=True, check=True).stdout.strip())
+    log(card_name(torch))
     with tempfile.TemporaryDirectory() as work:
         root = os.path.join(work, "train_data")
         write_ctc_dataset(root, num_frames=16, height=512, width=512, num_cells=40, seed=0)
@@ -2460,6 +2482,81 @@ def flagship_carry_drift(frames=1200, steps=5):
         carry_drift.main(["--model_path", run_dir, "--frames", str(frames), "--size", "512",
                           "--segment", str(frames), "--velocity_scale", "0.2",
                           "--report_every", "100", "--device", "cuda"])
+
+
+# ---------------------------------------------------------------- phase o
+
+PHASE_O_BUDGET_S = 120.0
+# (run, argv of ``python -m lstm_unet_tpu_torch.bench``, kernels it must launch)
+BENCH_RUNS = (
+    ("o1", ["--mfu"], ("conv2d_int8_wgmma", "conv2d_int8_smallk", "lstm_gate_update", "ccl",
+                       "lstm_gate_update_bwd")),
+    ("o2", ["--dtype", "bfloat16", "--fused_cell", "--no-train_too", "--mfu"],
+     ("fused_convlstm_level_wgmma", "ccl")),
+    ("o3", ["--dtype", "bfloat16", "--fused_cell", "--batch", "4", "--no-train_too"],
+     ("fused_convlstm_level_wgmma", "ccl")),
+    ("o4", ["--dtype", "float32", "--fused_cell", "--frames", "8", "--no-train_too", "--mfu"],
+     ("fused_convlstm_level_tf32x3", "ccl")),
+    ("o5", ["--mode", "train", "--remat_policy", "none", "--train_batch", "5", "--mfu"],
+     ("lstm_gate_update", "lstm_gate_update_bwd")),
+)
+
+
+def phase_bench(card, launched):
+    """(o): the port's bench, ``lstm_unet_tpu_torch.bench.main``, in this
+    process at the flagship's full width and depth, each run counted: one
+    JSON line with ``value`` > 0, every ``mfu`` in (0, 1], the kernels of
+    ``BENCH_RUNS`` launched and no plain version. Adds the launches to
+    ``launched``; fails past ``PHASE_O_BUDGET_S``."""
+    import contextlib
+    import io
+
+    import torch
+    from lstm_unet_tpu_torch import bench
+    from lstm_unet_tpu_torch.ops import kernels
+
+    t0 = time.perf_counter()
+    kernels.reset_counts()
+    log(f"phase o: {torch.cuda.memory_reserved() / 2 ** 30:.1f} GiB reserved at its start")
+    for name, argv, need in BENCH_RUNS:
+        before = kernels.counts()
+        retries = torch.cuda.memory_stats().get("num_alloc_retries", 0)
+        torch.cuda.reset_peak_memory_stats()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            out = bench.main(argv)
+        lines = [line for line in buf.getvalue().splitlines() if line.startswith("{")]
+        if len(lines) != 1 or json.loads(lines[0]) != out:
+            raise AssertionError(f"bench {name}: not one JSON line: {buf.getvalue()!r}")
+        ran = launched_since(kernels, before, f"bench {name}", need)
+        mfus = {k: out[k] for k in ("mfu", "train_mfu") if k in out}
+        args = bench.build_parser().parse_args(argv)
+        want = set() if not args.mfu else (
+            {"train_mfu"} if args.mode == "train"
+            else {"mfu", "train_mfu"} if args.train_too else {"mfu"})
+        if not out["value"] > 0 or set(mfus) != want or not all(0 < v <= 1 for v in mfus.values()):
+            raise AssertionError(f"bench {name}: value or mfu out of range: {out}")
+        log(f"bench {name} ({card}): {lines[0]}")
+        log(f"  launches: {ran}; peak {torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB "
+            f"allocated, {torch.cuda.memory_reserved() / 2 ** 30:.1f} GiB reserved, "
+            f"{torch.cuda.memory_stats().get('num_alloc_retries', 0) - retries} allocator "
+            "retries (cached blocks freed to satisfy a request)")
+    add_counts(launched, kernels.counts())
+    secs = time.perf_counter() - t0
+    log(f"phase o: {secs:.1f} s (budget {PHASE_O_BUDGET_S:.0f} s)")
+    if secs > PHASE_O_BUDGET_S:
+        raise AssertionError(f"phase o took {secs:.1f} s, past its {PHASE_O_BUDGET_S:.0f} s")
+
+
+def bench_alone():
+    """Phase o on its own, the kernels built first."""
+    import torch
+    from lstm_unet_tpu_torch.ops.kernels import _build
+
+    _build.library()
+    card = card_name(torch)
+    log(card)
+    phase_bench(card, {})
 
 
 # ---------------------------------------------------------------- phase m
@@ -2909,6 +3006,8 @@ def main() -> int:
         log(f"phase n launches in this process: "
             f"{ {k: v['kernel'] for k, v in scripts.items() if v['kernel']} }")
         add_counts(launched, scripts)
+        # (o): the port's bench, five runs, each counted
+        phase_bench(smi, launched)
         # (m): the meshes, two ranks sharing the card, counted from 0 on the ranks
         phase_mesh(torch, work, smi, launched)
     phase_train_vs_plain(torch)

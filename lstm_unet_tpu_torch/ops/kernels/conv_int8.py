@@ -76,6 +76,14 @@ def _ceil_to(v: int, m: int) -> int:
     return -(-v // m) * m
 
 
+def div127(t: torch.Tensor) -> torch.Tensor:
+    """``t / 127``, a true division rounded to nearest on every device, as the
+    reference forms its scales (and the kernels theirs). PyTorch's CUDA
+    division by a Python scalar multiplies by the scalar's rounded reciprocal,
+    one ulp off the division for some values."""
+    return t / torch.full_like(t, 127.0)
+
+
 def quantize_act(x: torch.Tensor, scale: Optional[torch.Tensor] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-tensor symmetric quantization -> (int8 x, 0-d f32 scale on x's
@@ -84,7 +92,7 @@ def quantize_act(x: torch.Tensor, scale: Optional[torch.Tensor] = None
     / 127``, no host read); a static (calibrated) scale skips the reduction."""
     if scale is None:  # max|x| is exact in x's dtype: one pass, no f32 copy
         amax = torch.linalg.vector_norm(x, ord=float("inf")).float()
-        scale = torch.clamp(amax, min=1e-8) / 127.0
+        scale = div127(torch.clamp(amax, min=1e-8))
     xf = x.float()  # a new tensor (or x itself when x is f32: not updated in place)
     xf = xf.div(scale) if xf is x else xf.div_(scale)
     return xf.round_().clamp_(-127, 127).to(torch.int8), scale

@@ -43,7 +43,7 @@ from torch import nn
 
 from ..parallel.comm import all_reduce_
 from ..parallel.halo import on_extended_rows
-from .kernels.conv_int8 import (conv2d_int8, conv2d_int8_smallk, conv2d_int8_wgmma,
+from .kernels.conv_int8 import (conv2d_int8, conv2d_int8_smallk, conv2d_int8_wgmma, div127,
                                  pack_weight, pack_weight_smallk, pack_weight_wgmma,
                                  quantize_act, unpack_weight, unpack_weight_smallk,
                                  unpack_weight_wgmma, weight_route)
@@ -54,7 +54,7 @@ ActScales = Optional[Dict[str, float]]
 def quantize_weight(kernel: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """OIHW float kernel -> (int8 kernel, per-cout f32 scale)."""
     k = kernel.float()
-    s = torch.clamp(k.abs().amax(dim=(1, 2, 3)) / 127.0, min=1e-12)
+    s = torch.clamp(div127(k.abs().amax(dim=(1, 2, 3))), min=1e-12)
     q = torch.clamp(torch.round(k / s[:, None, None, None]), -127, 127).to(torch.int8)
     return q, s
 
@@ -137,7 +137,7 @@ def split_scale(x: torch.Tensor, split) -> torch.Tensor:
     ``max(max|x|, 1e-8) / 127`` over every rank of ``split.parts``, formed
     as :func:`quantize_act` forms it from one tensor."""
     amax = torch.linalg.vector_norm(x, ord=float("inf")).float().reshape(1)
-    return torch.clamp(all_reduce_(amax, "max", split.parts)[0], min=1e-8) / 127.0
+    return div127(torch.clamp(all_reduce_(amax, "max", split.parts)[0], min=1e-8))
 
 
 def _conv(x: torch.Tensor, scale: Optional[torch.Tensor], packed: torch.Tensor,

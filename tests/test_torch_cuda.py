@@ -682,6 +682,40 @@ def test_conv2d_int8_wgmma_shares_the_dynamic_scale_over_lanes(cuda):
     assert not torch.equal(conv_int8.conv2d_int8_wgmma(x[:1].contiguous(), None, *a), got[:1])
 
 
+def test_int8_scales_on_the_card_equal_the_cpu(cuda):
+    """``max|x| / 127`` formed on the card as on the CPU (one rounding, as the
+    reference and the kernels form it) at an abs-max of each of the 128 bf16
+    significands: the dynamic activation scale of ``quantize_act``, the
+    weights' per-column scales and codes, and the wgmma kernel with a
+    dynamic scale bit-equal to its plain version. A division by the Python
+    scalar 127 on the card is one ulp off at some of these abs-maxes."""
+    from lstm_unet_tpu_torch.ops import quant
+    from lstm_unet_tpu_torch.ops.kernels import conv_int8
+
+    amax = (torch.arange(128, 256) / 128).to(torch.bfloat16)
+    want = amax.float() / 127.0  # the CPU divides
+    got = torch.stack([conv_int8.quantize_act(a.reshape(1, 1, 1, 1).to(cuda))[1]
+                       for a in amax])
+    assert torch.equal(got.cpu(), want)
+
+    g = torch.Generator().manual_seed(8)
+    k = (torch.rand(128, 16, 3, 3, generator=g) - 0.5) * amax.float()[:, None, None, None]
+    k[:, 0, 0, 0] = amax.float()
+    q_cpu, s_cpu = quant.quantize_weight(k)
+    q_card, s_card = quant.quantize_weight(k.to(cuda))
+    assert torch.equal(s_cpu, want) and torch.equal(s_card.cpu(), s_cpu)
+    assert torch.equal(q_card.cpu(), q_cpu)
+
+    packed = conv_int8.pack_weight_wgmma(q_card[:16].contiguous())
+    x = (torch.rand(1, 8, 8, 16, device=cuda, generator=torch.Generator(cuda).manual_seed(9))
+         - 0.5).to(torch.bfloat16)
+    for a in amax:
+        x[0, 0, 0, 0] = a
+        args = (x, None, packed, s_card[:16], None, 3, torch.float32)
+        assert torch.equal(conv_int8.conv2d_int8_wgmma(*args),
+                           conv_int8.conv2d_int8_wgmma_plain(*args)), float(a)
+
+
 @pytest.mark.parametrize("flags", [["--tta"], ["--tta", "--tta_mode", "d4"],
                                    ["--reset_on_jump", "0.4"]])
 def test_tta_and_reset_on_the_card_equal_cpu(cuda, tmp_path, flags):

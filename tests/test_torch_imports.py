@@ -30,6 +30,8 @@ from lstm_unet_tpu_torch.ops.kernels import conv_int8
 from lstm_unet_tpu_torch.models import quantize_model_int8
 from lstm_unet_tpu_torch.parallel import comm, distributed, halo, mesh
 from lstm_unet_tpu_torch.scripts import carry_drift, postprocess_sweep, select_best
+from lstm_unet_tpu_torch import bench
+assert bench.conv_flops(tiny_net_kernel_params(), 16, 16) > 0
 assert mesh.make_mesh({"data": 1}) is None and distributed.initialize("cpu").type == "cpu"
 model = ULSTMnet2D(ModelConfig.make(tiny_net_kernel_params()),
                    generator=torch.Generator().manual_seed(0))
