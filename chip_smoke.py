@@ -38,8 +38,24 @@ Phases, each of which raises (exit != 0) when it fails:
      kernel alone, cuDNN's bf16 conv, the bound and its share;
   c2. ``postprocess_frame`` on cell-like 512^2 probabilities (made from a
      seed, no model) with the instance split off, 'dist' and 'prob': equal to
-     the same call on the CPU, 1, 2 and 2 K3 launches a frame, ms per frame
-     and the rounds of the growth and erosion loops;
+     the same call on the CPU, 1, 2 and 2 K3 launches a frame (and 1, 2, 2
+     of the growth kernel, 0, 1, 0 of the erosion kernel), ms per frame and
+     the rounds of the growth and erosion loops, read from the card's
+     counter and equal to the CPU's;
+  p. the postprocess's loop kernels (``csrc/postprocess_loops.cu``), then
+     the step that no longer waits for the card: each kernel bit-equal to
+     its plain version, with equal round counts, on the inputs
+     ``postprocess_frame`` gives it at 512^2 (split off, 'dist', 'prob',
+     ``grow_iters=3``) and 1024^2 ('dist'), and on a 128^2 serpentine band,
+     each timed beside its plain version; ``postprocess_frame`` with the
+     kernels beside the plain loops; then (counted from 0) steady steps of
+     ``StreamingInferenceEngine.step_batch_async`` on the flagship at 512^2
+     (bf16 fused, int8 calibrated unfused, f32 fused, TTA 'flip', B = 4,
+     the 'dist' and 'prob' splits) and of the bench's ``build_pipeline``
+     step, all under ``torch.cuda.set_sync_debug_mode("error")``: a step
+     that synchronizes fails, and so does one that launches the loop
+     kernels or K3 other than expected or runs a plain version. Its wall
+     time is printed beside a budget of 40 s;
   d. the golden sequence through the inference CLI against
      ``tests/golden/masks`` (f32: 0 px per frame), with
      the fused cell off and on (f32: the tiny levels take K4's narrow
@@ -150,7 +166,9 @@ Phases, each of which raises (exit != 0) when it fails:
      every ``mfu`` in (0, 1], launching its kernels (o1: both int8 routes,
      K1, K3, K2; o2, o3: K4 wgmma; o4: K4 3xTF32; o5: K1, K2) and no plain
      version. Its wall time is printed beside a budget of 120 s.
-The last two lines are a JSON kernel summary (K3's two routes as ``ccl`` and
+The last two lines are a JSON kernel summary (the loop kernels
+``grow_into_band`` and ``erosion_distance`` at 512^2, every row of phase p
+beside; K3's two routes as ``ccl`` and
 ``ccl_grid``; ``conv2d_int8_wgmma`` summed over the 24 convs of one unfused
 int8 frame it takes, with each shape beside; ``conv2d_int8_smallk`` at the
 cin = 1 site, its B = 4 and tiny rows beside; ``conv2d_int8`` and the SIMT
@@ -418,32 +436,274 @@ def phase_k3(torch, g):
 def phase_postprocess(torch):
     """(c2): postprocess_frame on the card against the CPU, split off and on."""
     from lstm_unet_tpu_torch.ops import kernels, postprocess
+    from lstm_unet_tpu_torch.ops.kernels import postprocess_loops as loops
 
     probs = cell_like_masks(torch)[0]
     probs_cpu = probs.cpu()
     counts = {}
-    for name, k3, kw in (("off", 1, {}),
-                         ("dist", 2, dict(instance_split=True, split_method="dist")),
-                         ("prob", 2, dict(instance_split=True, split_method="prob"))):
+    # (split, launches of K3, the growth kernel and the erosion kernel)
+    for name, need, kw in (("off", (1, 1, 0), {}),
+                           ("dist", (2, 2, 1), dict(instance_split=True, split_method="dist")),
+                           ("prob", (2, 2, 0), dict(instance_split=True, split_method="prob"))):
         kernels.reset_counts()
-        postprocess.ROUNDS.update(grow=0, erode=0)
+        loops.clear_rounds()
         got = postprocess.postprocess_frame(probs, **kw)
-        torch.cuda.synchronize()
-        ran, rounds = kernels.counts(), dict(postprocess.ROUNDS)
-        if ran["ccl"]["kernel"] != k3 or any(v["plain"] for v in ran.values()):
-            raise AssertionError(f"postprocess split {name}: expected {k3} K3 launches "
-                                 f"and no plain call on the card, got {ran}")
+        rounds = loops.device_rounds("cuda")
+        ran = kernels.counts()
+        if (tuple(ran[k]["kernel"] for k in ("ccl", "grow_into_band", "erosion_distance"))
+                != need or any(v["plain"] for v in ran.values())):
+            raise AssertionError(f"postprocess split {name}: expected {need} launches of K3 "
+                                 f"and the loop kernels, and no plain call on the card, "
+                                 f"got {ran}")
         ms = time_ms(lambda: postprocess.postprocess_frame(probs, **kw), 5)
         want = postprocess.postprocess_frame(probs_cpu, **kw)
-        if not torch.equal(got.cpu(), want):
+        if not torch.equal(got.cpu(), want) or rounds != loops.ROUNDS:
             raise AssertionError(f"postprocess split {name}: card and CPU differ in "
-                                 f"{int((got.cpu() != want).sum())} px")
+                                 f"{int((got.cpu() != want).sum())} px, rounds {rounds} "
+                                 f"on the card, {loops.ROUNDS} on the CPU")
         counts[name] = int(got.max())
         log(f"postprocess 512^2 cell-like, split {name}: {counts[name]} instances, equal "
-            f"on the card and the CPU; {ms:.3f} ms/frame, K3 launches {k3}, growth rounds "
-            f"{rounds['grow']}, erosion rounds {rounds['erode']} (one host read a round)")
+            f"on the card and the CPU; {ms:.3f} ms/frame, launches (K3, growth, erosion) "
+            f"{need}, growth rounds {rounds['grow']}, erosion rounds {rounds['erode']} "
+            f"(the device's counter, equal to the CPU's)")
     if not counts["dist"] > counts["off"] < counts["prob"]:
         raise AssertionError(f"the split changed nothing: instances {counts}")
+
+
+# ---------------------------------------------------------------- phase p
+
+PHASE_P_BUDGET_S = 40.0
+STEADY_STEPS = 3  # steps a configuration runs under set_sync_debug_mode("error")
+# (configuration, model, lanes, InferenceParams fields): the models are the
+# flagship at 512^2 from seed 0, "bf16" with the fused cell, "int8" calibrated
+# and unfused, "f32" with the fused cell
+SYNC_FREE = (("bf16 fused, B = 1", "bf16", 1, {}),
+             ("int8 calibrated, B = 1", "int8", 1, {}),
+             ("f32 fused, B = 1", "f32", 1, {}),
+             ("bf16 fused, TTA 'flip'", "bf16", 1, dict(tta=True)),
+             ("bf16 fused, B = 4", "bf16", 4, {}),
+             ("bf16 fused, split 'dist'", "bf16", 1,
+              dict(instance_split=True, split_method="dist")),
+             ("bf16 fused, split 'prob'", "bf16", 1,
+              dict(instance_split=True, split_method="prob")))
+# the loops' kernels: (count name, loop, kernel symbol, bytes a pixel read once
+# and written once)
+LOOP_KERNELS = (("grow_into_band", "grow", "grow_into_band_kernel", 9),
+                ("erosion_distance", "erode", "erosion_distance_kernel", 5))
+
+
+def loop_calls(fn):
+    """(``fn()``, [(loop, args)]): the growth and erosion calls that ``fn``
+    makes through ``ops.postprocess``, recorded with their inputs."""
+    from lstm_unet_tpu_torch.ops import postprocess
+
+    calls = []
+    grow, erode = postprocess.grow_into_band, postprocess.erosion_distance
+
+    def rec_grow(lbl, band, max_rounds=0):
+        calls.append(("grow", (lbl, band, max_rounds)))
+        return grow(lbl, band, max_rounds)
+
+    def rec_erode(mask, max_iters=0, octagon=False):
+        calls.append(("erode", (mask, max_iters, octagon)))
+        return erode(mask, max_iters, octagon)
+
+    postprocess.grow_into_band, postprocess.erosion_distance = rec_grow, rec_erode
+    try:
+        out = fn()
+    finally:
+        postprocess.grow_into_band, postprocess.erosion_distance = grow, erode
+    return out, calls
+
+
+def phase_loop_kernels(torch):
+    """(p), kernels: each loop's kernel against its plain version on the
+    inputs that ``postprocess_frame`` gives it (512^2 cell-like
+    probabilities with the split off, 'dist' and 'prob', and the bench's
+    ``grow_iters=3``; 1024^2 with 'dist'), and on a serpentine band:
+    bit-equal, with the device round count equal to the plain loop's; their
+    times; then ``postprocess_frame`` with the kernels against the same call
+    with the plain loops on the card (the port before them). Returns the
+    kernels' summaries."""
+    from lstm_unet_tpu_torch.io.synthetic import cell_like_probs, serpentine_band
+    from lstm_unet_tpu_torch.ops import postprocess
+    from lstm_unet_tpu_torch.ops.kernels import postprocess_loops as loops
+
+    plain = {"grow": loops.grow_into_band_plain, "erode": loops.erosion_distance_plain}
+    kernel = {"grow": loops.grow_into_band, "erode": loops.erosion_distance}
+    probs = cell_like_masks(torch)[0]
+    big = torch.from_numpy(cell_like_probs(1024, 1024, num_cells=1200, seed=1)[0]).cuda()
+    frames = {"off": (probs, {}),
+              "dist": (probs, dict(instance_split=True, split_method="dist")),
+              "prob": (probs, dict(instance_split=True, split_method="prob")),
+              "grow_iters=3": (probs, dict(grow_iters=3)),
+              "1024^2 dist": (big, dict(instance_split=True, split_method="dist"))}
+    cases = {}
+    for name, (p, kw) in frames.items():
+        calls = loop_calls(lambda: postprocess.postprocess_frame(p, **kw))[1]
+        cases.update({f"{name} #{i} {loop}": (loop, args)
+                      for i, (loop, args) in enumerate(calls)})
+    lbl, band = (torch.from_numpy(a).cuda() for a in serpentine_band(128, 128))
+    cases["serpentine 128^2 grow"] = ("grow", (lbl, band, 0))
+    cases["serpentine 128^2 erode"] = ("erode", (band, 0, True))
+    rows = {}
+    for name, (loop, args) in cases.items():
+        loops.clear_rounds()
+        got = kernel[loop](*args)
+        want = plain[loop](*args)
+        on_card = loops.device_rounds("cuda")[loop]
+        if not torch.equal(got, want) or on_card != loops.ROUNDS[loop]:
+            raise AssertionError(f"{loop} kernel on {name}: {int((got != want).sum())} px "
+                                 f"differ, rounds {on_card} on the card, "
+                                 f"{loops.ROUNDS[loop]} plain")
+        rows[name] = dict(ms=time_ms(lambda: kernel[loop](*args), 20),
+                          plain_ms=time_ms(lambda: plain[loop](*args), 2), rounds=on_card,
+                          shape=list(args[0].shape))
+        log(f"{loop} kernel {name} {tuple(args[0].shape)}: bit-equal, {on_card} rounds on "
+            f"both; kernel {rows[name]['ms']:.4f} ms, plain {rows[name]['plain_ms']:.3f} ms")
+    summaries = {}
+    for (kname, loop, symbol, per_px), row in zip(LOOP_KERNELS, ("off #0 grow",
+                                                                 "dist #0 erode")):
+        args = cases[row][1]
+        h, w = args[0].shape
+        summaries[kname] = dict(
+            summary(rows[row]["ms"], rows[row]["plain_ms"], 0.0, bound(h * w * per_px)),
+            device_ms=device_ms(lambda: kernel[loop](*args), symbol), shape=row,
+            rows={k: v for k, v in rows.items() if cases[k][0] == loop})
+    # postprocess_frame with the kernels, then with the plain loops
+    for name in ("off", "dist", "prob"):
+        p, kw = frames[name]
+        ms = time_ms(lambda: postprocess.postprocess_frame(p, **kw), 10)
+        postprocess.grow_into_band, postprocess.erosion_distance = plain["grow"], plain["erode"]
+        try:
+            plain_ms = time_ms(lambda: postprocess.postprocess_frame(p, **kw), 3)
+        finally:
+            postprocess.grow_into_band, postprocess.erosion_distance = (kernel["grow"],
+                                                                        kernel["erode"])
+        log(f"postprocess_frame 512^2 cell-like, split {name}: {ms:.3f} ms/frame with the "
+            f"loop kernels, {plain_ms:.3f} ms/frame with the plain loops on the card")
+    return summaries
+
+
+def sync_free_models(torch):
+    """The flagship at 512^2 from seed 0, by name: bf16 fused, int8 (f32
+    weights quantized with scales calibrated on 4 synthetic frames,
+    unfused), f32 fused."""
+    from lstm_unet_tpu_torch.engine.infer import calibrate_act_scales
+    from lstm_unet_tpu_torch.io.synthetic import make_cell_sequence
+    from lstm_unet_tpu_torch.models import quantize_model_int8
+
+    int8 = flagship_int8_model(torch, fused=False)
+    imgs = make_cell_sequence(num_frames=4, height=512, width=512, num_cells=40, seed=7)[0]
+    scales = calibrate_act_scales(int8, [f.astype(np.float32) for f in imgs])
+    quantize_model_int8(int8, scales, float_dtype=int8.cfg.compute_dtype)
+    return {"bf16": flagship_model(torch, "bfloat16", True), "int8": int8,
+            "f32": flagship_model(torch, "float32", True)}
+
+
+def sync_debug(torch, fn, *args):
+    """``fn(*args)`` under ``torch.cuda.set_sync_debug_mode("error")``: a
+    call that synchronizes with the card raises."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def phase_sync_free(torch):
+    """(p), the step: steady steps of ``StreamingInferenceEngine
+    .step_batch_async`` on the flagship at 512^2 in each configuration of
+    ``SYNC_FREE``, then of the bench's ``build_pipeline`` step (int8
+    calibrated), each under ``set_sync_debug_mode("error")``: no step may
+    wait for the card. The caller counts from 0; each configuration must
+    launch the loop kernels it needs and K3."""
+    from lstm_unet_tpu_torch import bench
+    from lstm_unet_tpu_torch.config import InferenceParams
+    from lstm_unet_tpu_torch.engine.infer import StreamingInferenceEngine
+    from lstm_unet_tpu_torch.io.synthetic import make_cell_sequence
+    from lstm_unet_tpu_torch.ops import kernels
+
+    models = sync_free_models(torch)
+    frames = make_cell_sequence(num_frames=2 + STEADY_STEPS, height=512, width=512,
+                                num_cells=40, seed=0)[0]
+    for name, model, lanes, kw in SYNC_FREE:
+        engine = StreamingInferenceEngine(models[model], InferenceParams(**kw), "cuda")
+        batches = [np.stack([np.roll(f, 64 * i, 0) for i in range(lanes)]) for f in frames]
+        for b in batches[:2]:
+            engine.step_batch_async(b)
+        torch.cuda.synchronize()
+        before = kernels.counts()
+        t0 = time.perf_counter()
+        labels = sync_debug(torch, lambda: [engine.step_batch_async(b)[0]
+                                            for b in batches[2:]])
+        host_ms = (time.perf_counter() - t0) * 1e3 / STEADY_STEPS
+        torch.cuda.synchronize()
+        ran = {k: v["kernel"] - before[k]["kernel"] for k, v in kernels.counts().items()}
+        frames_pp = STEADY_STEPS * lanes  # postprocessed frames (TTA: the averaged one)
+        need = {"grow_into_band": frames_pp * (2 if "split" in name else 1),
+                "erosion_distance": frames_pp if "'dist'" in name else 0}
+        if any(ran[k] != n for k, n in need.items()) or ran["ccl"] == 0:
+            raise AssertionError(f"sync-free step {name}: launches {ran}, expected {need}")
+        if any(tuple(t.shape) != (lanes, 512, 512) for t in labels):
+            raise AssertionError(f"sync-free step {name}: labels {[t.shape for t in labels]}")
+        log(f"sync-free step {name}: {STEADY_STEPS} steps, no sync; host ms to return "
+            f"{host_ms:.3f} a step; launches grow {ran['grow_into_band']}, erosion "
+            f"{ran['erosion_distance']}, K3 {ran['ccl']}")
+    model = bench.make_model("int8", tiny=False, device="cuda")
+    step, state = bench.build_pipeline(model, 512, calibrated=True)
+    uploaded = bench.upload(bench.make_frames(2 + STEADY_STEPS, 512), "cuda")
+    for f in uploaded[:2]:
+        state, _ = step(state, f)
+    torch.cuda.synchronize()
+
+    def steady(state):
+        for f in uploaded[2:]:
+            state, labels = step(state, f)
+        return labels
+
+    labels = sync_debug(torch, steady, state)
+    torch.cuda.synchronize()
+    if tuple(labels.shape) != (1, 512, 512):
+        raise AssertionError(f"sync-free bench step: labels {tuple(labels.shape)}")
+    log(f"sync-free step bench build_pipeline (int8 calibrated, grow_iters=3): "
+        f"{STEADY_STEPS} steps, no sync")
+
+
+def phase_p(torch):
+    """(p): the loop kernels against their plain versions, not counted; then
+    the sync-free steps counted from 0. Returns (the kernels' summaries, the
+    launches of the steps); fails past ``PHASE_P_BUDGET_S``."""
+    from lstm_unet_tpu_torch.ops import kernels
+
+    t0 = time.perf_counter()
+    summaries = phase_loop_kernels(torch)
+    kernels.reset_counts()
+    phase_sync_free(torch)
+    ran = kernels.counts()
+    for k in ("grow_into_band", "erosion_distance", "ccl"):
+        if ran[k]["kernel"] == 0:
+            raise AssertionError(f"phase p: {k} never launched: {ran}")
+    if any(v["plain"] for v in ran.values()):
+        raise AssertionError(f"phase p: plain versions ran: {ran}")
+    secs = time.perf_counter() - t0
+    log(f"phase p: {secs:.1f} s (budget {PHASE_P_BUDGET_S:.0f} s); launches "
+        f"{ {k: v['kernel'] for k, v in ran.items() if v['kernel']} }")
+    if secs > PHASE_P_BUDGET_S:
+        raise AssertionError(f"phase p took {secs:.1f} s, past its {PHASE_P_BUDGET_S:.0f} s")
+    return summaries, ran
+
+
+def sync_free_alone():
+    """Phases c2 and p on their own, the kernels built first."""
+    import torch
+    from lstm_unet_tpu_torch.ops.kernels import _build
+
+    _build.library()
+    log(card_name(torch))
+    phase_postprocess(torch)
+    summaries, _ = phase_p(torch)
+    log(json.dumps(summaries))
 
 
 def k4_inputs(torch, g, b, hw, feat, k, dt, sdt):
@@ -2938,6 +3198,9 @@ def main() -> int:
     kernel_summary = phase_kernels(torch)
     kernel_summary.update(phase_conv_int8(torch))
     phase_postprocess(torch)
+    # (p): the loop kernels, then the sync-free steps, counted from 0
+    loop_summary, sync_free = phase_p(torch)
+    kernel_summary.update(loop_summary)
     phase_fused_vs_unfused(torch, "float32")
     phase_fused_vs_unfused(torch, "bfloat16")
     kernel_summary["lstm_gate_update_bwd"] = phase_k2(torch)
@@ -2946,6 +3209,7 @@ def main() -> int:
 
     # (d) + (e): the inference path, counted; (g): the training path, counted
     launched = {}
+    add_counts(launched, sync_free)
     with tempfile.TemporaryDirectory() as work:
         kernels.reset_counts()
         phase_golden(torch, work)
@@ -3044,7 +3308,13 @@ def main() -> int:
                                      "pallas_call)"),
                "conv2d_int8_smallk": ("lstm_unet_tpu_torch/csrc/conv_int8_smallk.cu",
                                       "lstm_unet_tpu/ops/quant.py:91 (XLA int8 conv; no "
-                                      "pallas_call)")}
+                                      "pallas_call)"),
+               "grow_into_band": ("lstm_unet_tpu_torch/csrc/postprocess_loops.cu",
+                                  "lstm_unet_tpu/ops/postprocess.py:78 (XLA while_loop; no "
+                                  "pallas_call)"),
+               "erosion_distance": ("lstm_unet_tpu_torch/csrc/postprocess_loops.cu",
+                                    "lstm_unet_tpu/ops/postprocess.py:135 (XLA while_loop; "
+                                    "no pallas_call)")}
     log("flagship 512^2 steady ms/frame by dtype and lanes: "
         + ", ".join(f"{d} {n} lanes {v:.3f}" for (d, n), v in tta_ms.items()))
     log(json.dumps({"kernels": [

@@ -290,12 +290,19 @@ class StreamingInferenceEngine:
         self._shape = (batch, oh, ow)
 
     def _upload(self, padded: np.ndarray) -> torch.Tensor:
+        """The frames on the device as int32 (integer frames) or f32. To a
+        card they go from a pinned block of PyTorch's caching host allocator,
+        which keeps the block until the copy has run, without waiting."""
         if np.issubdtype(padded.dtype, np.integer):
             if padded.dtype not in (np.uint8, np.uint16):
                 raise ValueError(f"integer frames must be uint8/uint16, got "
                                  f"{padded.dtype}")
-            return torch.from_numpy(padded.astype(np.int32)).to(self.device)
-        return torch.from_numpy(padded.astype(np.float32)).to(self.device)
+            host = torch.from_numpy(padded.astype(np.int32))
+        else:
+            host = torch.from_numpy(padded.astype(np.float32))
+        if self.device.type == "cuda":
+            return host.pin_memory().to(self.device, non_blocking=True)
+        return host.to(self.device)
 
     def _variants(self, x: torch.Tensor) -> torch.Tensor:
         """``[B, H, W]`` -> the model's lanes ``[n_var * B, H, W]``,
@@ -335,7 +342,13 @@ class StreamingInferenceEngine:
         """Enqueue one raw frame per lane, ``[B, H, W]``; returns the device
         tensors (labels ``[B, H, W]`` int32, probs ``[B, H, W, 3]`` or None)
         without waiting for them; under a mesh, (None, None) on every rank but
-        rank 0."""
+        rank 0.
+
+        On a card, once a frame shape's state exists, the step never waits
+        for the device: the upload is asynchronous from pinned memory and the
+        postprocess's loops decide on the card (``chip_smoke.py`` phase p
+        holds it to ``torch.cuda.set_sync_debug_mode("error")``). A mesh is
+        exempt: its collectives stage through the host."""
         b, oh, ow = frames.shape
         if self._shape != (b, oh, ow):
             self._build(oh, ow, b)

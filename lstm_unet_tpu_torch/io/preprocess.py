@@ -37,8 +37,8 @@ def integer_percentile_bounds(x: torch.Tensor, low: float = 1.0,
 
     def pct(q):
         k, frac = _positions(q, n)
-        targets = torch.tensor([k + 1, min(k + 2, n)], device=x.device,
-                               dtype=csum.dtype)
+        # [k + 1, min(k + 2, n)], made on x's device (no copy from the host)
+        targets = torch.arange(k + 1, k + 3, device=x.device, dtype=csum.dtype).clamp_(max=n)
         lo_v, hi_v = torch.searchsorted(csum, targets, side="left").float()
         return lo_v * float(np.float32(1.0) - frac) + hi_v * float(frac)
 
@@ -52,13 +52,15 @@ def float_percentile_bounds(x: torch.Tensor, low: float = 1.0,
     between order statistics, in f32, as ``jnp.percentile``."""
     s = torch.sort(x.reshape(-1).float()).values
     n = s.numel()
+    # positions and weights in f32 on the host, applied as Python numbers
+    # (exact f32 values), so nothing is copied to x's device
     q = torch.tensor([low, high], dtype=torch.float32) / 100
     pos = q * np.float32(n - 1)
     lo_i, hi_i = torch.floor(pos), torch.ceil(pos)
-    hw = (pos - lo_i).to(x.device)
+    hw = pos - lo_i
     lw = 1 - hw
-    vals = s[lo_i.long().to(x.device)] * lw + s[hi_i.long().to(x.device)] * hw
-    return vals[0], vals[1]
+    return tuple(s[int(lo_i[i])] * float(lw[i]) + s[int(hi_i[i])] * float(hw[i])
+                 for i in range(2))
 
 
 def normalize_frame(frame: torch.Tensor, oh: int, ow: int) -> torch.Tensor:

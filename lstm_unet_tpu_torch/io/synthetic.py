@@ -118,6 +118,21 @@ def spiral_mask(n: int) -> np.ndarray:
     return mask
 
 
+def serpentine_band(height: int, width: int) -> Tuple[np.ndarray, np.ndarray]:
+    """``(labels int32, band bool)``: one marker (label 5) at the top-left end
+    of a 1-px path that runs along every even row and turns through a gap at
+    alternate ends of the wall rows between them, about H * W / 2 pixels
+    long: the worst case of the postprocess's growth loop, one pixel a round.
+    (The port's own helper: the reference has no counterpart.)"""
+    band = np.zeros((height, width), bool)
+    band[::2] = True
+    for i, y in enumerate(range(1, height, 2)):
+        band[y, width - 1 if i % 2 == 0 else 0] = True
+    labels = np.zeros((height, width), np.int32)
+    labels[0, 0], band[0, 0] = 5, False
+    return labels, band
+
+
 def dense_components_mask(height: int, width: int, seed: int = 0) -> np.ndarray:
     """Thousands of small components: random blobs of 1-4 px a side on a
     4-px grid, so neighbouring blobs sometimes merge."""

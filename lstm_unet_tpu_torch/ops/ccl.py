@@ -40,7 +40,7 @@ def relabel_compact(labels: torch.Tensor, min_size: int = 0, max_size: int = 0,
         idx = idx.clamp(max=n - 1)
     counts = bincount(idx, n)
     keep = counts > 0
-    keep[0] = False
+    keep[:1].fill_(False)  # a fill on the device: setting keep[0] copies from the host
     if min_size:
         keep &= counts >= min_size
     if max_size:

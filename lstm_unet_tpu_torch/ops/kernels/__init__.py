@@ -9,7 +9,7 @@ from __future__ import annotations
 
 from typing import Dict
 
-from . import ccl, conv_int8, convlstm_cell, lstm_gates
+from . import ccl, conv_int8, convlstm_cell, lstm_gates, postprocess_loops
 
 # kernel name -> its launch count (the K numbering of the TPU kernel table)
 KERNELS = {
@@ -24,6 +24,8 @@ KERNELS = {
     "conv2d_int8": conv_int8.COUNT,                 # the int8 conv (no TPU kernel), mma_sync
     "conv2d_int8_wgmma": conv_int8.WGMMA_COUNT,     # the int8 conv, wgmma, quantize folded in
     "conv2d_int8_smallk": conv_int8.SMALLK_COUNT,   # the int8 conv, small K, quantize folded in
+    "grow_into_band": postprocess_loops.GROW_COUNT,   # the growth loop (no TPU kernel)
+    "erosion_distance": postprocess_loops.ERODE_COUNT,  # the erosion loop (no TPU kernel)
 }
 
 

@@ -56,6 +56,8 @@ _SIGNATURES = {
     "lut_ccl_cluster": ([_P, _P, _I, _I, _P], _I),
     "lut_ccl_cluster_smem": ([_I, _I], _LL),
     "lut_ccl_grid": ([_P, _P, _I, _I, _P], _I),
+    "lut_grow_into_band": ([_P, _P, _P, _P, _I, _I, _I, _P, _P], _I),
+    "lut_erosion_distance": ([_P, _P, _P, _I, _I, _I, _I, _I, _P, _P], _I),
     "lut_conv2d_int8": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
                         _I),
     "lut_conv2d_int8_wgmma": ([_P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,

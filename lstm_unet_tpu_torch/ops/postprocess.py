@@ -6,8 +6,10 @@ cells -> size filter -> growth into the boundary band -> FOV rule -> compact
 raster-ordered ids. Labels are bit-identical to the reference for the same
 probabilities.
 
-The growth, erosion-distance and fixed-point loops read one flag on the host
-per round; :data:`ROUNDS` counts those rounds.
+The growth and erosion-distance loops are one kernel launch each on the
+card (``kernels/postprocess_loops.py``), so nothing here reads the device on
+the host; on the CPU their plain versions count their rounds in
+:data:`ROUNDS`.
 """
 
 from __future__ import annotations
@@ -16,13 +18,10 @@ import torch
 
 from .ccl import bincount, connected_components, relabel_compact
 from .kernels.ccl import INT_MAX, pad1
+from .kernels.postprocess_loops import ROUNDS, erosion_distance, grow_into_band  # noqa: F401
+from .kernels.postprocess_loops import erode as _erode
 
 UINT16_MAX = 65535
-
-# rounds run by the data-dependent loops since the last clear(): each round of
-# "grow" (grow_into_band) and "erode" (the erosion distances) ends in one host
-# read of a device flag
-ROUNDS = {"grow": 0, "erode": 0}
 
 
 def _f32(x: float) -> float:
@@ -43,79 +42,18 @@ def _neighbor_max(lbl: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _neighbor_min_nonzero(lbl: torch.Tensor) -> torch.Tensor:
-    """Min nonzero label over the 8-neighbourhood (INT_MAX where none)."""
-    h, w = lbl.shape
-    masked = torch.where(lbl > 0, lbl, torch.full_like(lbl, INT_MAX))
-    p = pad1(masked, INT_MAX)
-    out = torch.full_like(lbl, INT_MAX)
-    for dy in (-1, 0, 1):
-        for dx in (-1, 0, 1):
-            if dy or dx:
-                out = torch.minimum(out, p[1 + dy:1 + dy + h, 1 + dx:1 + dx + w])
-    return out
-
-
-def grow_into_band(lbl: torch.Tensor, band: torch.Tensor, max_rounds: int = 0
-                   ) -> torch.Tensor:
-    """Simultaneous-BFS growth of labels into ``band`` pixels: every round
-    each unlabelled band pixel next to a label takes the smallest
-    neighbouring label, so each band pixel goes to its geodesically nearest
-    marker and ties go to the smaller label. Stops when a round changes
-    nothing, after ``max_rounds`` rounds when > 0, and after H*W rounds."""
-    h, w = lbl.shape
-    bound = max_rounds if max_rounds > 0 else h * w
-    it, changed = 0, True
-    while changed and it < bound:
-        nb = _neighbor_min_nonzero(lbl)
-        new = torch.where((lbl == 0) & band & (nb != INT_MAX), nb, lbl)
-        changed = bool((new != lbl).any())
-        lbl, it = new, it + 1
-    ROUNDS["grow"] += it
-    return lbl
-
-
-def _erode(mask: torch.Tensor, connectivity: int = 8) -> torch.Tensor:
-    """Binary erosion (8- or 4-neighbourhood); the image border counts as
-    background, so cells clipped by the frame edge erode from the edge too."""
-    h, w = mask.shape
-    p = pad1(mask, False)
-    out = mask
-    shifts = [(0, 1), (0, -1), (1, 0), (-1, 0)]
-    if connectivity == 8:
-        shifts += [(1, 1), (1, -1), (-1, 1), (-1, -1)]
-    for dy, dx in shifts:
-        out = out & p[1 + dy:1 + dy + h, 1 + dx:1 + dx + w]
-    return out
-
-
 def chebyshev_distance(mask: torch.Tensor, max_iters: int = 0) -> torch.Tensor:
     """Chebyshev (8-connected) distance to background of each mask pixel (0
     outside the mask, 1 on a component's border) by iterated erosion;
     ``max_iters`` caps the rounds (0 = until the mask has eroded away)."""
-    return _erosion_distance(mask, max_iters, octagon=False)
+    return erosion_distance(mask, max_iters, octagon=False)
 
 
 def octagon_distance(mask: torch.Tensor, max_iters: int = 0) -> torch.Tensor:
     """Octagonal distance to background: erosion by the 8- and the
     4-neighbourhood in turn, within ~8% of Euclidean in every direction. The
     marker stage of instance splitting uses this metric."""
-    return _erosion_distance(mask, max_iters, octagon=True)
-
-
-def _erosion_distance(mask: torch.Tensor, max_iters: int, octagon: bool
-                      ) -> torch.Tensor:
-    h, w = mask.shape
-    m = mask.bool()
-    dist = m.int()
-    bound = max_iters or max(h, w)
-    it = 0
-    while it < bound and bool(m.any()):
-        m = _erode(m, 4 if octagon and it % 2 else 8)
-        dist = dist + m
-        it += 1
-    ROUNDS["erode"] += it
-    return dist
+    return erosion_distance(mask, max_iters, octagon=True)
 
 
 def _component_sizes(lbl: torch.Tensor) -> torch.Tensor:
@@ -132,7 +70,7 @@ def _grow_markers(markers: torch.Tensor, lbl: torch.Tensor,
     cannot cross background, and seed ids and kept labels are minimum indices
     of disjoint pixel sets, so they never collide)."""
     seeds = connected_components(markers.contiguous())
-    grown = grow_into_band(seeds, interior, max_rounds=0)
+    grown = grow_into_band(seeds, interior.contiguous(), max_rounds=0)
     return torch.where(grown > 0, grown, lbl.clamp(min=0))
 
 
@@ -152,7 +90,7 @@ def split_touching_instances(lbl: torch.Tensor, interior: torch.Tensor,
 
     ``lbl`` is the raw (or compact) labelling of ``interior``; returns int32
     labels of the same support, not compact."""
-    dist = octagon_distance(interior)
+    dist = octagon_distance(interior.contiguous())
     wmax = wide = dist
     for i in range(max(window, rel_window if rel > 0 else 0)):
         wide = _neighbor_max(wide)
@@ -259,7 +197,7 @@ def postprocess_frame(probs: torch.Tensor, cell_thresh: float = 0.5,
         touch_idx = torch.where(inside, lbl, torch.zeros_like(lbl))
         touches = bincount(touch_idx.reshape(-1).long().clamp(max=n - 1), n)
         keep = touches > 0
-        keep[0] = False
+        keep[:1].fill_(False)
         kept = keep[lbl.reshape(-1).long().clamp(max=n - 1)].reshape(h, w)
         lbl = torch.where(kept, lbl, torch.zeros_like(lbl))
         lbl, _ = relabel_compact(lbl, num_bins=n)

@@ -5,6 +5,7 @@ f32 weights) and f32, with the fused cell off and on.
 
     python scripts/profile_torch_stream.py [--dtypes bfloat16,int8,float32]
                                            [--root OTHER_CHECKOUT]
+    python scripts/profile_torch_stream.py --mode async [--root OTHER_CHECKOUT]
 
 Per configuration: 3 warm-up frames, then the median of 8 frames timed on
 the host clock around ``StreamingInferenceEngine.process_frame`` (which ends
@@ -15,6 +16,13 @@ kernels, and the device time of the kernels each PyTorch op launched itself
 by op; the port's own kernels are launched outside any op and show only by
 kind). ``--root DIR`` profiles the port of another checkout (the parent
 commit, unpacked) instead of this one. The last line is the same as JSON.
+
+``--mode async`` streams the way a pipelined caller does, through
+``step_batch_async`` with no copy back, for bf16 with the fused cell and
+int8 (scales calibrated on 4 frames, unfused): 3 warm-up frames, then 32
+frames, each timed on the host clock until ``step_batch_async`` returns,
+ending in one synchronize (the steady ms per frame), then ``torch.profiler``
+over 8 more frames ending in one synchronize (the busy share).
 """
 
 from __future__ import annotations
@@ -111,10 +119,55 @@ def profile_config(frames, dtype: str, fused: bool) -> dict:
                      for e in kernels[:8]])
 
 
+ASYNC_WARM, ASYNC_STEADY, ASYNC_PROFILED = 3, 32, 8
+
+
+def async_config(frames, dtype: str, fused: bool) -> dict:
+    """``--mode async`` for one configuration (int8: calibrated scales)."""
+    from lstm_unet_tpu_torch.config import InferenceParams, default_net_kernel_params
+    from lstm_unet_tpu_torch.engine.infer import StreamingInferenceEngine, calibrate_act_scales
+    from lstm_unet_tpu_torch.models import (ModelConfig, ULSTMnet2D, cast_params_for_inference,
+                                            quantize_model_int8)
+
+    quant = dict(dtype="bfloat16", quant="int8") if dtype == "int8" else dict(dtype=dtype)
+    cfg = ModelConfig.make(default_net_kernel_params(), fused_cell=fused, **quant)
+    model = ULSTMnet2D(cfg, generator=torch.Generator(device="cuda").manual_seed(0),
+                       device="cuda")
+    if dtype == "int8":
+        scales = calibrate_act_scales(model, [f.astype(np.float32) for f in frames[:4]])
+        quantize_model_int8(model, scales, float_dtype=cfg.compute_dtype)
+    else:
+        cast_params_for_inference(model, cfg.compute_dtype)
+    engine = StreamingInferenceEngine(model, InferenceParams(dtype=dtype), "cuda")
+    for f in frames[:ASYNC_WARM]:
+        engine.step_batch_async(f[None])
+    torch.cuda.synchronize()
+    host = []
+    t0 = time.perf_counter()
+    for f in frames[ASYNC_WARM:ASYNC_WARM + ASYNC_STEADY]:
+        t = time.perf_counter()
+        engine.step_batch_async(f[None])
+        host.append((time.perf_counter() - t) * 1e3)
+    torch.cuda.synchronize()
+    steady = (time.perf_counter() - t0) * 1e3 / ASYNC_STEADY
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for f in frames[ASYNC_WARM + ASYNC_STEADY:]:
+            engine.step_batch_async(f[None])
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / ASYNC_PROFILED
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.device_time_total for e in kernels) / 1e3 / ASYNC_PROFILED
+    return dict(host_ms_median=float(np.median(host)), host_ms=host, steady_ms=steady,
+                profiled_wall_ms=wall, kernel_ms=busy, busy_share=busy / wall,
+                kernels_per_frame=sum(e.count for e in kernels) / ASYNC_PROFILED)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--dtypes", default="bfloat16,int8,float32")
     ap.add_argument("--root", default=HERE, help="profile the port of this checkout")
+    ap.add_argument("--mode", choices=("breakdown", "async"), default="breakdown")
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -125,9 +178,23 @@ def main() -> None:
                            "--format=csv,noheader"], capture_output=True, text=True,
                           check=True).stdout.strip().splitlines()[0]
     print(card, "| torch", torch.__version__, "| port at", root, flush=True)
+    out = {"card": card, "root": root}
+    if args.mode == "async":
+        frames, _ = make_cell_sequence(num_frames=ASYNC_WARM + ASYNC_STEADY + ASYNC_PROFILED,
+                                       height=512, width=512, num_cells=40, seed=0)
+        for dtype, fused in (("bfloat16", True), ("int8", False)):
+            r = out[f"async {dtype} fused={fused}"] = async_config(frames, dtype, fused)
+            print(f"== async {dtype} fused={fused}: host ms until step_batch_async returns "
+                  f"{r['host_ms_median']:.3f} (median of {ASYNC_STEADY}), steady "
+                  f"{r['steady_ms']:.3f} ms/frame over {ASYNC_STEADY} frames ending in one "
+                  f"synchronize, busy {100 * r['busy_share']:.1f}% over {ASYNC_PROFILED} "
+                  f"({r['kernel_ms']:.3f} of {r['profiled_wall_ms']:.3f} ms/frame), "
+                  f"{r['kernels_per_frame']:.0f} kernels/frame", flush=True)
+            torch.cuda.empty_cache()
+        print(json.dumps(out))
+        return
     frames, _ = make_cell_sequence(num_frames=WARM + TIMED + PROFILED, height=512,
                                    width=512, num_cells=40, seed=0)
-    out = {"card": card, "root": root}
     for dtype in args.dtypes.split(","):
         for fused in (False, True):
             r = profile_config(frames, dtype, fused)

@@ -14,7 +14,7 @@ order than cuDNN's) 2e-5 with f32 state and 1e-5 plus one bf16 ulp with bf16 sta
 to K*K*F = 3200 summed products (flagship level 0), scaled linearly with
 the summation length above that (a sum's worst-case rounding error grows
 with its length: x4 at level 3's 12800); K3 (both routes), the int8 conv (both
-routes) and the postprocess
+routes), the postprocess's loop kernels (round counts too) and the postprocess
 with the instance split equal; the tiny model's grads
 with the kernels against the same model with the plain versions 1e-5
 relative (deterministic cuDNN, same formulas).
@@ -874,3 +874,96 @@ def test_exchange_halo_h_on_the_card_over_two_gloo_ranks(cuda, tmp_path):
         np.testing.assert_allclose(gx, grad[:, 2:14][:, 6 * rank:6 * rank + 6], atol=1e-6)
         want = conv2d(torch.from_numpy(x).to(cuda), torch.from_numpy(k).to(cuda)).cpu().numpy()
         np.testing.assert_allclose(y, want, atol=1e-5)
+
+
+# ---------------------------------------------------------------- the postprocess loops
+
+
+def _field(cuda, seed, h, w, frac):
+    """A smooth random bool field on the card: blobs of ~``frac`` of it."""
+    r = np.random.default_rng(seed)
+    f = np.kron(r.random((h // 8 + 2, w // 8 + 2)), np.ones((8, 8)))[:h, :w]
+    f += r.random((h, w)) * 0.3
+    return torch.from_numpy(f > np.quantile(f, 1 - frac)).to(cuda)
+
+
+def _loop_inputs(cuda, case):
+    """(labels, band, mask) on the card: the growth's labels and band and
+    the erosion's mask of one case."""
+    from lstm_unet_tpu_torch.ops import postprocess
+    from lstm_unet_tpu_torch.ops.ccl import relabel_compact
+
+    if case == "serpentine 256^2":
+        lbl, band = (torch.from_numpy(a).to(cuda) for a in synthetic.serpentine_band(256, 256))
+        return lbl, band, band
+    if case == "blobs 1024^2":
+        interior = _field(cuda, 3, 1024, 1024, 0.5)
+        seeds = ccl.connected_components(postprocess._erode(interior).contiguous())
+        return seeds, interior, interior
+    probs = torch.from_numpy(synthetic.cell_like_probs(512, 512, num_cells=300,
+                                                       seed=0)[0]).to(cuda)
+    interior = (probs[..., 1] > 0.5).contiguous()
+    lbl, _ = relabel_compact(ccl.connected_components(interior), min_size=10)
+    return lbl, (probs[..., 2] > 0.3) & ~interior, interior
+
+
+@pytest.mark.parametrize("case", ["cell-like 512^2", "blobs 1024^2", "serpentine 256^2"])
+def test_postprocess_loops_equal_plain(cuda, case):
+    """Each loop's kernel bit-equal to its plain version on the same CUDA
+    tensors, uncapped and at the caps 1-4, with its device round count equal
+    to the plain loop's."""
+    from lstm_unet_tpu_torch.ops.kernels import postprocess_loops as loops
+
+    lbl, band, mask = _loop_inputs(cuda, case)
+    caps = (0,) if case == "serpentine 256^2" else (0, 1, 2, 3, 4)
+    for cap in caps:
+        loops.clear_rounds()
+        reset_counts()
+        got = loops.grow_into_band(lbl, band, cap)
+        want = loops.grow_into_band_plain(lbl, band, cap)
+        assert counts()["grow_into_band"] == {"kernel": 1, "plain": 1}
+        assert torch.equal(got, want), f"cap {cap}: {int((got != want).sum())} px"
+        assert loops.device_rounds(cuda)["grow"] == loops.ROUNDS["grow"] > 0
+        for octagon in (False, True):
+            loops.clear_rounds()
+            got = loops.erosion_distance(mask, cap, octagon)
+            want = loops.erosion_distance_plain(mask, cap, octagon)
+            assert torch.equal(got, want), f"cap {cap} octagon {octagon}"
+            assert loops.device_rounds(cuda)["erode"] == loops.ROUNDS["erode"] > 0
+    if case == "serpentine 256^2":
+        assert loops.ROUNDS["erode"] == 1 and loops.device_rounds(cuda)["grow"] == 0
+        loops.clear_rounds()
+        loops.grow_into_band(lbl, band)
+        assert loops.device_rounds(cuda)["grow"] > 30000
+
+
+@pytest.mark.parametrize("dtype,fused", [("bfloat16", True), ("int8", False)])
+def test_step_batch_async_never_waits_for_the_card(cuda, dtype, fused):
+    """Steady steps of the flagship (seeded weights) at 64^2, B = 1, under
+    ``set_sync_debug_mode("error")``: no step synchronizes, and the growth
+    kernel and K3 launch once a step with no plain call."""
+    from lstm_unet_tpu_torch.config import InferenceParams, default_net_kernel_params
+    from lstm_unet_tpu_torch.engine.infer import StreamingInferenceEngine
+    from lstm_unet_tpu_torch.models import cast_params_for_inference
+
+    cfg = ModelConfig.make(default_net_kernel_params(), dtype="bfloat16",
+                           quant="int8" if dtype == "int8" else "none", fused_cell=fused)
+    model = ULSTMnet2D(cfg, generator=torch.Generator(device=cuda).manual_seed(0), device=cuda)
+    if dtype != "int8":
+        model = cast_params_for_inference(model, cfg.compute_dtype)
+    engine = StreamingInferenceEngine(model, InferenceParams(min_cell_size=5), cuda)
+    frames = synthetic.make_cell_sequence(num_frames=5, height=64, width=64, seed=1)[0]
+    for f in frames[:2]:
+        engine.step_batch_async(f[None])
+    torch.cuda.synchronize()
+    reset_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for f in frames[2:]:
+            labels, _ = engine.step_batch_async(f[None])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    ran = counts()
+    assert ran["grow_into_band"]["kernel"] == ran["ccl"]["kernel"] == 3, ran
+    assert all(v["plain"] == 0 for v in ran.values()), ran
+    assert labels.shape == (1, 64, 64) and labels.dtype == torch.int32
