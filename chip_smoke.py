@@ -8,7 +8,9 @@ Phases, each of which raises (exit != 0) when it fails:
   b. build: the CUDA kernels from ``lstm_unet_tpu_torch/csrc``;
   c. each kernel against its plain PyTorch version, at the flagship model's
      shapes (K1 also at its training levels at B = 5 and 8), with its
-     tolerance; times from CUDA events. K4 has four
+     tolerance; times from CUDA events; K1's library call (PyTorch's fused
+     LSTM cell, ``aten::_thnn_fused_lstm_cell``, which the port never calls)
+     held to K1 and timed beside it. K4 has four
      routes: the bf16 tensor-core kernel and the f32 one (3xTF32), each at
      all four flagship levels; the narrow kernel (bf16 and 3xTF32) at 512^2
      F = 32 and 96 5x5 and F = 64 7x7 and at the tiny model's levels (32^2
@@ -43,20 +45,26 @@ Phases, each of which raises (exit != 0) when it fails:
      the rounds of the growth and erosion loops, read from the card's
      counter and equal to the CPU's;
   p. the postprocess's loop kernels (``csrc/postprocess_loops.cu``), then
-     the step that no longer waits for the card: each kernel bit-equal to
+     the compiled step (``engine/graph.py``): each kernel bit-equal to
      its plain version, with equal round counts, on the inputs
      ``postprocess_frame`` gives it at 512^2 (split off, 'dist', 'prob',
      ``grow_iters=3``) and 1024^2 ('dist'), and on a 128^2 serpentine band,
      each timed beside its plain version; ``postprocess_frame`` with the
-     kernels beside the plain loops; then (counted from 0) steady steps of
+     kernels beside the plain loops; then (counted from 0) 8 steady steps of
      ``StreamingInferenceEngine.step_batch_async`` on the flagship at 512^2
      (bf16 fused, int8 calibrated unfused, f32 fused, TTA 'flip', B = 4,
      the 'dist' and 'prob' splits) and of the bench's ``build_pipeline``
-     step, all under ``torch.cuda.set_sync_debug_mode("error")``: a step
-     that synchronizes fails, and so does one that launches the loop
-     kernels or K3 other than expected or runs a plain version. Its wall
-     time is printed beside a budget of 40 s;
-  d. the golden sequence through the inference CLI against
+     step, each run eagerly and as replays of its CUDA graphs (captured at
+     the first frame), all under ``torch.cuda.set_sync_debug_mode("error")``:
+     a step that synchronizes fails, and so do replays whose labels (and
+     probabilities) differ from the eager steps' by a bit or whose launches
+     differ from theirs, a step that launches the loop kernels or K3 other
+     than expected or runs a plain version, and an engine whose buffers or
+     graph pool stay allocated after it is dropped; host ms until each step
+     returns, eager against graph. Its wall time is printed beside a budget
+     of 40 s;
+  d. the golden sequence through the inference CLI (each stream captured
+     once and replayed at every later frame) against
      ``tests/golden/masks`` (f32: 0 px per frame), with
      the fused cell off and on (f32: the tiny levels take K4's narrow
      route, 3xTF32, and the SIMT kernel never),
@@ -69,7 +77,8 @@ Phases, each of which raises (exit != 0) when it fails:
      cell, K4's tensor-core route of the dtype runs at all 4 levels of every
      frame;
   d2. int8 (a path of its own, counted from 0): the golden sequence through
-     the inference CLI with ``--dtype int8``, fused cell off and on, dynamic
+     the inference CLI with ``--dtype int8`` (captured and replayed), fused
+     cell off and on, dynamic
      scales, then ``--calibrate 4`` into a copy of the model dir, each against
      the same run on the CPU (equal instance count, <= 3 px per frame), each
      launching both int8 routes it takes (6 small-K + 3 wgmma a frame, fused
@@ -80,7 +89,9 @@ Phases, each of which raises (exit != 0) when it fails:
      tensor-core launches, 1 K3 (fused), no plain call; frames/s; one int8
      frame's logits within 0.15 of the bf16 frame's largest |logit|;
   f. K2 (the gate backward) against its plain version at the flagship
-     training shapes (B = 5 and 8, 256^2 crops), with K2's time;
+     training shapes (B = 5 and 8, 256^2 crops), with K2's time and its
+     library call's (``aten::_thnn_fused_lstm_cell_backward_impl``, held to
+     K2);
   g. the flagship trained through ``cli/train2d.main`` (B = 5, T = 7, 256^2
      crops of a synthetic 512^2 sequence) in float32 and bfloat16: a few
      steps, one validation, the final checkpoint (bf16: also one at step 4,
@@ -267,8 +278,9 @@ def bound(nbytes, flops=0.0, peak=BF16_FLOPS):
 
 
 def summary(ms, plain_ms, max_abs_err, bound_ms_by):
-    """A kernel's entry of the summary line; no single PyTorch call computes
-    any of the port's kernel functions, so none has a library time."""
+    """A kernel's entry of the summary line, with no library time: K1 and K2
+    add theirs (``library_k1``, ``library_k2``); no single PyTorch call
+    computes any other kernel's function."""
     return dict(max_abs_err=max_abs_err, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms_by[0], bound_by=bound_ms_by[1], library_ms=None)
 
@@ -345,12 +357,14 @@ def phase_kernels(torch):
                     f"{str(gdt)[6:]} state {str(sdt)[6:]} {act}: max_abs_err={e:.3g}")
             if timing is None:  # level 0, f32: the largest shape on the path
                 timing = (time_ms(lambda: lstm_gates.fused_lstm_gate_update(gates, c)),
-                          time_ms(lambda: lstm_gates.lstm_gate_update_plain(gates, c)))
+                          time_ms(lambda: lstm_gates.lstm_gate_update_plain(gates, c)),
+                          library_k1(torch, gates, c))
                 log(f"K1 time @512^2 F=128 float32: kernel {timing[0]:.4f} ms, "
-                    f"plain {timing[1]:.4f} ms")
+                    f"plain {timing[1]:.4f} ms, library {timing[2]:.4f} ms")
     # reads 4F gates + F state, writes 2F, f32, per row
-    out["lstm_gate_update"] = summary(timing[0], timing[1], max(errs),
-                                      bound(512 * 512 * 128 * 7 * 4))
+    out["lstm_gate_update"] = dict(summary(timing[0], timing[1], max(errs),
+                                           bound(512 * 512 * 128 * 7 * 4)),
+                                   library_ms=timing[2])
 
     out.update(phase_k4(torch, g))
 
@@ -473,7 +487,12 @@ def phase_postprocess(torch):
 # ---------------------------------------------------------------- phase p
 
 PHASE_P_BUDGET_S = 40.0
-STEADY_STEPS = 3  # steps a configuration runs under set_sync_debug_mode("error")
+# steps a configuration runs under set_sync_debug_mode("error"), eagerly and
+# as replays of its CUDA graphs, held bit-equal
+STEADY_STEPS = 8
+# what may stay allocated once a configuration's engines are dropped (the
+# library's own workspaces; a step's buffers and its graphs' pool are GBs)
+DROPPED_ENGINE_BYTES = 64 << 20
 # (configuration, model, lanes, InferenceParams fields): the models are the
 # flagship at 512^2 from seed 0, "bf16" with the fused cell, "int8" calibrated
 # and unfused, "f32" with the fused cell
@@ -611,61 +630,119 @@ def sync_debug(torch, fn, *args):
         torch.cuda.set_sync_debug_mode(0)
 
 
+def steady_steps(torch, step, inputs):
+    """``step(x)`` of each input after the first two (the warm-up: on a card
+    the first frame captures the graphs), under
+    ``set_sync_debug_mode("error")``, the count of launches and graph
+    replays from 0; returns (outputs on the host, {kernel: (launches, plain
+    calls)}, graph counts, median host ms until each step returned)."""
+    from lstm_unet_tpu_torch.ops import kernels
+
+    for x in inputs[:2]:
+        step(x)
+    torch.cuda.synchronize()
+    before, graphs = kernels.snapshot(), kernels.graph_counts()
+    outs, host = [], []
+
+    def steady():
+        for x in inputs[2:]:
+            t0 = time.perf_counter()
+            outs.append(step(x))
+            host.append((time.perf_counter() - t0) * 1e3)
+
+    sync_debug(torch, steady)
+    torch.cuda.synchronize()
+    ran = {k: (n - before[k][0], p - before[k][1]) for k, (n, p) in kernels.snapshot().items()}
+    graphs = {k: v - graphs[k] for k, v in kernels.graph_counts().items()}
+    outs = [tuple(None if t is None else t.cpu() for t in out) for out in outs]
+    return outs, ran, graphs, float(np.median(host))
+
+
+def graph_against_eager(torch, name, runs):
+    """Hold the graph run of ``runs`` ({"eager": .., "graph": ..}, each
+    ``steady_steps``' tuple) to the eager one: STEADY_STEPS replays and no
+    capture, the eager run none; every output bit-equal; the same launches
+    of every kernel, and no plain call. Returns the launches of the steps."""
+    (eager, ran_e, graphs_e, ms_e), (graph, ran_g, graphs_g, ms_g) = runs["eager"], runs["graph"]
+    if graphs_g != {"captures": 0, "replays": STEADY_STEPS} or any(graphs_e.values()):
+        raise AssertionError(f"{name}: graph counts {graphs_g} (eager {graphs_e}), expected "
+                             f"{STEADY_STEPS} replays and no capture")
+    for t, (a, b) in enumerate(zip(graph, eager)):
+        for i, (x, y) in enumerate(zip(a, b)):
+            if (x is None) != (y is None) or (x is not None and not torch.equal(x, y)):
+                raise AssertionError(f"{name}: output {i} of frame {t} replayed differs from "
+                                     f"the eager step's")
+    if ran_g != ran_e or any(p for _, p in ran_g.values()):
+        raise AssertionError(f"{name}: replays launched {ran_g}, the eager steps {ran_e}")
+    probs = len(graph[0]) > 1 and graph[0][1] is not None
+    log(f"  {name}: {STEADY_STEPS} replays bit-equal to the eager steps (labels"
+        f"{' and probs' if probs else ''}), the same launches; host ms until return, eager "
+        f"{ms_e:.3f} / graph {ms_g:.3f}")
+    return {k: n for k, (n, _) in ran_g.items()}
+
+
 def phase_sync_free(torch):
     """(p), the step: steady steps of ``StreamingInferenceEngine
     .step_batch_async`` on the flagship at 512^2 in each configuration of
     ``SYNC_FREE``, then of the bench's ``build_pipeline`` step (int8
-    calibrated), each under ``set_sync_debug_mode("error")``: no step may
-    wait for the card. The caller counts from 0; each configuration must
-    launch the loop kernels it needs and K3."""
+    calibrated), each run eagerly and as replays of its CUDA graphs (the
+    engine's default on a card), each under ``set_sync_debug_mode("error")``:
+    no step may wait for the card, the replays must equal the eager steps
+    bit for bit and launch what they launch, and each configuration must
+    launch the loop kernels it needs and K3. A dropped engine must give
+    its buffers and its graphs' pool back. The caller counts from 0."""
+    import gc
+
     from lstm_unet_tpu_torch import bench
     from lstm_unet_tpu_torch.config import InferenceParams
     from lstm_unet_tpu_torch.engine.infer import StreamingInferenceEngine
     from lstm_unet_tpu_torch.io.synthetic import make_cell_sequence
-    from lstm_unet_tpu_torch.ops import kernels
 
     models = sync_free_models(torch)
     frames = make_cell_sequence(num_frames=2 + STEADY_STEPS, height=512, width=512,
                                 num_cells=40, seed=0)[0]
     for name, model, lanes, kw in SYNC_FREE:
-        engine = StreamingInferenceEngine(models[model], InferenceParams(**kw), "cuda")
         batches = [np.stack([np.roll(f, 64 * i, 0) for i in range(lanes)]) for f in frames]
-        for b in batches[:2]:
-            engine.step_batch_async(b)
-        torch.cuda.synchronize()
-        before = kernels.counts()
-        t0 = time.perf_counter()
-        labels = sync_debug(torch, lambda: [engine.step_batch_async(b)[0]
-                                            for b in batches[2:]])
-        host_ms = (time.perf_counter() - t0) * 1e3 / STEADY_STEPS
-        torch.cuda.synchronize()
-        ran = {k: v["kernel"] - before[k]["kernel"] for k, v in kernels.counts().items()}
+        held = torch.cuda.memory_allocated()
+        runs = {}
+        for mode in ("eager", "graph"):
+            engine = StreamingInferenceEngine(models[model],
+                                              InferenceParams(save_intermediate=True, **kw),
+                                              "cuda")
+            engine.capture = mode == "graph"
+            runs[mode] = steady_steps(torch, engine.step_batch_async, batches)
+            del engine
+        gc.collect()
+        left = torch.cuda.memory_allocated() - held
+        if left > DROPPED_ENGINE_BYTES:
+            raise AssertionError(f"sync-free step {name}: {left} bytes stay allocated after "
+                                 f"its engines are dropped")
+        ran = graph_against_eager(torch, name, runs)
         frames_pp = STEADY_STEPS * lanes  # postprocessed frames (TTA: the averaged one)
         need = {"grow_into_band": frames_pp * (2 if "split" in name else 1),
                 "erosion_distance": frames_pp if "'dist'" in name else 0}
         if any(ran[k] != n for k, n in need.items()) or ran["ccl"] == 0:
             raise AssertionError(f"sync-free step {name}: launches {ran}, expected {need}")
+        labels = [out[0] for out in runs["graph"][0]]
         if any(tuple(t.shape) != (lanes, 512, 512) for t in labels):
             raise AssertionError(f"sync-free step {name}: labels {[t.shape for t in labels]}")
-        log(f"sync-free step {name}: {STEADY_STEPS} steps, no sync; host ms to return "
-            f"{host_ms:.3f} a step; launches grow {ran['grow_into_band']}, erosion "
-            f"{ran['erosion_distance']}, K3 {ran['ccl']}")
-    model = bench.make_model("int8", tiny=False, device="cuda")
-    step, state = bench.build_pipeline(model, 512, calibrated=True)
+        log(f"sync-free step {name}: {STEADY_STEPS} steps, no sync; launches grow "
+            f"{ran['grow_into_band']}, erosion {ran['erosion_distance']}, K3 {ran['ccl']}")
     uploaded = bench.upload(bench.make_frames(2 + STEADY_STEPS, 512), "cuda")
-    for f in uploaded[:2]:
-        state, _ = step(state, f)
-    torch.cuda.synchronize()
-
-    def steady(state):
-        for f in uploaded[2:]:
-            state, labels = step(state, f)
-        return labels
-
-    labels = sync_debug(torch, steady, state)
-    torch.cuda.synchronize()
-    if tuple(labels.shape) != (1, 512, 512):
-        raise AssertionError(f"sync-free bench step: labels {tuple(labels.shape)}")
+    runs = {}
+    for mode in ("eager", "graph"):
+        step, state = bench.build_pipeline(bench.make_model("int8", tiny=False, device="cuda"),
+                                           512, calibrated=True)
+        if mode == "eager":
+            state.graphs = None
+        runs[mode] = steady_steps(torch, lambda f: step(state, f)[1:], uploaded)
+        del step, state
+    ran = graph_against_eager(torch, "bench build_pipeline (int8 calibrated, grow_iters=3)",
+                              runs)
+    if ran["grow_into_band"] != STEADY_STEPS or ran["ccl"] != STEADY_STEPS:
+        raise AssertionError(f"sync-free bench step: launches {ran}")
+    if any(tuple(out[0].shape) != (1, 512, 512) for out in runs["graph"][0]):
+        raise AssertionError("sync-free bench step: labels of another shape")
     log(f"sync-free step bench build_pipeline (int8 calibrated, grow_iters=3): "
         f"{STEADY_STEPS} steps, no sync")
 
@@ -922,6 +999,41 @@ def phase_k4_narrow(torch, g):
     return {"fused_convlstm_level_narrow": narrow, "fused_convlstm_level": simt}
 
 
+def library_k1(torch, gates, c):
+    """ms of PyTorch's fused LSTM cell (``aten::_thnn_fused_lstm_cell``, gate
+    order i, f, g, o, sigmoid: K1's function, fed K1's gates as its input
+    gates and zeros as its hidden gates) on K1's inputs, after holding its
+    (c', h') to K1's within 1e-5; the port never calls it."""
+    from lstm_unet_tpu_torch.ops.kernels import lstm_gates
+
+    zeros = torch.zeros_like(gates)
+    fused = torch.ops.aten._thnn_fused_lstm_cell
+    hy, cy, _ = fused(gates, zeros, c)
+    e = check_close("aten::_thnn_fused_lstm_cell against K1", (cy, hy),
+                    lstm_gates.fused_lstm_gate_update(gates, c), 1e-5, 1e-5)
+    ms = time_ms(lambda: fused(gates, zeros, c))
+    log(f"K1's library call aten::_thnn_fused_lstm_cell: {ms:.4f} ms, max_abs_err {e:.3g} "
+        f"against K1")
+    return ms
+
+
+def library_k2(torch, gates, c, dc_out, dh):
+    """ms of ``aten::_thnn_fused_lstm_cell_backward_impl`` (K2's function, on
+    the activated gates its forward saves) on K2's inputs, after holding its
+    (dgates, dc) to K2's within 1e-5; the port never calls it."""
+    from lstm_unet_tpu_torch.ops.kernels import lstm_gates
+
+    _, cy, workspace = torch.ops.aten._thnn_fused_lstm_cell(gates, torch.zeros_like(gates), c)
+    bwd = torch.ops.aten._thnn_fused_lstm_cell_backward_impl
+    dgates, dcx, _ = bwd(dh, dc_out, c, cy, workspace, False)
+    e = check_close("aten::_thnn_fused_lstm_cell_backward_impl against K2", (dgates, dcx),
+                    lstm_gates.lstm_gate_update_bwd(gates, c, dc_out, dh), 1e-5, 1e-5)
+    ms = time_ms(lambda: bwd(dh, dc_out, c, cy, workspace, False))
+    log(f"K2's library call aten::_thnn_fused_lstm_cell_backward_impl: {ms:.4f} ms, "
+        f"max_abs_err {e:.3g} against K2")
+    return ms
+
+
 def phase_k2(torch):
     """(f): K2 against its plain version at the flagship training shapes
     (rows = B x H x W of each level at B = 5 and 8, 256^2 crops: the
@@ -960,12 +1072,15 @@ def phase_k2(torch):
                 timing = (time_ms(lambda: lstm_gates.lstm_gate_update_bwd(
                               gates, c, dc_out, dh)),
                           time_ms(lambda: lstm_gates.lstm_gate_update_bwd_plain(
-                              gates, c, dc_out, dh)))
+                              gates, c, dc_out, dh)),
+                          library_k2(torch, gates, c, dc_out, dh))
                 gb = rows * feat * 12 * 4 / 1e9  # reads 7F, writes 5F f32 per row
                 log(f"K2 time @B5x256^2 F=128 float32: kernel {timing[0]:.4f} ms "
-                    f"({gb / timing[0]:.2f} TB/s), plain {timing[1]:.4f} ms")
+                    f"({gb / timing[0]:.2f} TB/s), plain {timing[1]:.4f} ms, library "
+                    f"{timing[2]:.4f} ms")
     # reads 4F gates + F state + 2F cotangents, writes 4F + F, f32, per row
-    return summary(timing[0], timing[1], max(errs), bound(5 * 256 * 256 * 128 * 12 * 4))
+    return dict(summary(timing[0], timing[1], max(errs), bound(5 * 256 * 256 * 128 * 12 * 4)),
+                library_ms=timing[2])
 
 
 def train_args(root, save_root, dtype, steps, save_every=10 ** 9):
@@ -1757,6 +1872,19 @@ def smallk_site(torch, g, b, hw, cin, k, cout, into=None):
     return row
 
 
+def replayed(name, before, steps):
+    """Check that a stream of ``steps`` frames on the card, since graph
+    counts ``before``, captured its step once (two graphs) at its first
+    frame and replayed it at every other; returns the replays."""
+    from lstm_unet_tpu_torch.ops import kernels
+
+    got = {k: v - before[k] for k, v in kernels.graph_counts().items()}
+    if got != {"captures": 2, "replays": steps - 1}:
+        raise AssertionError(f"{name}: graph counts {got} over {steps} frames, expected 2 "
+                             f"captures and {steps - 1} replays")
+    return got["replays"]
+
+
 def phase_golden(torch, work):
     """(d): the golden sequence in f32, fused cell off, then on (the tiny
     model's levels, F = 8 and 16, take K4's narrow route, 3xTF32: 2 per
@@ -1771,7 +1899,7 @@ def phase_golden(torch, work):
     want_paths = sorted(glob.glob(os.path.join(GOLDEN, "masks", "mask*.tif")))
     for fused in (False, True):
         out = os.path.join(work, f"golden_res_{int(fused)}")
-        before = kernels.counts()
+        before, graphs = kernels.counts(), kernels.graph_counts()
         n = cli_main(["--model_path", os.path.join(GOLDEN, "torch_ckpt"),
                       "--sequence_path", os.path.join(root, "Synth-N2DH-SIM", "01"),
                       "--output_path", out, "--device", "cuda",
@@ -1785,10 +1913,12 @@ def phase_golden(torch, work):
         if narrow != (2 * (n + 2) if fused else 0) or simt != 0:
             raise AssertionError(f"golden fused_cell={fused}: {narrow} narrow and {simt} SIMT "
                                  f"K4 launches")
+        replays = replayed(f"golden fused_cell={fused}", graphs, n + 2)
         # f32 is held to the golden masks exactly
         diffs = compare_dirs(f"golden fused_cell={fused}", out, os.path.join(GOLDEN, "masks"), 0)
         log(f"golden masks on the card, f32 fused_cell={fused}: differing px per frame "
-            f"{diffs} (bar: 0 px); K4 launches: narrow {narrow}, SIMT {simt}")
+            f"{diffs} (bar: 0 px); K4 launches: narrow {narrow}, SIMT {simt}; the step "
+            f"captured once, replayed {replays} times")
 
     # frames too large for K3's cluster route: the same model on a 1024^2
     # sequence, on the card (grid route, once a frame) and on the CPU
@@ -1797,7 +1927,7 @@ def phase_golden(torch, work):
     outs = {}
     for device in ("cuda", "cpu"):
         outs[device] = os.path.join(work, f"large_res_{device}")
-        before = kernels.counts()
+        before, graphs = kernels.counts(), kernels.graph_counts()
         n = cli_main(["--model_path", os.path.join(GOLDEN, "torch_ckpt"),
                       "--sequence_path", seq_dir, "--output_path", outs[device],
                       "--device", device, "--pre_sequence_frames", "1",
@@ -1807,6 +1937,7 @@ def phase_golden(torch, work):
             ran = {k: after[k]["kernel"] - before[k]["kernel"] for k in ("ccl", "ccl_grid")}
             if n != 3 or ran != {"ccl": 0, "ccl_grid": n + 1}:
                 raise AssertionError(f"1024^2 sequence: {n} masks, K3 launches {ran}")
+            replayed("1024^2 sequence", graphs, n + 1)
         else:  # the plain versions the CPU run calls are no part of the path's count
             for k in after:
                 kernels.KERNELS[k].plain = before[k]["plain"]
@@ -1891,7 +2022,7 @@ def phase_golden_int8(torch, work):
             model_dir = os.path.join(work, f"int8_model_{len(extra)}_{device}")
             shutil.copytree(os.path.join(GOLDEN, "torch_ckpt"), model_dir)
             outs[device] = os.path.join(work, f"golden_int8_{tag.replace(' ', '_')}_{device}")
-            before = kernels.counts()
+            before, graphs = kernels.counts(), kernels.graph_counts()
             n = cli_main(["--model_path", model_dir, "--sequence_path", seq, "--output_path",
                           outs[device], "--device", device, "--pre_sequence_frames", "2",
                           "--min_cell_size", "5", "--dtype", "int8", *extra])
@@ -1911,6 +2042,7 @@ def phase_golden_int8(torch, work):
                 if n != 8 or got != want:
                     raise AssertionError(f"golden int8 {tag}: {n} masks, int8 conv launches "
                                          f"{got}, expected {want}")
+                replayed(f"golden int8 {tag}", graphs, n + 2)
             else:  # the CPU run's plain calls are no part of the path's count
                 for k in after:
                     kernels.KERNELS[k].plain = before[k]["plain"]

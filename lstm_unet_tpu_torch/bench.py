@@ -7,7 +7,9 @@ Counterpart of the repo's ``bench.py``, on the port and its hand kernels::
     python -m lstm_unet_tpu_torch.bench --device cpu --tiny --size 32
 
 The timed region is the reference's: the full streaming pipeline per frame
-on the device, with the LSTM state carried from frame to frame::
+on the device, with the LSTM state carried from frame to frame, on a card
+one replay of the step's CUDA graph a frame (the reference times its one
+jitted step)::
 
     raw uint16 frames (made once, on the device before timing) -> per-lane
     1/99 percentile normalize (integer frames: the exact 65536-bin quantile)
@@ -73,6 +75,7 @@ import numpy as np
 import torch
 
 from .config import NetKernelParams, default_net_kernel_params, tiny_net_kernel_params
+from .engine.graph import CompiledStep, CudaGraphs
 from .engine.infer import _no_tf32, calibrate_act_scales
 from .engine.optim import ClippedAdam
 from .engine.train import make_train_step
@@ -246,7 +249,12 @@ def build_pipeline(model: ULSTMnet2D, size: int, calibrated: bool = False,
     """Cast the float ``model`` to its compute dtype, or quantize it (int8:
     calibrated static scales, else dynamic), once; returns ``(step,
     state)``: ``step(state, frames [B, H, W] int32) -> (state, labels [B,
-    H, W] int32)``, the whole streaming pipeline on the model's device."""
+    H, W] int32)``, the whole streaming pipeline on the model's device. The
+    state is a handle (``engine/graph.py::CompiledStep``: the LSTM state in
+    two sets of buffers, read and written in turn); on a card the step is
+    captured as CUDA graphs at its first call and replayed at every later
+    one, as the reference's bench times one jitted step. The labels are the
+    step's own (no later step writes them)."""
     cfg = model.cfg
     device = next(model.parameters()).device
     _no_tf32(device)
@@ -256,16 +264,23 @@ def build_pipeline(model: ULSTMnet2D, size: int, calibrated: bool = False,
                             float_dtype=cfg.compute_dtype)
     else:
         cast_params_for_inference(model, cfg.compute_dtype)
-    state = model.init_state(batch, size, size, device=device)
+
+    def body(frames, state, state_out):
+        x = normalize_frames(frames, size, size)
+        _, logits = model.step(state, x[..., None], out=state_out)
+        probs = torch.softmax(logits, dim=-1)
+        return (torch.stack([postprocess_frame(p, **POSTPROCESS) for p in probs]),)
+
+    sets = [model.init_state(batch, size, size, device=device) for _ in range(2)]
+    compiled = CompiledStep(sets, CudaGraphs(device) if device.type == "cuda" else None)
 
     @torch.inference_mode()
-    def step(state, frames):
-        x = normalize_frames(frames, size, size)
-        state, logits = model.step(state, x[..., None])
-        probs = torch.softmax(logits, dim=-1)
-        return state, torch.stack([postprocess_frame(p, **POSTPROCESS) for p in probs])
+    def step(state: CompiledStep, frames):
+        state.input(frames.shape, frames.dtype, frames.device).copy_(frames)
+        labels, = state.step(body)
+        return state, labels
 
-    return step, state
+    return step, compiled
 
 
 def make_frames(n: int, size: int, batch: int = 1) -> np.ndarray:

@@ -17,10 +17,18 @@ the model's device, for B lanes (one sequence each; B = 1 for
 
 and the labels go to a uint16 ``mask###.tif`` on a writer thread. Frames are
 decoded on prefetch threads; the labels of step t-1 are written after step
-t has been dispatched. The state is rebound to the step's output every step
-and the old tensors are released, so the caching allocator hands their
-memory to the next step: memory stays flat over any sequence length (the
-reference donates the state buffers for the same effect).
+t has been dispatched.
+
+The step is one function, :meth:`StreamingInferenceEngine._body`, run by
+``engine/graph.py::CompiledStep`` over a static input and two sets of
+carried buffers (the state, and ``reset_on_jump``'s previous frame) that the
+steps read and write in turn, so memory stays flat over any sequence length
+(the reference donates the state buffers for the same effect). On a
+single-process card the body is captured as two CUDA graphs per frame shape
+at the first frame and each later frame replays one: the counterpart of the
+reference's one jitted program per frame. It runs eagerly on the CPU, and
+under a mesh (below), whose gloo halo exchange stages rows through the host
+(``parallel/comm.py::exchange``), which a graph cannot hold.
 
 ``dtype='int8'``: the engine quantizes the model when it is built
 (``models/ulstm_unet.py::quantize_model_int8``, from the weights as
@@ -68,6 +76,7 @@ from ..ops.postprocess import UINT16_MAX, postprocess_frame
 from ..parallel.distributed import is_writer
 from ..parallel.mesh import make_mesh, mesh_axis_sizes, plan_split
 from ..utils import StallWatchdog, log_print, resolve_device
+from .graph import CompiledStep, CudaGraphs
 
 
 def _no_tf32(device: torch.device) -> None:
@@ -210,7 +219,13 @@ class StreamingInferenceEngine:
     clipped mean absolute difference from the lane's previous frame exceeds
     it; the first frame never resets. ``ip.mesh_shape`` splits the stream
     over this run's ranks (module docstring); then :meth:`step_batch_async`
-    returns the outputs on rank 0 only, and None on the others."""
+    returns the outputs on rank 0 only, and None on the others.
+
+    ``capture`` (True on a single-process card, False on the CPU and under a
+    mesh) is whether the step is captured as CUDA graphs
+    (``engine/graph.py``); set it False before the first step to run the
+    same body eagerly on a card, as ``chip_smoke.py`` and the card tests do
+    to compare the two."""
 
     def __init__(self, model: ULSTMnet2D, ip: InferenceParams, device):
         self.model = model
@@ -228,11 +243,21 @@ class StreamingInferenceEngine:
         self.n_var = (8 if tta_mode == "d4" else 4) if ip.tta else 1
         self.jump_thresh = float(ip.reset_on_jump or 0.0)
         self.depth_multiple = 2 ** model.cfg.nkp.depth
-        self._state = None
-        self._prev: Optional[torch.Tensor] = None  # reset_on_jump: last normalized frames
+        self._step: Optional[CompiledStep] = None
         self._shape: Optional[Tuple[int, int, int]] = None  # (B, oh, ow)
         self.mesh = make_mesh(ip.mesh_shape)
         self._split = None  # this rank's block of the lanes and rows
+        self.capture = self.device.type == "cuda" and self.mesh is None
+
+    @property
+    def _state(self):
+        """The state the next step reads (what the last step wrote)."""
+        return None if self._step is None else self._step.state[0]
+
+    @property
+    def _prev(self) -> Optional[torch.Tensor]:
+        """``reset_on_jump``: the normalized frames of the last step."""
+        return None if self._step is None else self._step.state[1]
 
     def _padded_hw(self, oh: int, ow: int) -> Tuple[int, int]:
         """The model's frame size for an original (oh, ow): multiples of
@@ -278,21 +303,31 @@ class StreamingInferenceEngine:
         return split
 
     def _build(self, oh: int, ow: int, batch: int = 1) -> None:
+        """The step of ``batch`` lanes of ``oh`` x ``ow`` frames: two sets of
+        carried buffers and, when :attr:`capture`, CUDA graphs (captured at
+        the first step). The old step, its buffers and graphs go first."""
+        self._step = None
         h, w = self._padded_hw(oh, ow)
         split = self.model.split = self._split = self._plan(batch, h)
         lanes = batch * self.n_var
         if split is not None:
             lanes, h = split.block(lanes, h)
-        self._state = self.model.init_state(lanes, h, w, device=self.device)
-        self._prev = (torch.full((batch,) + self._padded_hw(oh, ow), float("nan"),
-                                 device=self.device)
-                      if self.jump_thresh > 0 else None)
-        self._shape = (batch, oh, ow)
 
-    def _upload(self, padded: np.ndarray) -> torch.Tensor:
-        """The frames on the device as int32 (integer frames) or f32. To a
-        card they go from a pinned block of PyTorch's caching host allocator,
-        which keeps the block until the copy has run, without waiting."""
+        def carried():  # (state, previous frames)
+            prev = (torch.full((batch,) + self._padded_hw(oh, ow), float("nan"),
+                               device=self.device)
+                    if self.jump_thresh > 0 else None)
+            return self.model.init_state(lanes, h, w, device=self.device), prev
+
+        self._shape = (batch, oh, ow)
+        self._step = CompiledStep([carried(), carried()],
+                                  CudaGraphs(self.device) if self.capture else None)
+
+    def _upload(self, padded: np.ndarray) -> None:
+        """The frames into the step's static input, as int32 (integer frames)
+        or f32. To a card they go from a pinned block of PyTorch's caching
+        host allocator, which keeps the block until the copy has run, without
+        waiting."""
         if np.issubdtype(padded.dtype, np.integer):
             if padded.dtype not in (np.uint8, np.uint16):
                 raise ValueError(f"integer frames must be uint8/uint16, got "
@@ -300,9 +335,11 @@ class StreamingInferenceEngine:
             host = torch.from_numpy(padded.astype(np.int32))
         else:
             host = torch.from_numpy(padded.astype(np.float32))
+        x = self._step.input(host.shape, host.dtype, self.device)
         if self.device.type == "cuda":
-            return host.pin_memory().to(self.device, non_blocking=True)
-        return host.to(self.device)
+            x.copy_(host.pin_memory(), non_blocking=True)
+        else:
+            x.copy_(host)
 
     def _variants(self, x: torch.Tensor) -> torch.Tensor:
         """``[B, H, W]`` -> the model's lanes ``[n_var * B, H, W]``,
@@ -342,27 +379,41 @@ class StreamingInferenceEngine:
         """Enqueue one raw frame per lane, ``[B, H, W]``; returns the device
         tensors (labels ``[B, H, W]`` int32, probs ``[B, H, W, 3]`` or None)
         without waiting for them; under a mesh, (None, None) on every rank but
-        rank 0.
+        rank 0. The tensors are the step's own, which no later step writes:
+        on a card, copies made on the card right after the step's replay
+        (``engine/graph.py``), eagerly the body's own outputs.
 
         On a card, once a frame shape's state exists, the step never waits
-        for the device: the upload is asynchronous from pinned memory and the
-        postprocess's loops decide on the card (``chip_smoke.py`` phase p
-        holds it to ``torch.cuda.set_sync_debug_mode("error")``). A mesh is
-        exempt: its collectives stage through the host."""
+        for the device: the upload is asynchronous from pinned memory, and
+        the step is a replay of a CUDA graph (``engine/graph.py``), which
+        holds no host read (``chip_smoke.py`` phase p also holds it to
+        ``torch.cuda.set_sync_debug_mode("error")``). A mesh is exempt: it
+        runs eagerly, and its collectives stage through the host."""
         b, oh, ow = frames.shape
         if self._shape != (b, oh, ow):
             self._build(oh, ow, b)
-        x = normalize_frames(self._upload(self._pad_frame(frames)), oh, ow)
-        state, split = self._state, self._split
+        self._upload(self._pad_frame(frames))
+        return self._step.step(self._body)
+
+    def _body(self, frames: torch.Tensor, src, dst):
+        """The step on the device: padded raw ``frames [B, H, W]`` (int32 or
+        f32) and the carried buffers ``src`` (state, previous frames) -> the
+        new ones written into ``dst``; returns (labels, probs or None), or
+        (None, None) on a rank that does not write. What the CUDA graphs
+        capture, and what runs eagerly where they do not."""
+        _, oh, ow = self._shape
+        (state, prev), (state_out, prev_out) = src, dst
+        x = normalize_frames(frames, oh, ow)
+        split = self._split
         if self.jump_thresh > 0:
-            jumps = (x.clamp(0.0, 1.0) - self._prev.clamp(0.0, 1.0)).abs().mean(dim=(1, 2))
+            jumps = (x.clamp(0.0, 1.0) - prev.clamp(0.0, 1.0)).abs().mean(dim=(1, 2))
             cut = (jumps > self.jump_thresh).float().repeat(self.n_var)
             state = ULSTMnet2D.reset_lanes(state, cut if split is None else split.take(cut))
-            self._prev = x
+            prev_out.copy_(x)
         lanes = self._variants(x)[..., None]
         if split is not None:
             lanes = split.take(lanes, 0, 1).contiguous()
-        self._state, logits = self.model.step(state, lanes)
+        _, logits = self.model.step(state, lanes, out=state_out)
         if split is not None:
             logits = split.gather(logits, row_dim=1)
         if not self._postprocesses():

@@ -317,12 +317,16 @@ class ULSTMnet2D(nn.Module):
     # -- forward ----------------------------------------------------------
 
     def step(self, state: State, frame: torch.Tensor,
-             collect_scales: Optional[dict] = None, *, recompute_segments: bool = False
-             ) -> Tuple[State, torch.Tensor]:
+             collect_scales: Optional[dict] = None, *, recompute_segments: bool = False,
+             out: Optional[State] = None) -> Tuple[State, torch.Tensor]:
         """One frame ``[B,H,W,C]`` -> (new state, f32 logits ``[B,H,W,K]``).
         The input state is not modified. ``collect_scales``: a dict the caller
         owns, which gets every conv site's input abs-max (0-d f32 tensors)
-        under the reference's site names.
+        under the reference's site names. ``out`` (inference only): a state
+        like ``state`` (from :meth:`init_state`), aliasing none of it, into
+        which each ConvLSTM layer's kernel writes the new state, which is
+        returned: the streaming step's buffers (``engine/graph.py``), the
+        counterpart of the reference's donated state.
 
         The frame runs as segments: each ConvLSTM layer (after the 2x2 pool
         of the level below's output), each encoder level's conv stack, the
@@ -340,7 +344,8 @@ class ULSTMnet2D(nn.Module):
             pool = lvl > 0  # the level below's skip, pooled by the first segment
             for j, cell in enumerate(level.lstm):
                 carry, x = run(self._lstm_layer, cell, f"encoder/{lvl}/lstm/{j}", pool,
-                               state[lvl][j], x, collect_scales)
+                               state[lvl][j], x, collect_scales,
+                               None if out is None else out[lvl][j])
                 lvl_state.append(carry)
                 pool = False
             x = run(self._conv_stack, level.convs, f"encoder/{lvl}/convs", pool, x,
@@ -350,13 +355,13 @@ class ULSTMnet2D(nn.Module):
         return new_state, run(self._decode, skips, collect_scales)
 
     def _lstm_layer(self, cell: nn.Module, site: str, pool: bool, carry, x: torch.Tensor,
-                    collect: Optional[dict]):
+                    collect: Optional[dict], out=None):
         if pool:
             x = max_pool_2x2(x)
         _collect(collect, site + "/x", x)
         _collect(collect, site + "/h", carry[0])
         carry, x = cell(carry, x, recurrent_activation=self.cfg.recurrent_activation,
-                        fused_cell=self.cfg.fused_cell, split=self.split)
+                        fused_cell=self.cfg.fused_cell, split=self.split, out=out)
         return carry, x.to(self.cfg.compute_dtype)  # the carry may be f32 under bf16
 
     @staticmethod

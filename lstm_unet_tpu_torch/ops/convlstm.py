@@ -65,19 +65,29 @@ def _kept_pack(cache: dict, key: tuple, wh: torch.Tensor, b: int, hh: int, ww: i
 
 
 def _fused_level(gx: torch.Tensor, h: torch.Tensor, c: torch.Tensor, wh: torch.Tensor,
-                 recurrent_activation: str, packed: Optional[torch.Tensor], split
-                 ) -> Carry:
+                 recurrent_activation: str, packed: Optional[torch.Tensor], split,
+                 out: Optional[Carry]) -> Carry:
     """K4 on this rank's rows: ``fused_convlstm_level``, on the block
-    extended by ``k // 2`` rows when the rows are split."""
+    extended by ``k // 2`` rows when the rows are split; into ``out`` when
+    given."""
     group = None if split is None else split.spatial
     halo = wh.shape[0] // 2
     if group is None or halo == 0:
-        return fused_convlstm_level(gx, h, c, wh, recurrent_activation, packed)
+        return fused_convlstm_level(gx, h, c, wh, recurrent_activation, packed, out)
     rows = (0, 0, 0, 0, halo, halo)  # zero rows above and below, NHWC
     h_new, c_new = fused_convlstm_level(F.pad(gx, rows), exchange_halo_h(h, halo, group),
                                         F.pad(c, rows), wh, recurrent_activation, packed)
     keep = slice(halo, halo + h.shape[1])
-    return h_new[:, keep].contiguous(), c_new[:, keep].contiguous()
+    return _into(out, (h_new[:, keep].contiguous(), c_new[:, keep].contiguous()))
+
+
+def _into(out: Optional[Carry], carry: Carry) -> Carry:
+    """``carry``, or ``out`` with ``carry`` copied into it when given."""
+    if out is None:
+        return carry
+    for dst, src in zip(out, carry):
+        dst.copy_(src)
+    return out
 
 
 class ConvLSTMCell(nn.Module):
@@ -110,10 +120,13 @@ class ConvLSTMCell(nn.Module):
 
     def forward(self, carry: Carry, x: torch.Tensor, *,
                 recurrent_activation: str = "sigmoid",
-                fused_cell: bool = False, split=None) -> Tuple[Carry, torch.Tensor]:
+                fused_cell: bool = False, split=None,
+                out: Optional[Carry] = None) -> Tuple[Carry, torch.Tensor]:
         """One timestep: ``((h, c), x [B,H,W,Cin]) -> ((h', c'), h')``; the
         carry keeps its dtype, the convs run in x's dtype. Under a ``split``
-        of the rows, of this rank's rows."""
+        of the rows, of this rank's rows. ``out``: an ``(h, c)`` pair like
+        the carry, aliasing no input, into which the new carry is written by
+        the kernel that computes it (inference only)."""
         h, c = carry
         b, hh, ww, _ = x.shape
         k = self.kernel_h.shape[-1]
@@ -125,11 +138,13 @@ class ConvLSTMCell(nn.Module):
             kh = self.kernel_h
             packed = _kept_pack(self._packs, (kh.device, kh.data_ptr(), kh._version), wh, b,
                                 hh, ww, x)
-            h_new, c_new = _fused_level(gx, h, c, wh, recurrent_activation, packed, split)
+            h_new, c_new = _fused_level(gx, h, c, wh, recurrent_activation, packed, split,
+                                        out)
             return (h_new, c_new), h_new
         gates = (conv2d(x, self.kernel_x, self.bias, split)
                  + conv2d(h.to(x.dtype), self.kernel_h, None, split))
-        c_new, h_new = lstm_gate_update(gates, c, recurrent_activation)
+        c_new, h_new = lstm_gate_update(gates, c, recurrent_activation,
+                                        None if out is None else out[::-1])
         return (h_new, c_new), h_new
 
 
@@ -171,7 +186,9 @@ class QConvLSTMCell(nn.Module):
 
     def forward(self, carry: Carry, x: torch.Tensor, *,
                 recurrent_activation: str = "sigmoid",
-                fused_cell: bool = False, split=None) -> Tuple[Carry, torch.Tensor]:
+                fused_cell: bool = False, split=None,
+                out: Optional[Carry] = None) -> Tuple[Carry, torch.Tensor]:
+        """:meth:`ConvLSTMCell.forward` of the int8 cell."""
         h, c = carry
         b, hh, ww, _ = x.shape
         k = self.wh.shape[-1]
@@ -179,9 +196,11 @@ class QConvLSTMCell(nn.Module):
             gx = conv2d_q(x, self.wx, self.x_scale, x.dtype, split)
             wh = self.wh_dequantized(x.dtype)
             packed = _kept_pack(self._packs, (wh.device, wh.data_ptr()), wh, b, hh, ww, x)
-            h_new, c_new = _fused_level(gx, h, c, wh, recurrent_activation, packed, split)
+            h_new, c_new = _fused_level(gx, h, c, wh, recurrent_activation, packed, split,
+                                        out)
             return (h_new, c_new), h_new
         gates = (conv2d_q(x, self.wx, self.x_scale, x.dtype, split)
                  + conv2d_q(h, self.wh, self.h_scale, x.dtype, split))
-        c_new, h_new = lstm_gate_update(gates, c, recurrent_activation)
+        c_new, h_new = lstm_gate_update(gates, c, recurrent_activation,
+                                        None if out is None else out[::-1])
         return (h_new, c_new), h_new

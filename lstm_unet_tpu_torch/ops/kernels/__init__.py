@@ -3,11 +3,18 @@
 Counterpart of ``lstm_unet_tpu/ops/pallas``. Each wrapper takes its plain
 version for CPU tensors and launches its CUDA kernel for CUDA tensors, and
 counts both in its :class:`_build.LaunchCount` (see :func:`counts`).
+
+A CUDA graph (``engine/graph.py``) runs no wrapper when it is replayed, so
+its launches are counted apart: :func:`record_capture` takes the launches
+the wrappers counted while a graph was captured (which ran nothing) back
+off the counts and returns them, :func:`record_replay` adds them once a
+replay, and :func:`restore` takes back what a capture that failed counted.
+:data:`GRAPHS` counts the captures and the replays.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
 from . import ccl, conv_int8, convlstm_cell, lstm_gates, postprocess_loops
 
@@ -35,6 +42,66 @@ def counts() -> Dict[str, Dict[str, int]]:
             for name, n in KERNELS.items()}
 
 
+class GraphCount:
+    """How often a streaming step was captured as CUDA graphs, and replayed."""
+
+    def __init__(self):
+        self.captures = 0
+        self.replays = 0
+
+    def reset(self) -> None:
+        self.captures = 0
+        self.replays = 0
+
+
+GRAPHS = GraphCount()
+
+Launches = Dict[str, Tuple[int, int]]  # kernel -> (launches, plain calls)
+
+
+def graph_counts() -> Dict[str, int]:
+    """``{"captures": n, "replays": n}`` of the streaming step's graphs."""
+    return {"captures": GRAPHS.captures, "replays": GRAPHS.replays}
+
+
+def snapshot() -> Launches:
+    """Every kernel's ``(launches, plain calls)`` so far."""
+    return {name: (n.kernel, n.plain) for name, n in KERNELS.items()}
+
+
+def record_capture(before: Launches) -> Launches:
+    """What the wrappers counted since ``before`` (a :func:`snapshot` taken
+    as a graph's capture began), taken back off the counts, since a capture
+    runs nothing; returns it, the launches one replay of that graph makes.
+    Counts one capture."""
+    held = {}
+    for name, n in KERNELS.items():
+        k, p = n.kernel - before[name][0], n.plain - before[name][1]
+        if k or p:
+            held[name] = (k, p)
+            n.kernel -= k
+            n.plain -= p
+    GRAPHS.captures += 1
+    return held
+
+
+def restore(before: Launches) -> None:
+    """Set every kernel's counts back to ``before`` (a :func:`snapshot`):
+    what a capture that failed had counted."""
+    for name, (k, p) in before.items():
+        KERNELS[name].kernel, KERNELS[name].plain = k, p
+
+
+def record_replay(held: Launches) -> None:
+    """Count one replay of a graph that holds ``held`` (from
+    :func:`record_capture`)."""
+    for name, (k, p) in held.items():
+        KERNELS[name].kernel += k
+        KERNELS[name].plain += p
+    GRAPHS.replays += 1
+
+
 def reset_counts() -> None:
     for n in KERNELS.values():
         n.reset()
+    GRAPHS.reset()

@@ -53,6 +53,9 @@ import torch.nn.functional as F
 from . import _build
 from .lstm_gates import gate_math
 
+# K4's (h', c') outputs given by the caller, or None
+Carry = Optional[Tuple[torch.Tensor, torch.Tensor]]
+
 COUNT = _build.LaunchCount()         # the SIMT route
 WGMMA_COUNT = _build.LaunchCount()   # the bf16 tensor-core route
 TF32X3_COUNT = _build.LaunchCount()  # the f32 tensor-core route (3xTF32)
@@ -335,7 +338,7 @@ def fused_convlstm_level_plain(gx: torch.Tensor, h: torch.Tensor,
 
 def fused_convlstm_level(gx: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
                          wh: torch.Tensor, recurrent_activation: str = "sigmoid",
-                         packed: Optional[torch.Tensor] = None
+                         packed: Optional[torch.Tensor] = None, out: Carry = None
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(h', c')`` of one ConvLSTM level, layouts as in the module docstring.
 
@@ -345,6 +348,9 @@ def fused_convlstm_level(gx: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
     bfloat16. ``gx``, ``h`` and ``c`` are contiguous; ``wh`` may be a view
     (it is packed or made contiguous here, unless ``packed`` holds its
     :func:`pack_for_route` pack, which the narrow route then takes).
+    ``out``: two contiguous tensors like ``h`` and ``c``, aliasing no input,
+    that receive ``(h', c')`` and are returned (the streaming step's
+    buffers, ``engine/graph.py``).
     """
     if gx.dim() != 4 or h.dim() != 4 or wh.dim() != 4:
         raise ValueError("need gx [B,H,W,4F], h and c [B,H,W,F], wh [K,K,F,4F]")
@@ -363,7 +369,12 @@ def fused_convlstm_level(gx: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
             "reference): run it under torch.no_grad()/inference_mode, or train "
             "with fused_cell=False")
     if h.device.type == "cpu":
-        return fused_convlstm_level_plain(gx, h, c, wh, recurrent_activation)
+        got = fused_convlstm_level_plain(gx, h, c, wh, recurrent_activation)
+        if out is None:
+            return got
+        for dst, src in zip(_outputs(h, c, out), got):
+            dst.copy_(src)
+        return out
     if h.device.type != "cuda":
         raise ValueError(f"no fused ConvLSTM kernel for device {h.device}")
     if (gx.dtype != wh.dtype or h.dtype != c.dtype
@@ -380,26 +391,38 @@ def fused_convlstm_level(gx: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
     if recurrent_activation not in _build.ACTIVATIONS:
         raise ValueError(f"unknown recurrent activation {recurrent_activation!r}")
     if which == "wgmma":
-        return wgmma_level(gx, h, c, pack_wh(wh), k, recurrent_activation)
+        return wgmma_level(gx, h, c, pack_wh(wh), k, recurrent_activation, out)
     if which == "tf32x3":
-        return tf32x3_level(gx, h, c, pack_wh_tf32x3(wh), k, recurrent_activation)
+        return tf32x3_level(gx, h, c, pack_wh_tf32x3(wh), k, recurrent_activation, out)
     if which == "narrow":
         if packed is None:
             packed = pack_for_route(wh, which)
-        return narrow_level(gx, h, c, packed, k, recurrent_activation)
-    return simt_level(gx, h, c, wh, recurrent_activation)
+        return narrow_level(gx, h, c, packed, k, recurrent_activation, out)
+    return simt_level(gx, h, c, wh, recurrent_activation, out)
+
+
+def _outputs(h: torch.Tensor, c: torch.Tensor, out: Carry) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``out`` checked as contiguous tensors like ``h`` and ``c``, or two
+    new ones."""
+    if out is None:
+        return torch.empty_like(h), torch.empty_like(c)
+    for t, like in zip(out, (h, c)):
+        if (t.shape != like.shape or t.dtype != like.dtype or t.device != like.device
+                or not t.is_contiguous()):
+            raise ValueError(f"out {tuple(t.shape)} {t.dtype} on {t.device} is not a "
+                             f"contiguous tensor like {tuple(like.shape)} {like.dtype}")
+    return out
 
 
 def simt_level(gx: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
-               wh: torch.Tensor, recurrent_activation: str = "sigmoid"
+               wh: torch.Tensor, recurrent_activation: str = "sigmoid", out: Carry = None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The SIMT launch, for CUDA tensors that :func:`fused_convlstm_level`
     has checked (this entry also lets a caller time the SIMT kernel at a
     level that :func:`route` sends to the tensor cores)."""
     b, hh, ww, feat = h.shape
     k = wh.shape[0]
-    h_out = torch.empty_like(h)
-    c_out = torch.empty_like(c)
+    h_out, c_out = _outputs(h, c, out)
     wh = wh.contiguous()
     with torch.cuda.device(h.device):
         err = _build.library().lut_convlstm_level(
@@ -414,16 +437,15 @@ def simt_level(gx: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
 
 def _tensor_core_level(entry: str, count: _build.LaunchCount, want, dtype: torch.dtype,
                        gx: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
-                       packed: torch.Tensor, k: int, recurrent_activation: str
+                       packed: torch.Tensor, k: int, recurrent_activation: str, out: Carry
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     b, hh, ww, feat = h.shape
     if packed.shape != want or packed.dtype != dtype:
         raise ValueError(f"packed Wh {tuple(packed.shape)} {packed.dtype} is not "
                          f"the {dtype} pack for {k}x{k}, F={feat}")
-    if any(t.data_ptr() % 16 for t in (gx, h, c)):
-        raise ValueError("the tensor-core K4 needs 16-byte aligned gx, h and c")
-    h_out = torch.empty_like(h)
-    c_out = torch.empty_like(c)
+    if any(t.data_ptr() % 16 for t in (gx, h, c, *(out or ()))):
+        raise ValueError("the tensor-core K4 needs 16-byte aligned gx, h, c and outputs")
+    h_out, c_out = _outputs(h, c, out)
     with torch.cuda.device(h.device):
         err = getattr(_build.library(), entry)(
             gx.data_ptr(), h.data_ptr(), c.data_ptr(), packed.data_ptr(),
@@ -436,31 +458,31 @@ def _tensor_core_level(entry: str, count: _build.LaunchCount, want, dtype: torch
 
 
 def wgmma_level(gx: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
-                packed: torch.Tensor, k: int, recurrent_activation: str = "sigmoid"
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
+                packed: torch.Tensor, k: int, recurrent_activation: str = "sigmoid",
+                out: Carry = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """The bf16 tensor-core launch on Wh already packed by :func:`pack_wh`,
     for CUDA tensors that :func:`fused_convlstm_level` has checked (it packs
     per call; this entry lets a caller time the kernel without the pack)."""
     feat = h.shape[-1]
     want = (feat // TC_FEAT, feat // TC_CHUNK, k * k, TC_CHUNK // 8, 4 * TC_FEAT, 8)
     return _tensor_core_level("lut_convlstm_level_wgmma", WGMMA_COUNT, want,
-                              torch.bfloat16, gx, h, c, packed, k, recurrent_activation)
+                              torch.bfloat16, gx, h, c, packed, k, recurrent_activation, out)
 
 
 def tf32x3_level(gx: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
-                 packed: torch.Tensor, k: int, recurrent_activation: str = "sigmoid"
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+                 packed: torch.Tensor, k: int, recurrent_activation: str = "sigmoid",
+                 out: Carry = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """The 3xTF32 launch on Wh already packed by :func:`pack_wh_tf32x3`, as
     :func:`wgmma_level` is for bf16."""
     feat = h.shape[-1]
     want = (feat // TF32_FEAT, feat // TF32_CHUNK, k * k, 2, TF32_CHUNK // 4, 4 * TF32_FEAT, 4)
     return _tensor_core_level("lut_convlstm_level_tf32x3", TF32X3_COUNT, want,
-                              torch.float32, gx, h, c, packed, k, recurrent_activation)
+                              torch.float32, gx, h, c, packed, k, recurrent_activation, out)
 
 
 def narrow_level(gx: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
-                 packed: torch.Tensor, k: int, recurrent_activation: str = "sigmoid"
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+                 packed: torch.Tensor, k: int, recurrent_activation: str = "sigmoid",
+                 out: Carry = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """The narrow route's launch on Wh packed by :func:`pack_wh_narrow` (bf16
     compute) or :func:`pack_wh_narrow_tf32x3` (f32), for CUDA tensors that
     :func:`fused_convlstm_level` has checked (this entry also lets a caller
@@ -476,10 +498,10 @@ def narrow_level(gx: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
     if tuple(packed.shape) != want or packed.dtype != dt or not packed.is_contiguous():
         raise ValueError(f"packed Wh {tuple(packed.shape)} {packed.dtype} is not the "
                          f"narrow {dt} pack for {k}x{k}, F={feat}: want {want}")
-    if any(t.data_ptr() % 16 for t in (gx, h, c, packed)):
-        raise ValueError("the narrow K4 needs 16-byte aligned gx, h, c and packed Wh")
-    h_out = torch.empty_like(h)
-    c_out = torch.empty_like(c)
+    if any(t.data_ptr() % 16 for t in (gx, h, c, packed, *(out or ()))):
+        raise ValueError("the narrow K4 needs 16-byte aligned gx, h, c, packed Wh and "
+                         "outputs")
+    h_out, c_out = _outputs(h, c, out)
     with torch.cuda.device(h.device):
         err = _build.library().lut_convlstm_level_narrow(
             gx.data_ptr(), h.data_ptr(), c.data_ptr(), packed.data_ptr(),

@@ -28,7 +28,7 @@ they read each element once and keep every intermediate in registers.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -166,11 +166,28 @@ def lstm_gate_update_bwd(gates: torch.Tensor, c: torch.Tensor,
     return dgates, dc
 
 
+def _outputs(c: torch.Tensor, out: Optional[Tuple[torch.Tensor, torch.Tensor]]
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``out`` checked as two contiguous tensors like ``c``, or two new
+    ones."""
+    if out is None:
+        return torch.empty_like(c), torch.empty_like(c)
+    for t in out:
+        if (t.shape != c.shape or t.dtype != c.dtype or t.device != c.device
+                or not t.is_contiguous()):
+            raise ValueError(f"out {tuple(t.shape)} {t.dtype} on {t.device} is not a "
+                             f"contiguous tensor like c {tuple(c.shape)} {c.dtype}")
+    return out
+
+
 def fused_lstm_gate_update(gates: torch.Tensor, c: torch.Tensor,
-                           recurrent_activation: str = "sigmoid"
+                           recurrent_activation: str = "sigmoid",
+                           out: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K1: ``(c', h')`` from gates ``[..., 4F]`` and ``c [..., F]``; the op
-    to differentiate is :func:`lstm_gate_update`.
+    to differentiate is :func:`lstm_gate_update`. ``out``: two contiguous
+    tensors like ``c``, aliasing no input, that receive ``(c', h')`` and are
+    returned (the streaming step's buffers, ``engine/graph.py``).
 
     CPU tensors take the plain version; CUDA tensors launch the kernel (any
     other device raises). The gates may be f32 or bf16 and c f32 or bf16,
@@ -178,11 +195,15 @@ def fused_lstm_gate_update(gates: torch.Tensor, c: torch.Tensor,
     """
     _check(gates, c)
     if c.device.type == "cpu":
-        return lstm_gate_update_plain(gates, c, recurrent_activation)
+        got = lstm_gate_update_plain(gates, c, recurrent_activation)
+        if out is None:
+            return got
+        for dst, src in zip(_outputs(c, out), got):
+            dst.copy_(src)
+        return out
     _check_cuda(gates, c, recurrent_activation)
     feat = c.shape[-1]
-    c_out = torch.empty_like(c)
-    h_out = torch.empty_like(c)
+    c_out, h_out = _outputs(c, out)
     rows = c.numel() // feat if feat else 0
     if rows == 0:
         return c_out, h_out
@@ -217,8 +238,16 @@ class _GateUpdate(torch.autograd.Function):
 
 
 def lstm_gate_update(gates: torch.Tensor, c: torch.Tensor,
-                     recurrent_activation: str = "sigmoid"
+                     recurrent_activation: str = "sigmoid",
+                     out: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(c', h')`` as :func:`fused_lstm_gate_update`, differentiable: its
-    backward is K2 on CUDA tensors and K2's plain version on CPU tensors."""
-    return _GateUpdate.apply(gates, c, recurrent_activation)
+    backward is K2 on CUDA tensors and K2's plain version on CPU tensors.
+    ``out`` (inference only: it raises when a gradient is wanted) writes
+    ``(c', h')`` into given tensors."""
+    if out is None:
+        return _GateUpdate.apply(gates, c, recurrent_activation)
+    if torch.is_grad_enabled() and (gates.requires_grad or c.requires_grad):
+        raise RuntimeError("lstm_gate_update(out=...) has no gradient: run it under "
+                           "torch.no_grad()/inference_mode")
+    return fused_lstm_gate_update(gates, c, recurrent_activation, out)

@@ -13,7 +13,8 @@ is bit-identical to its plain version, round count included.
 Rounds are counted two ways. The plain versions add theirs to
 :data:`ROUNDS` on the host. The kernels add theirs to a counter on their
 device that nothing on the step's path reads; :func:`device_rounds` reads it
-(one synchronize). :func:`clear_rounds` zeroes both.
+(one synchronize). :func:`clear_rounds` zeroes both. The counter is made at
+a device's first launch and kept: a CUDA graph's replays add to it too.
 """
 
 from __future__ import annotations
@@ -35,9 +36,12 @@ _DEVICE_ROUNDS: Dict[torch.device, torch.Tensor] = {}
 
 
 def clear_rounds() -> None:
-    """Zero :data:`ROUNDS` and every device's round counter."""
+    """Zero :data:`ROUNDS` and every device's round counter. A counter is
+    zeroed in place, never replaced: a CUDA graph that holds a loop kernel
+    holds the counter's address."""
     ROUNDS.update(grow=0, erode=0)
-    _DEVICE_ROUNDS.clear()
+    for counter in _DEVICE_ROUNDS.values():
+        counter.zero_()
 
 
 def device_rounds(device) -> Dict[str, int]:

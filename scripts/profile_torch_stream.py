@@ -19,10 +19,18 @@ commit, unpacked) instead of this one. The last line is the same as JSON.
 
 ``--mode async`` streams the way a pipelined caller does, through
 ``step_batch_async`` with no copy back, for bf16 with the fused cell and
-int8 (scales calibrated on 4 frames, unfused): 3 warm-up frames, then 32
+int8 (scales calibrated on 4 frames, unfused): 3 warm-up frames (on a card
+the first captures the step's CUDA graphs, ``engine/graph.py``), then 32
 frames, each timed on the host clock until ``step_batch_async`` returns,
 ending in one synchronize (the steady ms per frame), then ``torch.profiler``
-over 8 more frames ending in one synchronize (the busy share).
+over 8 more frames ending in one synchronize (the busy share); with the
+hand kernels' launches a frame (``ops.kernels.counts()``) and the peak
+device memory from the engine's creation on.
+
+``--mode memory``: peak device memory of bf16 fused streams at B = 1, TTA
+'d4' (8 lanes) and B = 4, 2 + 4 frames each, run eagerly (``engine.capture
+= False``) and as graph replays; a tree without the compiled step runs
+eagerly either way.
 """
 
 from __future__ import annotations
@@ -138,10 +146,15 @@ def async_config(frames, dtype: str, fused: bool) -> dict:
         quantize_model_int8(model, scales, float_dtype=cfg.compute_dtype)
     else:
         cast_params_for_inference(model, cfg.compute_dtype)
+    from lstm_unet_tpu_torch.ops import kernels
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     engine = StreamingInferenceEngine(model, InferenceParams(dtype=dtype), "cuda")
     for f in frames[:ASYNC_WARM]:
         engine.step_batch_async(f[None])
     torch.cuda.synchronize()
+    before = kernels.counts()
     host = []
     t0 = time.perf_counter()
     for f in frames[ASYNC_WARM:ASYNC_WARM + ASYNC_STEADY]:
@@ -150,6 +163,7 @@ def async_config(frames, dtype: str, fused: bool) -> dict:
         host.append((time.perf_counter() - t) * 1e3)
     torch.cuda.synchronize()
     steady = (time.perf_counter() - t0) * 1e3 / ASYNC_STEADY
+    hand = sum(v["kernel"] - before[k]["kernel"] for k, v in kernels.counts().items())
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for f in frames[ASYNC_WARM + ASYNC_STEADY:]:
@@ -160,14 +174,45 @@ def async_config(frames, dtype: str, fused: bool) -> dict:
     busy = sum(e.device_time_total for e in kernels) / 1e3 / ASYNC_PROFILED
     return dict(host_ms_median=float(np.median(host)), host_ms=host, steady_ms=steady,
                 profiled_wall_ms=wall, kernel_ms=busy, busy_share=busy / wall,
-                kernels_per_frame=sum(e.count for e in kernels) / ASYNC_PROFILED)
+                kernels_per_frame=sum(e.count for e in kernels) / ASYNC_PROFILED,
+                hand_kernels_per_frame=hand / ASYNC_STEADY,
+                peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+
+
+MEMORY_CONFIGS = (("B = 1", 1, {}), ("TTA 'd4' (8 lanes)", 1, dict(tta=True, tta_mode="d4")),
+                  ("B = 4", 4, {}))
+
+
+def memory_config(frames, lanes: int, kw: dict, capture: bool) -> dict:
+    """``--mode memory``: peak device memory of a bf16 fused stream."""
+    from lstm_unet_tpu_torch.config import InferenceParams, default_net_kernel_params
+    from lstm_unet_tpu_torch.engine.infer import StreamingInferenceEngine
+    from lstm_unet_tpu_torch.models import ModelConfig, ULSTMnet2D, cast_params_for_inference
+
+    cfg = ModelConfig.make(default_net_kernel_params(), dtype="bfloat16", fused_cell=True)
+    model = ULSTMnet2D(cfg, generator=torch.Generator(device="cuda").manual_seed(0),
+                       device="cuda")
+    cast_params_for_inference(model, cfg.compute_dtype)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    weights = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    engine = StreamingInferenceEngine(model, InferenceParams(dtype="bfloat16", **kw), "cuda")
+    engine.capture = capture
+    t0 = time.perf_counter()
+    for f in frames[:6]:
+        engine.step_batch_async(np.stack([np.roll(f, 64 * i, 0) for i in range(lanes)]))
+    torch.cuda.synchronize()
+    return dict(peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                weights_gib=weights / 2 ** 30, seconds=time.perf_counter() - t0,
+                captured=bool(getattr(getattr(engine, "_step", None), "captured", False)))
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--dtypes", default="bfloat16,int8,float32")
     ap.add_argument("--root", default=HERE, help="profile the port of this checkout")
-    ap.add_argument("--mode", choices=("breakdown", "async"), default="breakdown")
+    ap.add_argument("--mode", choices=("breakdown", "async", "memory"), default="breakdown")
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -189,8 +234,23 @@ def main() -> None:
                   f"{r['steady_ms']:.3f} ms/frame over {ASYNC_STEADY} frames ending in one "
                   f"synchronize, busy {100 * r['busy_share']:.1f}% over {ASYNC_PROFILED} "
                   f"({r['kernel_ms']:.3f} of {r['profiled_wall_ms']:.3f} ms/frame), "
-                  f"{r['kernels_per_frame']:.0f} kernels/frame", flush=True)
+                  f"{r['kernels_per_frame']:.0f} kernels/frame ({r['hand_kernels_per_frame']:.0f}"
+                  f" hand kernels), peak {r['peak_gib']:.3f} GiB", flush=True)
             torch.cuda.empty_cache()
+        print(json.dumps(out))
+        return
+    if args.mode == "memory":
+        frames, _ = make_cell_sequence(num_frames=6, height=512, width=512, num_cells=40,
+                                       seed=0)
+        for name, lanes, kw in MEMORY_CONFIGS:
+            for capture in (False, True):
+                r = out[f"memory {name} capture={capture}"] = memory_config(frames, lanes, kw,
+                                                                            capture)
+                print(f"== memory bf16 fused {name}, capture={capture} (captured: "
+                      f"{r['captured']}): peak {r['peak_gib']:.3f} GiB allocated "
+                      f"(weights {r['weights_gib']:.3f} GiB), 6 frames in "
+                      f"{r['seconds']:.2f} s", flush=True)
+                torch.cuda.empty_cache()
         print(json.dumps(out))
         return
     frames, _ = make_cell_sequence(num_frames=WARM + TIMED + PROFILED, height=512,

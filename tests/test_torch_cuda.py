@@ -967,3 +967,118 @@ def test_step_batch_async_never_waits_for_the_card(cuda, dtype, fused):
     assert ran["grow_into_band"]["kernel"] == ran["ccl"]["kernel"] == 3, ran
     assert all(v["plain"] == 0 for v in ran.values()), ran
     assert labels.shape == (1, 64, 64) and labels.dtype == torch.int32
+
+
+# ---------------------------------------------------------------- the compiled step
+
+GRAPH_SIZE = 128  # the flagship's frames for the graph tests (a multiple of 2^4)
+
+
+@pytest.fixture(scope="module")
+def graph_models():
+    """``chip_smoke.py``'s ``SYNC_FREE`` models, seeded: the flagship in bf16
+    with the fused cell, int8 calibrated on 4 frames (unfused), f32 with
+    the fused cell."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    import chip_smoke
+    from lstm_unet_tpu_torch.engine.infer import calibrate_act_scales
+    from lstm_unet_tpu_torch.models import quantize_model_int8
+
+    int8 = chip_smoke.flagship_int8_model(torch, fused=False)
+    imgs = synthetic.make_cell_sequence(num_frames=4, height=GRAPH_SIZE, width=GRAPH_SIZE,
+                                        num_cells=8, seed=7)[0]
+    scales = calibrate_act_scales(int8, [f.astype(np.float32) for f in imgs])
+    quantize_model_int8(int8, scales, float_dtype=int8.cfg.compute_dtype)
+    return {"bf16": chip_smoke.flagship_model(torch, "bfloat16", True), "int8": int8,
+            "f32": chip_smoke.flagship_model(torch, "float32", True)}
+
+
+def _sync_free_configs():
+    import chip_smoke
+
+    return {name: (model, lanes, kw) for name, model, lanes, kw in chip_smoke.SYNC_FREE}
+
+
+@pytest.mark.parametrize("name", list(_sync_free_configs()))
+def test_replays_equal_the_eager_step(cuda, graph_models, name):
+    """Each configuration of ``chip_smoke.py``'s ``SYNC_FREE`` at 128^2: the
+    engine's graphs (captured at frame 1) over 9 replayed frames give labels
+    and probabilities bit-equal to the same body run eagerly, with the same
+    launches of every kernel and no plain call."""
+    from lstm_unet_tpu_torch.config import InferenceParams
+    from lstm_unet_tpu_torch.engine.infer import StreamingInferenceEngine
+    from lstm_unet_tpu_torch.ops.kernels import graph_counts
+
+    model, lanes, kw = _sync_free_configs()[name]
+    frames = synthetic.make_cell_sequence(num_frames=10, height=GRAPH_SIZE, width=GRAPH_SIZE,
+                                          num_cells=8, seed=0)[0]
+    batches = [np.stack([np.roll(f, 16 * i, 0) for i in range(lanes)]) for f in frames]
+    outs, ran = {}, {}
+    for mode in ("eager", "graph"):
+        engine = StreamingInferenceEngine(graph_models[model],
+                                          InferenceParams(save_intermediate=True, **kw), cuda)
+        engine.capture = mode == "graph"
+        reset_counts()
+        outs[mode] = [tuple(t.cpu() for t in engine.step_batch_async(b)) for b in batches]
+        ran[mode] = counts()
+        want = {"captures": 2, "replays": 9} if mode == "graph" else {"captures": 0,
+                                                                      "replays": 0}
+        assert graph_counts() == want
+    assert ran["graph"] == ran["eager"]
+    assert all(v["plain"] == 0 for v in ran["graph"].values()), ran["graph"]
+    for t, (got, want) in enumerate(zip(outs["graph"], outs["eager"])):
+        assert got[0].shape == (lanes, GRAPH_SIZE, GRAPH_SIZE)
+        assert torch.equal(got[0], want[0]), f"labels of frame {t}"
+        assert torch.equal(got[1], want[1]), f"probs of frame {t}"
+
+
+def test_the_engine_replays_by_frame_3(cuda, graph_models):
+    """Frame 1 warms up and captures, frames 2 and 3 are replays, and the
+    outputs of frame 2 are still frame 2's after frame 3."""
+    from lstm_unet_tpu_torch.config import InferenceParams
+    from lstm_unet_tpu_torch.engine.infer import StreamingInferenceEngine
+    from lstm_unet_tpu_torch.ops.kernels import graph_counts
+
+    engine = StreamingInferenceEngine(graph_models["bf16"], InferenceParams(), cuda)
+    frames = synthetic.make_cell_sequence(num_frames=3, height=GRAPH_SIZE, width=GRAPH_SIZE,
+                                          num_cells=8, seed=2)[0]
+    reset_counts()
+    kept = []
+    for f in frames:
+        labels, _ = engine.step_batch_async(f[None])
+        kept.append((labels, labels.clone()))
+    assert graph_counts() == {"captures": 2, "replays": 2}
+    assert engine._step.captured
+    for labels, then in kept:
+        assert torch.equal(labels, then)
+
+
+def test_a_synchronizing_step_fails_its_capture(cuda, graph_models):
+    """A body with a host read (``.item()``) runs as the warm-up, then its
+    capture raises, naming the failure: the step never falls back to eager
+    launches, and the failed capture counts nothing."""
+    from lstm_unet_tpu_torch.config import InferenceParams
+    from lstm_unet_tpu_torch.engine.infer import StreamingInferenceEngine
+    from lstm_unet_tpu_torch.ops.kernels import graph_counts
+
+    engine = StreamingInferenceEngine(graph_models["bf16"], InferenceParams(), cuda)
+    body = engine._body
+
+    def with_a_host_read(frames, src, dst):
+        out = body(frames, src, dst)
+        float(out[0].max().item())
+        return out
+
+    engine._body = with_a_host_read
+    frame = synthetic.make_cell_sequence(num_frames=1, height=GRAPH_SIZE, width=GRAPH_SIZE,
+                                         num_cells=8, seed=3)[0][0]
+    reset_counts()
+    with pytest.raises(RuntimeError, match="CUDA graph capture of the streaming step failed"):
+        engine.step_batch_async(frame[None])
+    assert graph_counts() == {"captures": 0, "replays": 0}
+    assert counts()["ccl"]["kernel"] == 1  # the warm-up's
+    assert not engine._step.captured
+    torch.cuda.synchronize()  # the card is still usable
+    with pytest.raises(RuntimeError, match="CUDA graph capture"):
+        engine.step_batch_async(frame[None])
