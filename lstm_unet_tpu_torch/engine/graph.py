@@ -56,6 +56,16 @@ Kernel counts stay true (``ops/kernels/__init__.py``): the launches the
 wrappers counted while a graph was captured, which ran nothing, are taken
 back, and each replay adds them again; ``kernels.GRAPHS`` counts captures
 and replays.
+
+Tracing (``utils/trace.py``): beside each plain graph the first capture
+also captures a traced twin, the same body with device stamps (``step``
+around it), in the same pool over the same carried sets, which copies its
+outputs into the plain graph's own output buffers after ``step`` closes,
+so the twins add no memory but the tracer's ring. A step the caller marks ``traced`` replays
+the twin (or runs the body eagerly with stamps, where nothing is
+captured); any other step replays the plain graph, which holds no stamp.
+A twin's replay counts the same launches as the plain graph's: a stamp is
+not a kernel of ``kernels.counts()``.
 """
 
 from __future__ import annotations
@@ -66,9 +76,11 @@ from typing import Any, Callable, List, Optional, Tuple
 import torch
 
 from ..ops import kernels
+from ..utils import trace
 
 Outputs = Tuple[Optional[torch.Tensor], ...]
 Body = Callable[[torch.Tensor, Any, Any], Outputs]
+Captured = Tuple[Any, Outputs, kernels.Launches]
 
 
 class CudaGraphs:
@@ -115,8 +127,9 @@ class CompiledStep:
         self.graphs = graphs
         self.x: Optional[torch.Tensor] = None
         self.turn = 0  # the set the next step reads
-        # per turn: (graph, its output tensors, the launches a replay makes)
-        self._captured: Optional[List[Tuple[Any, Outputs, kernels.Launches]]] = None
+        # per turn: (plain, traced twin), each (graph, its output tensors, the
+        # launches a replay makes)
+        self._captured: Optional[List[Tuple[Captured, Captured]]] = None
 
     @property
     def state(self) -> Any:
@@ -137,39 +150,71 @@ class CompiledStep:
             self.x = torch.empty(shape, dtype=dtype, device=device)
         return self.x
 
-    def step(self, body: Body) -> Outputs:
+    def step(self, body: Body, traced: bool = False) -> Outputs:
         """One step of ``body`` on the input as it stands: eagerly, or the
         first time on a card warm-up and capture, then a replay (which runs
-        no Python: ``body`` must be the one captured)."""
+        no Python: ``body`` must be the one captured). ``traced``: with the
+        tracer's device stamps (the twin's replay)."""
         if self.x is None:
             raise RuntimeError("fill CompiledStep.input(...) before the first step")
         src, dst = self.sets[self.turn], self.sets[1 - self.turn]
         if self.graphs is None:
-            out = body(self.x, src, dst)
+            out = self._run(body, traced, self.x, src, dst)
         elif self._captured is None:
-            out = self.graphs.warm_up(functools.partial(body, self.x, src, dst))
+            trace.prepare(self.x.device)
+            out = self.graphs.warm_up(functools.partial(self._run, body, traced, self.x,
+                                                        src, dst))
             self._capture(body)
         else:
-            graph, outputs, held = self._captured[self.turn]
-            graph.replay()
+            graph, outputs, held = self._captured[self.turn][int(traced)]
+            with trace.span("engine.replay"):
+                graph.replay()
             kernels.record_replay(held)
-            out = tuple(None if t is None else t.clone() for t in outputs)
+            with trace.span("engine.outputs"):
+                out = tuple(None if t is None else t.clone() for t in outputs)
         self.turn = 1 - self.turn
         return out
 
+    @staticmethod
+    def _run(body: Body, traced: bool, x: torch.Tensor, src, dst,
+             into: Optional[Outputs] = None) -> Outputs:
+        """``body(x, src, dst)``; ``traced``: with device stamps, ``step``
+        around it, and its outputs copied ``into`` another graph's when
+        given (a twin's)."""
+        if not traced:
+            return body(x, src, dst)
+        with trace.stamping(x.device), trace.stamp("step"):
+            out = body(x, src, dst)
+        if into is None:
+            return out
+        for mine, theirs in zip(out, into):  # the twin's own work, outside ``step``
+            if theirs is not None:
+                theirs.copy_(mine)
+        return into
+
     def _capture(self, body: Body) -> None:
-        """Both graphs of ``body``, the one the next step replays first."""
+        """Both graphs of ``body`` and their traced twins, the pair the next
+        step replays first."""
         self.graphs.new_pool()
         captured: List[Any] = [None, None]
-        for turn in (1 - self.turn, self.turn):
-            src, dst = self.sets[turn], self.sets[1 - turn]
-            before = kernels.snapshot()
-            try:
-                graph, outputs = self.graphs.capture(functools.partial(body, self.x, src,
-                                                                       dst))
-            except RuntimeError as e:  # re-raised: a card never runs the step eagerly
-                kernels.restore(before)
-                raise RuntimeError(f"CUDA graph capture of the streaming step failed: "
-                                   f"{type(e).__name__}: {e}") from e
-            captured[turn] = (graph, tuple(outputs), kernels.record_capture(before))
+        before, counted = kernels.snapshot(), (kernels.GRAPHS.captures, kernels.GRAPHS.twins)
+        try:
+            for turn in (1 - self.turn, self.turn):
+                src, dst = self.sets[turn], self.sets[1 - turn]
+                plain = self._capture_one(functools.partial(self._run, body, False, self.x,
+                                                            src, dst), twin=False)
+                twin = self._capture_one(functools.partial(self._run, body, True, self.x, src,
+                                                           dst, plain[1]), twin=True)
+                captured[turn] = (plain, twin)
+        except RuntimeError as e:  # re-raised: a card never runs the step eagerly
+            kernels.restore(before)
+            kernels.GRAPHS.captures, kernels.GRAPHS.twins = counted
+            raise RuntimeError(f"CUDA graph capture of the streaming step failed: "
+                               f"{type(e).__name__}: {e}") from e
+        trace.count("graph_captures", 2)
         self._captured = captured
+
+    def _capture_one(self, fn: Callable[[], Outputs], twin: bool) -> Captured:
+        before = kernels.snapshot()
+        graph, outputs = self.graphs.capture(fn)
+        return graph, tuple(outputs), kernels.record_capture(before, twin=twin)

@@ -75,7 +75,7 @@ from ..ops.convlstm import QConvLSTMCell
 from ..ops.postprocess import UINT16_MAX, postprocess_frame
 from ..parallel.distributed import is_writer
 from ..parallel.mesh import make_mesh, mesh_axis_sizes, plan_split
-from ..utils import StallWatchdog, log_print, resolve_device
+from ..utils import StallWatchdog, log_print, resolve_device, trace
 from .graph import CompiledStep, CudaGraphs
 
 
@@ -389,11 +389,23 @@ class StreamingInferenceEngine:
         holds no host read (``chip_smoke.py`` phase p also holds it to
         ``torch.cuda.set_sync_debug_mode("error")``). A mesh is exempt: it
         runs eagerly, and its collectives stage through the host."""
+        if not trace.check():
+            return self._step_batch(frames, False)
+        with trace.span("engine.step"):
+            return self._step_batch(frames, True)
+
+    def _step_batch(self, frames: np.ndarray, traced: bool):
+        """:meth:`step_batch_async`; ``traced``: with the tracer's spans
+        (``engine.pad``, ``engine.upload``, and ``engine/graph.py``'s
+        ``engine.replay`` and ``engine.outputs``) and device stamps."""
         b, oh, ow = frames.shape
-        if self._shape != (b, oh, ow):
-            self._build(oh, ow, b)
-        self._upload(self._pad_frame(frames))
-        return self._step.step(self._body)
+        with trace.span("engine.pad"):
+            if self._shape != (b, oh, ow):
+                self._build(oh, ow, b)
+            padded = self._pad_frame(frames)
+        with trace.span("engine.upload"):
+            self._upload(padded)
+        return self._step.step(self._body, traced)
 
     def _body(self, frames: torch.Tensor, src, dst):
         """The step on the device: padded raw ``frames [B, H, W]`` (int32 or
@@ -403,46 +415,46 @@ class StreamingInferenceEngine:
         capture, and what runs eagerly where they do not."""
         _, oh, ow = self._shape
         (state, prev), (state_out, prev_out) = src, dst
-        x = normalize_frames(frames, oh, ow)
         split = self._split
-        if self.jump_thresh > 0:
-            jumps = (x.clamp(0.0, 1.0) - prev.clamp(0.0, 1.0)).abs().mean(dim=(1, 2))
-            cut = (jumps > self.jump_thresh).float().repeat(self.n_var)
-            state = ULSTMnet2D.reset_lanes(state, cut if split is None else split.take(cut))
-            prev_out.copy_(x)
-        lanes = self._variants(x)[..., None]
-        if split is not None:
-            lanes = split.take(lanes, 0, 1).contiguous()
-        _, logits = self.model.step(state, lanes, out=state_out)
-        if split is not None:
-            logits = split.gather(logits, row_dim=1)
+        with trace.stamp("normalize"):
+            x = normalize_frames(frames, oh, ow)
+            if self.jump_thresh > 0:
+                jumps = (x.clamp(0.0, 1.0) - prev.clamp(0.0, 1.0)).abs().mean(dim=(1, 2))
+                cut = (jumps > self.jump_thresh).float().repeat(self.n_var)
+                state = ULSTMnet2D.reset_lanes(state, cut if split is None else split.take(cut))
+                prev_out.copy_(x)
+        with trace.stamp("variants"):
+            lanes = self._variants(x)[..., None]
+            if split is not None:
+                lanes = split.take(lanes, 0, 1).contiguous()
+        with trace.stamp("model"):
+            _, logits = self.model.step(state, lanes, out=state_out)
+            if split is not None:
+                logits = split.gather(logits, row_dim=1)
         if not self._postprocesses():
             return None, None
-        probs = self._probs(logits, logits.shape[0] // self.n_var, oh, ow)
+        with trace.stamp("probs"):
+            probs = self._probs(logits, logits.shape[0] // self.n_var, oh, ow)
         ip = self.ip
-        labels = torch.stack([
-            postprocess_frame(p, cell_thresh=ip.cell_thresh,
-                              edge_thresh=ip.edge_thresh,
-                              min_cell_size=ip.min_cell_size,
-                              max_cell_size=ip.max_cell_size,
-                              size_filter=ip.size_filter, fov=ip.FOV,
-                              boundary_growth=ip.boundary_growth,
-                              grow_iters=ip.grow_iters,
-                              instance_split=ip.instance_split,
-                              split_method=ip.split_method,
-                              split_window=ip.split_window,
-                              split_min_dist=ip.split_min_dist,
-                              split_slack=ip.split_slack,
-                              split_rel=ip.split_rel,
-                              split_rel_window=ip.split_rel_window,
-                              split_min_size=ip.split_min_size,
-                              split_hi_thresh=ip.split_hi_thresh,
-                              split_erode=ip.split_erode)
-            for p in probs])
-        probs = probs if ip.save_intermediate else None
-        if split is not None and split.lanes:
-            labels = split.gather(labels, lane_dim=0)
-            probs = None if probs is None else split.gather(probs, lane_dim=0)
+        lane_labels = []
+        for p in probs:
+            with trace.stamp("postprocess"):
+                lane_labels.append(postprocess_frame(
+                    p, cell_thresh=ip.cell_thresh, edge_thresh=ip.edge_thresh,
+                    min_cell_size=ip.min_cell_size, max_cell_size=ip.max_cell_size,
+                    size_filter=ip.size_filter, fov=ip.FOV,
+                    boundary_growth=ip.boundary_growth, grow_iters=ip.grow_iters,
+                    instance_split=ip.instance_split, split_method=ip.split_method,
+                    split_window=ip.split_window, split_min_dist=ip.split_min_dist,
+                    split_slack=ip.split_slack, split_rel=ip.split_rel,
+                    split_rel_window=ip.split_rel_window, split_min_size=ip.split_min_size,
+                    split_hi_thresh=ip.split_hi_thresh, split_erode=ip.split_erode))
+        with trace.stamp("outputs"):
+            labels = torch.stack(lane_labels)
+            probs = probs if ip.save_intermediate else None
+            if split is not None and split.lanes:
+                labels = split.gather(labels, lane_dim=0)
+                probs = None if probs is None else split.gather(probs, lane_dim=0)
         if not is_writer():
             return None, None
         return labels, probs

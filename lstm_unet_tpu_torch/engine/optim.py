@@ -22,7 +22,10 @@ same, in the same order of operations:
   product to bf16 first; the reference's train step is compiled too.
 
 The decision is taken on the device (``torch.where``), so a step never waits
-for the host. Params are updated in place.
+for the host. Params are updated in place. While the tracer stamps
+(``utils/trace.py``), the norm with the finite and clip decisions is
+stamped ``optimizer.norm`` and the per-parameter clip and update
+``optimizer.update``.
 """
 
 from __future__ import annotations
@@ -31,6 +34,8 @@ from typing import Dict, Iterable, Mapping
 
 import numpy as np
 import torch
+
+from ..utils import trace
 
 INT32_MAX = 2 ** 31 - 1
 
@@ -85,49 +90,51 @@ class ClippedAdam:
         """Update ``params`` in place from ``grads``; returns the global norm
         of the raw grads (before clipping)."""
         gs = [grads[n] for n in self.names]
-        g_norm = global_norm(gs)
-        apply = None
-        if self.skip_nonfinite:
-            finite = torch.stack([torch.isfinite(g).all() for g in gs]).all()
-            self.notfinite_count = torch.where(
-                finite, torch.zeros_like(self.notfinite_count),
-                _safe_increment(self.notfinite_count))
-            self.total_notfinite = torch.where(
-                finite, self.total_notfinite, _safe_increment(self.total_notfinite))
-            self.last_finite = finite
-            apply = finite | (self.notfinite_count > self.max_consecutive_errors)
-        clip = None
-        if self.grad_clip_norm and self.grad_clip_norm > 0:
-            clip = g_norm < self.grad_clip_norm
-        count = _safe_increment(self.count)
-        bc1 = 1 - torch.pow(torch.tensor(self.b1, device=count.device), count.float())
-        bc2 = 1 - torch.pow(torch.tensor(self.b2, device=count.device), count.float())
+        with trace.stamp("optimizer.norm"):
+            g_norm = global_norm(gs)
+            apply = None
+            if self.skip_nonfinite:
+                finite = torch.stack([torch.isfinite(g).all() for g in gs]).all()
+                self.notfinite_count = torch.where(
+                    finite, torch.zeros_like(self.notfinite_count),
+                    _safe_increment(self.notfinite_count))
+                self.total_notfinite = torch.where(
+                    finite, self.total_notfinite, _safe_increment(self.total_notfinite))
+                self.last_finite = finite
+                apply = finite | (self.notfinite_count > self.max_consecutive_errors)
+            clip = None
+            if self.grad_clip_norm and self.grad_clip_norm > 0:
+                clip = g_norm < self.grad_clip_norm
+            count = _safe_increment(self.count)
+            bc1 = 1 - torch.pow(torch.tensor(self.b1, device=count.device), count.float())
+            bc2 = 1 - torch.pow(torch.tensor(self.b2, device=count.device), count.float())
         # a low-precision mu: b1 rounded to mu's dtype, as JAX rounds the
         # Python float; the product of two bf16 values is exact in f32
         b1_mu = float(torch.tensor(self.b1, dtype=self.mu_dtype))
         c1 = float(np.float32(1 - self.b1))
-        for n, g in zip(self.names, gs):
-            p, mu, nu = params[n], self.mu[n], self.nu[n]
-            if clip is not None:
-                g = torch.where(clip, g, (g / g_norm) * self.grad_clip_norm)
-            if self.mu_dtype == torch.float32:
-                mu_new = (1 - self.b1) * g + self.b1 * mu
-            else:
-                # optax's update runs compiled (apply_if_finite's lax.cond):
-                # XLA keeps b1 * mu in f32 and sums it with (1-b1) g in one
-                # FMA, a single rounding, which float64 reproduces
-                mu_new = (c1 * g.double() + (b1_mu * mu.float()).double()).float()
-            nu_new = (1 - self.b2) * (g * g) + self.b2 * nu
-            upd = (mu_new / bc1) / (torch.sqrt(nu_new / bc2) + self.eps)
-            p_new = p + upd * -self.lr
-            mu_new = mu_new.to(self.mu_dtype)
-            if apply is not None:
-                mu_new = torch.where(apply, mu_new, mu)
-                nu_new = torch.where(apply, nu_new, nu)
-                p_new = torch.where(apply, p_new, p)
-            mu.copy_(mu_new)
-            nu.copy_(nu_new)
-            p.copy_(p_new)
+        with trace.stamp("optimizer.update"):
+            for n, g in zip(self.names, gs):
+                p, mu, nu = params[n], self.mu[n], self.nu[n]
+                if clip is not None:
+                    g = torch.where(clip, g, (g / g_norm) * self.grad_clip_norm)
+                if self.mu_dtype == torch.float32:
+                    mu_new = (1 - self.b1) * g + self.b1 * mu
+                else:
+                    # optax's update runs compiled (apply_if_finite's lax.cond):
+                    # XLA keeps b1 * mu in f32 and sums it with (1-b1) g in one
+                    # FMA, a single rounding, which float64 reproduces
+                    mu_new = (c1 * g.double() + (b1_mu * mu.float()).double()).float()
+                nu_new = (1 - self.b2) * (g * g) + self.b2 * nu
+                upd = (mu_new / bc1) / (torch.sqrt(nu_new / bc2) + self.eps)
+                p_new = p + upd * -self.lr
+                mu_new = mu_new.to(self.mu_dtype)
+                if apply is not None:
+                    mu_new = torch.where(apply, mu_new, mu)
+                    nu_new = torch.where(apply, nu_new, nu)
+                    p_new = torch.where(apply, p_new, p)
+                mu.copy_(mu_new)
+                nu.copy_(nu_new)
+                p.copy_(p_new)
         self.count = count if apply is None else torch.where(apply, count, self.count)
         return g_norm
 

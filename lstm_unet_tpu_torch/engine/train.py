@@ -69,7 +69,7 @@ from ..ops.postprocess import postprocess_frame
 from ..parallel.comm import all_reduce_
 from ..parallel.distributed import broadcast_object, is_writer
 from ..parallel.mesh import Split, make_mesh, mesh_axis_sizes, plan_split
-from ..utils import StallWatchdog, log_print, resolve_device
+from ..utils import StallWatchdog, log_print, resolve_device, trace
 from .loss import split_ce_loss, weighted_ce_loss, weighted_ce_terms
 from .optim import ClippedAdam
 
@@ -116,17 +116,20 @@ def loss_and_grads(model: ULSTMnet2D, state: State, img: torch.Tensor,
     ``model.split`` the inputs are this rank's block, the loss and accuracy
     the whole batch's and the grads summed over the ranks that hold it."""
     params = dict(model.named_parameters())
-    new_state, logits = model.apply(state, img, remat=remat)
+    with trace.stamp("train.forward"):
+        new_state, logits = model.apply(state, img, remat=remat)
     split = model.split
-    if split is None:
-        loss, acc = weighted_ce_loss(logits, seg, valid, class_weights, full_seg)
-        objective = loss
-    else:
-        objective, loss, acc = split_ce_loss(logits, seg, valid, class_weights, full_seg,
-                                             split.parts)
-    grads = torch.autograd.grad(objective, list(params.values()))
-    if split is not None:
-        grads = _all_reduce_grads(grads, split)
+    with trace.stamp("train.loss"):
+        if split is None:
+            loss, acc = weighted_ce_loss(logits, seg, valid, class_weights, full_seg)
+            objective = loss
+        else:
+            objective, loss, acc = split_ce_loss(logits, seg, valid, class_weights, full_seg,
+                                                 split.parts)
+    with trace.stamp("train.backward"):
+        grads = torch.autograd.grad(objective, list(params.values()))
+        if split is not None:
+            grads = _all_reduce_grads(grads, split)
     return loss, acc, new_state, dict(zip(params, grads))
 
 
@@ -148,16 +151,29 @@ def make_train_step(model: ULSTMnet2D, optimizer: ClippedAdam,
     ``metrics`` holds device scalars ``loss``, ``accuracy`` and ``grad_norm``
     (the norm of the raw grads, before clipping). Under ``model.split`` the
     batch is this rank's block and every rank steps on the same summed
-    grads."""
+    grads.
 
-    def step(lstm_state, img, seg, valid, full_seg, is_last):
+    While the tracer is on (``utils/trace.py``) a step is a host span
+    ``train.step`` and device stamps: ``train.step`` around ``train.forward``
+    (the model's segments under it), ``train.loss``, ``train.backward``
+    (each segment's backward and remat's ``recompute`` under it),
+    ``train.optimizer`` and ``train.reset``."""
+
+    def run(lstm_state, img, seg, valid, full_seg, is_last):
         loss, acc, new_state, grads = loss_and_grads(
             model, lstm_state, img, seg, valid, full_seg, class_weights, remat)
-        gnorm = optimizer.step(dict(model.named_parameters()), grads)
-        with torch.no_grad():  # truncate BPTT, reset the lanes that ended
+        with trace.stamp("train.optimizer"):
+            gnorm = optimizer.step(dict(model.named_parameters()), grads)
+        with torch.no_grad(), trace.stamp("train.reset"):  # truncate BPTT, reset ended lanes
             new_state = ULSTMnet2D.reset_lanes(new_state, is_last)
         return new_state, {"loss": loss.detach(), "accuracy": acc.detach(),
                            "grad_norm": gnorm}
+
+    def step(lstm_state, img, seg, valid, full_seg, is_last):
+        if not trace.check():
+            return run(lstm_state, img, seg, valid, full_seg, is_last)
+        with trace.span("train.step"), trace.stamping(img.device), trace.stamp("train.step"):
+            return run(lstm_state, img, seg, valid, full_seg, is_last)
 
     return step
 
@@ -551,7 +567,9 @@ class Trainer:
 
     def _stop_profile(self, prof, first: int) -> None:
         """Stop the trace and write it into ``experiment_log_dir`` as
-        ``trace_steps_<first>-<last>.json`` (Chrome trace format)."""
+        ``trace_steps_<first>-<last>.json`` (Chrome trace format), the
+        program's spans and device stamps (``utils/trace.py``) in two rows of
+        their own beside the profiler's."""
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         prof.stop()
@@ -559,8 +577,10 @@ class Trainer:
         path = os.path.join(self.p.experiment_log_dir,
                             f"trace_steps_{first}-{self.global_step}.json")
         prof.export_chrome_trace(path)
+        n = trace.export_chrome(path)
         self.profile_path = path
-        log_print(f"profile: steps {first}-{self.global_step} traced into {path}")
+        log_print(f"profile: steps {first}-{self.global_step} traced into {path} "
+                  f"({n} program spans)")
 
     def _val_objscores(self, probs: torch.Tensor, inst: np.ndarray,
                        valid: np.ndarray) -> Tuple[float, float]:
@@ -658,7 +678,10 @@ class Trainer:
             for it in range(n_iter):
                 if watchdog:
                     watchdog.feed()
-                img, seg, valid, full_seg, is_last = self._put(self.reader.get_batch())
+                with trace.span("trainer.get_batch"):
+                    batch = self.reader.get_batch()
+                with trace.span("trainer.put"):
+                    img, seg, valid, full_seg, is_last = self._put(batch)
                 if p.profile and not p.dry_run and is_writer() and it == 10:
                     profiling = self._start_profile()
                 in_step = True
@@ -676,7 +699,8 @@ class Trainer:
                     lstm_state = self._fresh_state()
 
                 if (it + 1) % p.print_to_console_interval == 0 or it == 0:
-                    last = {k: float(v) for k, v in metrics.items()}  # waits
+                    with trace.span("trainer.loss_read"):
+                        last = {k: float(v) for k, v in metrics.items()}  # waits
                     dt = time.time() - t0
                     fps = frames_done / max(dt, 1e-9)
                     log_print(f"step {self.global_step}: loss={last['loss']:.4f} "
@@ -693,15 +717,17 @@ class Trainer:
                 if self.val_reader and (it + 1) % p.validation_interval == 0:
                     if watchdog:
                         watchdog.feed()
-                    val_state = self._validate(val_state)
+                    with trace.span("trainer.validate"):
+                        val_state = self._validate(val_state)
 
                 if self.ckpt and (it + 1) % p.save_checkpoint_iteration == 0:
                     if watchdog:
                         watchdog.feed()
                     # no save of an iterate the guard has not inspected
-                    if guard and guard.drain():
-                        lstm_state = self._fresh_state()
-                    self._save_checkpoint()
+                    with trace.span("trainer.checkpoint"):
+                        if guard and guard.drain():
+                            lstm_state = self._fresh_state()
+                        self._save_checkpoint()
         finally:
             try:
                 if profiling:  # the run ended before step 15

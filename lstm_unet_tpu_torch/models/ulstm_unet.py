@@ -42,6 +42,7 @@ from ..ops.conv import activate, conv2d, init_conv, max_pool_2x2, upsample_2x
 from ..ops.convlstm import ConvLSTMCell, QConvLSTMCell
 from ..ops.quant import (ActScales, QWeight, _site_kept, conv2d_q, conv2d_q_pair,
                          parse_keep_float, static_scale)
+from ..utils import trace
 
 State = List[List[Tuple[torch.Tensor, torch.Tensor]]]
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -179,14 +180,16 @@ def _collect(collect: Optional[dict], site: str, x: torch.Tensor) -> None:
         collect[site] = x.float().abs().amax()
 
 
-def _direct(fn, *args):
-    return fn(*args)
+def _direct(seg: str, fn, *args):
+    """``fn(*args)``, the segment ``seg`` of a step (stamped while the tracer
+    stamps, ``utils/trace.py::segment``)."""
+    return trace.segment(seg, fn, *args)
 
 
-def _recomputed(fn, *args):
+def _recomputed(seg: str, fn, *args):
     """``fn(*args)``, its intermediates recomputed in the backward: only its
     inputs are kept (non-reentrant ``torch.utils.checkpoint``)."""
-    return checkpoint(fn, *args, use_reentrant=False)
+    return checkpoint(trace.segment, seg, fn, *args, use_reentrant=False)
 
 
 class _EncoderLevel(nn.Module):
@@ -343,16 +346,17 @@ class ULSTMnet2D(nn.Module):
             lvl_state = []
             pool = lvl > 0  # the level below's skip, pooled by the first segment
             for j, cell in enumerate(level.lstm):
-                carry, x = run(self._lstm_layer, cell, f"encoder/{lvl}/lstm/{j}", pool,
-                               state[lvl][j], x, collect_scales,
-                               None if out is None else out[lvl][j])
+                site = f"encoder/{lvl}/lstm/{j}"
+                carry, x = run(site, self._lstm_layer, cell, site, pool, state[lvl][j], x,
+                               collect_scales, None if out is None else out[lvl][j])
                 lvl_state.append(carry)
                 pool = False
-            x = run(self._conv_stack, level.convs, f"encoder/{lvl}/convs", pool, x,
-                    collect_scales, self.split)
+            site = f"encoder/{lvl}/convs"
+            x = run(site, self._conv_stack, level.convs, site, pool, x, collect_scales,
+                    self.split)
             skips.append(x)
             new_state.append(lvl_state)
-        return new_state, run(self._decode, skips, collect_scales)
+        return new_state, run("decoder", self._decode, skips, collect_scales)
 
     def _lstm_layer(self, cell: nn.Module, site: str, pool: bool, carry, x: torch.Tensor,
                     collect: Optional[dict], out=None):

@@ -9,7 +9,8 @@ its launches are counted apart: :func:`record_capture` takes the launches
 the wrappers counted while a graph was captured (which ran nothing) back
 off the counts and returns them, :func:`record_replay` adds them once a
 replay, and :func:`restore` takes back what a capture that failed counted.
-:data:`GRAPHS` counts the captures and the replays.
+:data:`GRAPHS` counts the captures and the replays (a traced twin's capture
+apart, ``engine/graph.py``).
 """
 
 from __future__ import annotations
@@ -43,14 +44,15 @@ def counts() -> Dict[str, Dict[str, int]]:
 
 
 class GraphCount:
-    """How often a streaming step was captured as CUDA graphs, and replayed."""
+    """How often a streaming step was captured as CUDA graphs (``twins``:
+    the traced twins' captures), and replayed (a twin's replays too)."""
 
     def __init__(self):
-        self.captures = 0
-        self.replays = 0
+        self.reset()
 
     def reset(self) -> None:
         self.captures = 0
+        self.twins = 0
         self.replays = 0
 
 
@@ -69,11 +71,11 @@ def snapshot() -> Launches:
     return {name: (n.kernel, n.plain) for name, n in KERNELS.items()}
 
 
-def record_capture(before: Launches) -> Launches:
+def record_capture(before: Launches, twin: bool = False) -> Launches:
     """What the wrappers counted since ``before`` (a :func:`snapshot` taken
     as a graph's capture began), taken back off the counts, since a capture
     runs nothing; returns it, the launches one replay of that graph makes.
-    Counts one capture."""
+    Counts one capture (``twin``: of a traced twin)."""
     held = {}
     for name, n in KERNELS.items():
         k, p = n.kernel - before[name][0], n.plain - before[name][1]
@@ -81,7 +83,10 @@ def record_capture(before: Launches) -> Launches:
             held[name] = (k, p)
             n.kernel -= k
             n.plain -= p
-    GRAPHS.captures += 1
+    if twin:
+        GRAPHS.twins += 1
+    else:
+        GRAPHS.captures += 1
     return held
 
 

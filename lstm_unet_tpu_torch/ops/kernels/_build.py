@@ -66,6 +66,7 @@ _SIGNATURES = {
     "lut_conv2d_int8_smallk": ([_P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                                 _I, _P], _I),
     "lut_conv2d_int8_smallk_smem": ([_I, _I, _I, _I, _I], _LL),
+    "lut_trace_stamp": ([_P, _P, _LL, _LL, _P], _I),
     "lut_error_string": ([_I], ctypes.c_char_p),
 }
 

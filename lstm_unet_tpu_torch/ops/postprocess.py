@@ -9,13 +9,16 @@ probabilities.
 The growth and erosion-distance loops are one kernel launch each on the
 card (``kernels/postprocess_loops.py``), so nothing here reads the device on
 the host; on the CPU their plain versions count their rounds in
-:data:`ROUNDS`.
+:data:`ROUNDS`. While the tracer stamps (``utils/trace.py``), the
+components, the split and the growth are stamped ``ccl``, ``split`` and
+``grow``.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..utils import trace
 from .ccl import bincount, connected_components, relabel_compact
 from .kernels.ccl import INT_MAX, pad1
 from .kernels.postprocess_loops import ROUNDS, erosion_distance, grow_into_band  # noqa: F401
@@ -160,28 +163,32 @@ def postprocess_frame(probs: torch.Tensor, cell_thresh: float = 0.5,
     probs = probs.float()
     h, w = probs.shape[0], probs.shape[1]
     interior = (probs[..., 1] > cell_thresh).contiguous()
-    raw = connected_components(interior)
+    with trace.stamp("ccl"):
+        raw = connected_components(interior)
     if instance_split and split_method == "prob":
-        raw = split_touching_instances_prob(
-            raw, interior, probs[..., 1], hi_thresh=split_hi_thresh,
-            erode_iters=split_erode, min_size=split_min_size)
+        with trace.stamp("split"):
+            raw = split_touching_instances_prob(
+                raw, interior, probs[..., 1], hi_thresh=split_hi_thresh,
+                erode_iters=split_erode, min_size=split_min_size)
     elif instance_split:
-        raw = split_touching_instances(
-            raw, interior, window=split_window, min_dist=split_min_dist,
-            slack=split_slack, rel=split_rel, rel_window=split_rel_window,
-            min_size=split_min_size)
+        with trace.stamp("split"):
+            raw = split_touching_instances(
+                raw, interior, window=split_window, min_dist=split_min_dist,
+                slack=split_slack, rel=split_rel, rel_window=split_rel_window,
+                min_size=split_min_size)
     pre_min = 0 if size_filter == "post" else min_cell_size
     pre_max = 0 if size_filter == "post" else max_cell_size
     lbl, n1 = relabel_compact(raw, min_size=pre_min, max_size=pre_max)
     overflowed = n1 > UINT16_MAX
 
     if boundary_growth != "none":
-        band = (probs[..., 2] > edge_thresh) & ~interior
-        if boundary_growth == "marker":
-            lbl = grow_into_band(lbl, band, max_rounds=grow_iters)
-        else:
-            for _ in range(grow_iters if grow_iters > 0 else 3):
-                lbl = torch.where((lbl == 0) & band, _neighbor_max(lbl), lbl)
+        with trace.stamp("grow"):
+            band = (probs[..., 2] > edge_thresh) & ~interior
+            if boundary_growth == "marker":
+                lbl = grow_into_band(lbl, band, max_rounds=grow_iters)
+            else:
+                for _ in range(grow_iters if grow_iters > 0 else 3):
+                    lbl = torch.where((lbl == 0) & band, _neighbor_max(lbl), lbl)
 
     if size_filter == "post":
         lbl, n2 = relabel_compact(lbl, min_size=min_cell_size,

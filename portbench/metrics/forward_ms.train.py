@@ -1,0 +1,17 @@
+"""Busy device milliseconds a training step of the forward over the window
+(``model.apply``, the model's segments under it): the ``train.forward``
+stamps (``engine/train.py``), from the profiled stretch: the union of the
+profiler's device operations (``run.trace.ops``) inside each stamp, the
+stamps placed among them by their own kernels
+(``lstm_unet_tpu_torch/utils/trace.py::busy_ms``), so the card's idle while
+the host is late is left out. Nothing to read from a program without a
+tracer, or without a recording."""
+
+
+def read(run):
+    try:
+        from lstm_unet_tpu_torch.utils import trace
+
+        return trace.busy_ms(run.trace.ops)["train.forward"]
+    except Exception:  # no tracer, no recording, no such stamp
+        return None

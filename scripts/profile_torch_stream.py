@@ -14,8 +14,11 @@ time per frame by kind, the busy share (kernel time / profiled wall), the top
 kernels, and the device time of the kernels each PyTorch op launched itself
 (``aten::div_``, ``aten::copy_`` for casts, ...: the elementwise time split
 by op; the port's own kernels are launched outside any op and show only by
-kind). ``--root DIR`` profiles the port of another checkout (the parent
-commit, unpacked) instead of this one. The last line is the same as JSON.
+kind), and beside them the program's own spans and device stamps of the
+profiled frames (``lstm_unet_tpu_torch/utils/trace.py::summary``: device ms
+a frame by layer, inside the captured step). ``--root DIR`` profiles the
+port of another checkout (the parent commit, unpacked) instead of this one.
+The last line is the same as JSON.
 
 ``--mode async`` streams the way a pipelined caller does, through
 ``step_batch_async`` with no copy back, for bf16 with the fused cell and
@@ -78,6 +81,16 @@ def kind(name: str) -> str:
     return "elementwise/other"
 
 
+def program_summary():
+    """The port's tracer's summary of the last profiled stretch, or None for
+    a port without a tracer."""
+    try:
+        from lstm_unet_tpu_torch.utils import trace
+    except ImportError:
+        return None
+    return trace.summary()
+
+
 def profile_config(frames, dtype: str, fused: bool) -> dict:
     # the port on sys.path (this checkout's or --root's, set by main)
     from lstm_unet_tpu_torch.config import InferenceParams, default_net_kernel_params
@@ -121,6 +134,7 @@ def profile_config(frames, dtype: str, fused: bool) -> dict:
             by_op[e.key] = (self_ms / 1e3 / PROFILED, e.count // PROFILED)
     return dict(ms_median=float(np.median(times)), ms=times, profiled_wall_ms=wall,
                 kernel_ms=busy, busy_share=busy / wall, by_kind=by_kind,
+                program=program_summary(),
                 by_op=dict(sorted(by_op.items(), key=lambda t: -t[1][0])),
                 kernels_per_frame=sum(e.count for e in kernels) / PROFILED,
                 top=[(e.key[:100], e.device_time_total / 1e3 / PROFILED, e.count // PROFILED)
@@ -268,6 +282,10 @@ def main() -> None:
                 print(f"   {ms:9.3f} ms/frame  x{n:<4d} {name}")
             print("   kernels launched by PyTorch ops (ms/frame, calls/frame):",
                   {k: (round(v[0], 3), v[1]) for k, v in list(r["by_op"].items())[:14]})
+            if r["program"]:
+                print("   program spans (device ms/frame; host ms p50):",
+                      {k: (round(v.get("device_ms", 0.0), 3), round(v.get("host_ms_p50", 0.0), 3))
+                       for k, v in r["program"]["spans"].items()})
             torch.cuda.empty_cache()
     print(json.dumps(out))
 

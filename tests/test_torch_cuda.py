@@ -1082,3 +1082,144 @@ def test_a_synchronizing_step_fails_its_capture(cuda, graph_models):
     torch.cuda.synchronize()  # the card is still usable
     with pytest.raises(RuntimeError, match="CUDA graph capture"):
         engine.step_batch_async(frame[None])
+
+
+# ---------------------------------------------------------------- the tracer
+
+
+@pytest.fixture
+def tracer():
+    """``utils/trace.py``, off before and after the test."""
+    from lstm_unet_tpu_torch.utils import trace
+
+    trace.stop()
+    yield trace
+    trace.stop()
+    torch.cuda.set_sync_debug_mode(0)
+
+
+def _ring_index(trace, device) -> int:
+    """The card's ring index: the stamps written since the last recording
+    began (one synchronize)."""
+    trace.prepare(device)
+    return int(trace._RINGS[trace._card(device)].index.item())
+
+
+def _carried(engine):
+    return [t.clone() for lvl in engine._state for pair in lvl for t in pair]
+
+
+@pytest.mark.parametrize("name", ["int8", "bf16"])
+def test_twin_replays_equal_plain_replays(cuda, graph_models, tracer, name):
+    """Frames 3-8 replayed through the traced twins give labels,
+    probabilities and carried state bit-equal to the plain graphs' over the
+    same frames, with the same launches counted; a plain replay writes no
+    stamp; neither path makes a host read (``set_sync_debug_mode('error')``);
+    the recording holds one ``step`` a frame and every stamp nested."""
+    from lstm_unet_tpu_torch.config import InferenceParams
+    from lstm_unet_tpu_torch.engine.infer import StreamingInferenceEngine
+    from lstm_unet_tpu_torch.ops.kernels import graph_counts
+
+    frames = synthetic.make_cell_sequence(num_frames=8, height=GRAPH_SIZE, width=GRAPH_SIZE,
+                                          num_cells=8, seed=4)[0]
+    ip = InferenceParams(save_intermediate=True, instance_split=True, min_cell_size=5)
+    runs = {}
+    for traced in (False, True):
+        engine = StreamingInferenceEngine(graph_models[name], ip, cuda)
+        outs = [tuple(t.clone() for t in engine.step_batch_async(f[None])) for f in frames[:2]]
+        before = _ring_index(tracer, cuda)
+        reset_counts()
+        if traced:
+            tracer.start()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            outs += [engine.step_batch_async(f[None]) for f in frames[2:]]
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        tracer.stop()
+        if not traced:
+            assert _ring_index(tracer, cuda) == before, "a plain replay wrote a stamp"
+        runs[traced] = outs, _carried(engine), counts(), graph_counts()
+    (plain, plain_state, plain_n, plain_g), (twin, twin_state, twin_n, twin_g) = \
+        runs[False], runs[True]
+    assert plain_n == twin_n and plain_g == twin_g == {"captures": 0, "replays": 6}
+    for t, (a, b) in enumerate(zip(plain, twin)):
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]), f"frame {t}"
+    assert all(torch.equal(a, b) for a, b in zip(plain_state, twin_state))
+    summary = tracer.summary()
+    assert summary["units"] == 6
+    assert summary["spans"]["step"]["count"] == summary["spans"]["model"]["count"] == 6
+    assert summary["counters"]["stamp_overflow"] == summary["counters"]["unmatched_stamps"] == 0
+    assert summary["spans"]["engine.step"]["count"] == 6
+
+
+@pytest.mark.parametrize("workload", ["stream-int8-b1", "stream-int8-dist", "train-bf16-b5t7"])
+def test_the_stamps_segments_add_up_to_the_step(cuda, tracer, workload):
+    """Each benchmark cell at its own size, built by its harness: the
+    device ms a unit of the step's children (stream: normalize, variants,
+    model, probs, postprocess, outputs; training: forward, loss, backward,
+    optimizer, reset) sum to the ``step`` / ``train.step`` stamp's within
+    2%."""
+    from portbench.harness import cell
+
+    c = cell.load(workload)
+    seed = 2 ** 33 + 5
+    if c.mode == "stream":
+        from portbench.harness import stream as harness
+
+        run = harness.Stream(c, seed, cuda)
+        parent = "step"
+        children = ("normalize", "variants", "model", "probs", "postprocess", "outputs")
+    else:
+        from portbench.harness import train as harness
+
+        run = harness.Training(c, seed, cuda)
+        parent = "train.step"
+        children = ("train.forward", "train.loss", "train.backward", "train.optimizer",
+                    "train.reset")
+    harness.loop(run, 1.0)
+    torch.cuda.synchronize()
+    tracer.start()
+    harness.loop(run, 2.0)
+    torch.cuda.synchronize()
+    tracer.stop()
+    spans = tracer.summary()["spans"]
+    total = sum(spans[k]["device_ms"] for k in children if k in spans)
+    assert abs(total - spans[parent]["device_ms"]) <= 0.02 * spans[parent]["device_ms"], \
+        (total, {k: v.get("device_ms") for k, v in spans.items()})
+
+
+def test_program_spans_share_the_profilers_clock(cuda, tracer):
+    """A host pause inside a program span shows in the profiler's device
+    trace as the device's longest gap, whose midpoint lies inside the span
+    to within 50 us."""
+    import time
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    x = torch.randn(2048, 2048, device=cuda)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        assert tracer.check()
+        for _ in range(20):
+            x @ x
+        with tracer.span("pause"):
+            torch.cuda.synchronize()
+            time.sleep(0.02)
+        for _ in range(20):
+            x @ x
+        torch.cuda.synchronize()
+    pause = [s for s in tracer.spans() if s["name"] == "pause"][0]
+    origin = prof.profiler.kineto_results.trace_start_ns()
+    busy = []
+    for t0, t1 in sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                         if e.device_type == DeviceType.CUDA):
+        if busy and t0 <= busy[-1][1]:
+            busy[-1][1] = max(busy[-1][1], t1)
+        else:
+            busy.append([t0, t1])
+    width, mid = max((b[0] - a[1], (a[1] + b[0]) / 2) for a, b in zip(busy, busy[1:]))
+    lo, hi = (pause["start_ns"] - origin) / 1e3, (pause["end_ns"] - origin) / 1e3
+    assert width > 15000, width  # us: the 20 ms pause is the device's longest gap
+    assert lo - 50 <= mid <= hi + 50, (lo, mid, hi)

@@ -121,7 +121,7 @@ def test_build_dir_is_ignored_and_named_by_sources():
     assert sorted(os.path.basename(p) for p in glob.glob(os.path.join(PORT, "csrc", "*.cu"))) \
         == ["ccl.cu", "conv_int8.cu", "conv_int8_smallk.cu", "conv_int8_wgmma.cu",
             "convlstm_cell.cu", "convlstm_narrow.cu", "convlstm_wgmma.cu", "lstm_gates.cu",
-            "postprocess_loops.cu"]
+            "postprocess_loops.cu", "trace_stamp.cu"]
 
 
 def test_chip_smoke_alone_fails_and_prints_nothing(tmp_path):

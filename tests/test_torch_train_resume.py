@@ -346,6 +346,12 @@ def test_profile_writes_a_trace_of_steps_11_to_16(ctc_root, tmp_path):
         trace = json.load(f)
     names = {e.get("name", "") for e in trace["traceEvents"]}
     assert any("convolution" in n for n in names)
+    # the port's own spans, in rows of their own, one train.step a traced step
+    mine = [e for e in trace["traceEvents"] if e.get("cat") == "program"]
+    steps = [e for e in mine if e["name"] == "train.step"]
+    assert len({e["tid"] for e in mine}) == 2 and len(steps) == 2 * 6
+    assert {"train.forward", "train.backward", "train.optimizer", "trainer.get_batch",
+            "trainer.put"} <= {e["name"] for e in mine}
 
 
 def test_profile_stops_when_the_run_ends_early(ctc_root, tmp_path):
