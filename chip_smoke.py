@@ -1601,12 +1601,13 @@ def phase_conv_int8(torch):
 
     lib = _build.library()
     for k in conv_int8.WG_KERNEL_SIZES:
-        for tn in conv_int8.WG_STAGES:
+        for tn in conv_int8.WG_TILE_ROWS:
             for xb in (2, 4):
-                if lib.lut_conv2d_int8_wgmma_smem(k, tn, xb) != conv_int8.wgmma_smem_bytes(k, tn,
-                                                                                          xb):
-                    raise AssertionError(f"int8 wgmma smem formula differs at {k}x{k} N {tn} "
-                                         f"x {xb} bytes")
+                for chunk in conv_int8.WG_TILE_CHUNKS[tn]:
+                    if (lib.lut_conv2d_int8_wgmma_smem(k, tn, chunk, xb)
+                            != conv_int8.wgmma_smem_bytes(k, tn, xb, chunk)):
+                        raise AssertionError(f"int8 wgmma smem formula differs at {k}x{k} N "
+                                             f"{tn} chunk {chunk} x {xb} bytes")
     for kh, kw, cin, cout in ((5, 5, 1, 512), (3, 3, 8, 32), (3, 3, 24, 8), (1, 1, 8, 3)):
         for ob in (2, 4):
             if (lib.lut_conv2d_int8_smallk_smem(kh, kw, cin, cout, ob)
@@ -1768,7 +1769,7 @@ def phase_conv_int8(torch):
                  bound_ms=wg_bound,
                  bound_by="operations" if wg_sum["ops_ms"] > wg_sum["bytes_ms"] else "bytes",
                  library_ms=None, yardstick_cudnn_bf16_ms=wg_sum["cudnn_ms"], frame=frame,
-                 shapes=rows)
+                 shapes=rows, narrow=phase_conv_int8_narrow(torch))
     # the tiny model's small-K sites (32^2 frames), B = 1
     tiny = {}
     for _, hw, cin, k, cout in int8_conv_sites(tiny_net_kernel_params(), 32):
@@ -1782,6 +1783,81 @@ def phase_conv_int8(torch):
                   bound_ms=head["bound_ms"], bound_by=head["bound_by"], library_ms=None,
                   shapes=smallk_rows)
     return {"conv2d_int8_wgmma": wgmma, "conv2d_int8": mma, "conv2d_int8_smallk": smallk}
+
+
+# the published widths' (portbench/configs/flagship-int8.json) sites whose
+# tile the wgmma route fits to them: (H = W, cin, K, cout, site)
+NARROW_SITES = ((512, 192, 5, 32, "decoder/0/convs/0"), (512, 32, 5, 32, "decoder/0/convs/1"),
+                (256, 384, 5, 64, "decoder/1/convs/0"), (256, 64, 5, 64, "decoder/1/convs/1"),
+                (512, 32, 1, 3, "head"))
+
+
+def phase_conv_int8_narrow(torch):
+    """(c3, narrow): the wgmma route at the published widths' four narrow
+    decoder sites and their cin = 32 head, B = 1, each bit-equal to its
+    plain version (bf16 and f32 x, dynamic and static scale, bf16 and f32
+    out, with and without bias), then timed with a calibrated static scale
+    beside the same site forced to the 128-column tile and 128-channel
+    chunks it took before (the "before"), with the bound and its share.
+    Returns the rows."""
+    from lstm_unet_tpu_torch.ops.kernels import conv_int8
+
+    g = torch.Generator(device="cuda").manual_seed(19)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = []
+    for hw, cin, k, cout, site in NARROW_SITES:
+        kq = torch.randint(-127, 128, (cout, cin, k, k), device="cuda", generator=g,
+                           dtype=torch.int32).to(torch.int8)
+        packed = conv_int8.pack_weight_wgmma(kq)
+        w_scale = torch.rand(cout, device="cuda", generator=g) * 1e-3
+        bias = torch.randn(cout, device="cuda", generator=g)
+        x = (torch.randn(1, hw, hw, cin, device="cuda", generator=g) * 1.5).to(torch.bfloat16)
+        shape = f"{hw}^2 {cin}->{cout} {k}x{k}"
+        tile = conv_int8.kernel_tile_n(1, hw, hw, cout, sms)
+        chunk = conv_int8.kernel_chunk(cin, k, tile)
+        cases = 0
+        for xx in (x, x.float()):
+            for sc in (None, torch.tensor(2.5 / 127, device="cuda")):
+                for dt in (torch.bfloat16, torch.float32):
+                    for bb in (bias, None):
+                        a = (xx, sc, packed, w_scale, bb, k, dt)
+                        got = conv_int8.conv2d_int8_wgmma(*a)
+                        want = conv_int8.conv2d_int8_wgmma_plain(*a)
+                        torch.cuda.synchronize()
+                        if not torch.equal(got, want):
+                            raise AssertionError(
+                                f"conv2d_int8_wgmma {site} {shape} x {xx.dtype} "
+                                f"{'dynamic' if sc is None else 'static'} -> {dt}: "
+                                f"{int((got != want).sum())} outputs differ")
+                        cases += 1
+        calib = torch.tensor(float(x.abs().max()) * 1.0137 / 127, device="cuda")
+        kern = (x, calib, packed, w_scale, bias, k, torch.bfloat16)
+        old_tile = 128 if tile in conv_int8.WG_NARROW else tile
+        before_pack = conv_int8.pack_weight_wgmma(kq, tile_n=old_tile)
+        before = (x, calib, before_pack, w_scale, bias, k, torch.bfloat16)
+        want = conv_int8.conv2d_int8_wgmma(*kern)
+        if not torch.equal(conv_int8.conv2d_int8_wgmma(*before, tile_n=old_tile, chunk=128),
+                           want):
+            raise AssertionError(f"conv2d_int8_wgmma {site}: the {old_tile}-column tile differs")
+        ms = time_ms(lambda: conv_int8.conv2d_int8_wgmma(*kern), 50)
+        before_ms = time_ms(lambda: conv_int8.conv2d_int8_wgmma(
+            *before, tile_n=old_tile, chunk=128), 50)
+        bd = conv_bound(hw * hw, cin, k, cout, 2)
+        row = dict(site=site, shape=shape, tile_n=tile, rows=2 * conv_int8.WG_TILE_ROWS[tile],
+                   chunk=chunk, cases=cases, ms=ms, before_ms=before_ms, bound_ms=bd[0],
+                   bound_by=bd[1], share=bd[0] / ms, before_share=bd[0] / before_ms)
+        out.append(row)
+        log(f"conv2d_int8_wgmma {site} {shape} (tile N {tile}, {row['rows']} rows, chunks of "
+            f"{chunk}): bit-equal to the plain version ({cases} cases); kernel {ms:.4f} ms "
+            f"({100 * row['share']:.1f}% of the {bd[0]:.4f} ms bound, {bd[1]}); the "
+            f"{old_tile}-column tile and 128-channel chunks {before_ms:.4f} ms "
+            f"({100 * row['before_share']:.1f}%)")
+        del kq, packed, before_pack, x, got, want
+        torch.cuda.empty_cache()
+    log(f"the four narrow decoder sites: {sum(r['ms'] for r in out[:4]):.4f} ms, before "
+        f"{sum(r['before_ms'] for r in out[:4]):.4f} ms, bound "
+        f"{sum(r['bound_ms'] for r in out[:4]):.4f} ms")
+    return out
 
 
 def smallk_site(torch, g, b, hw, cin, k, cout, into=None):
@@ -3273,7 +3349,7 @@ def main() -> int:
     sys.path.insert(0, HERE)
     try:
         from lstm_unet_tpu_torch.ops import kernels
-        from lstm_unet_tpu_torch.ops.kernels import _build
+        from lstm_unet_tpu_torch.ops.kernels import _build, conv_int8
     except ImportError as e:
         print(f"chip_smoke: the port package is not beside this script ({e})",
               file=sys.stderr)
@@ -3316,10 +3392,12 @@ def main() -> int:
                                          f"{line.strip()}")
     if tensor_core != {"Bf16", "Tf32x3"}:
         raise AssertionError(f"ptxas reported no spill line for K4's {tensor_core} entries")
-    # int8 wgmma: x bf16 / f32, y bf16 / f32, N tile 256 / 128 / 8; K4 narrow:
+    # int8 wgmma: x bf16 / f32, y bf16 / f32, its 10 tile configurations; K4 narrow:
     # bf16 / 3xTF32, state bf16 / f32, 32 / 16 / 8 features, K 1 / 3 / 5 / 7;
     # int8 small-K: x and y bf16 / f32, one k step or more
-    for what, seen, want in (("int8 wgmma", int8_wgmma, 12), ("K4 narrow", narrow, 48),
+    for what, seen, want in (("int8 wgmma", int8_wgmma,
+                              4 * sum(map(len, conv_int8.WG_TILE_CHUNKS.values()))),
+                             ("K4 narrow", narrow, 48),
                              ("int8 small-K", smallk, 8)):
         if len(seen) != want:
             raise AssertionError(f"ptxas reported spill lines for {len(seen)} of the {want} "

@@ -23,19 +23,33 @@
 // Design (K4's bf16 route, csrc/convlstm_wgmma.cu, carried over: a 128-channel
 // s8 chunk is 128 bytes a pixel like a 64-channel bf16 chunk, and a k32 s8
 // step is 32 bytes of K like a k16 bf16 step):
-//  - a tile is 2 output rows x 64 pixels x TN columns (TN = 256, 128 or 8:
-//    wgmma.m64n{256,128,8}k32.s32.s8.s8); each of the two consumer
-//    warpgroups owns one row, one M = 64 tile;
+//  - a tile is 2 * MR output rows x 64 pixels x TN columns (wgmma.m64nTNk32
+//    .s32.s8.s8, TN = 256, 128, 64, 32 or 8); each of the two consumer
+//    warpgroups owns MR rows, MR M = 64 tiles that share each weight stage;
+//  - the tile fits the site (the wrapper chooses it from cout and cin,
+//    ops/kernels/conv_int8.py::kernel_tile_n / kernel_chunk, among the
+//    configurations of with_tile): TN is the smallest of 8, 32, 64, 128, 256
+//    that holds cout (256 split in two where a frame has too few tiles); at
+//    TN = 64, 32 and 8 a chunk of the input holds 128, 64 or 32 channels
+//    (P = 8, 4 or 2 planes; those with_tile lists), the widest that divides
+//    cin rounded up to 32 and fits. So a 32- or 64-column site (the
+//    published decoder's last two levels) computes no padded column, and a
+//    chunk of cin 32, 64 or 192 (the head's 32 too) no padded k32 product and
+//    no padded quantize. At TN = 64 and 32 the accumulators of one
+//    128-column tile hold MR = 2 or 4 rows: each weight stage serves more
+//    outputs, and the 5x5 halo is quantized 2x or 1.5x, not 3x. TN = 256 and
+//    128 keep one row and full 128-channel chunks, as the wide sites (cin %
+//    128 == 0) need;
 //  - A, no im2col, no int8 tensor in device memory: the loader warps (three
-//    at TN = 256, seven at TN <= 128) bring the halo'd x tile of one
-//    128-channel chunk in by cp.async, in slabs of consecutive pixels
-//    through a ring of three (so the loads are in flight without holding
-//    the producers' registers), quantize each slab from shared memory and
-//    store it once as 8 planes of 16 bytes a pixel (wgmma's no-swizzle
-//    K-major layout), double-buffered across chunks.
+//    at TN = 256, seven at TN <= 128) bring the halo'd x tile of one chunk
+//    in by cp.async, in slabs of consecutive pixels through a ring of three
+//    (so the loads are in flight without holding the producers' registers),
+//    quantize each slab from shared memory and store it once as one plane
+//    of 16 bytes a pixel per 16 channels (wgmma's no-swizzle K-major
+//    layout), double-buffered across chunks.
 //    Tap (ky, kx) is the same descriptor moved by (ky*WP + kx)*16 bytes, so
-//    an element is quantized (tile + halo) / tile times: 3x at 5x5, 2x at
-//    3x3;
+//    an element is quantized (tile + halo) / tile times: (2 MR + K - 1) /
+//    (2 MR) at K x K;
 //  - the quantize multiplies by r = 1/s_x (correctly rounded) where that is
 //    provably the division's integer: the exact product x*r is within
 //    2^-23 |x/s_x| of fl(x / s_x), so rint(x*r) is rint(fl(x / s_x)) unless
@@ -48,18 +62,22 @@
 //    conversion: the division and F2I/FRND run on the quarter-rate pipes,
 //    and the loaders, not the tensor cores, would be the bound;
 //  - B: ops/kernels/conv_int8.py::pack_weight_wgmma lays the weights out
-//    once, when the model is quantized, as contiguous [column tile, chunk,
-//    tap] stages of 8 planes x pack_tn columns x 16 bytes, already in the
-//    layout wgmma reads; one producer thread brings each stage in with
-//    cp.async.bulk (one copy, or one per plane when the kernel's TN is
-//    half the pack's) into a ring with full/empty mbarriers;
+//    once, when the model is quantized, as contiguous [column tile, chunk of
+//    128, tap] stages of 8 planes x pack_tn columns x 16 bytes, already in
+//    the layout wgmma reads; one producer thread brings the planes of a
+//    kernel chunk of each stage in with cp.async.bulk (one copy, or one per
+//    plane when the kernel's TN is part of the pack's) into a ring with
+//    full/empty mbarriers. It walks the stages' addresses with no division:
+//    a narrow tile consumes a stage in a few hundred cycles, and the
+//    thread's divisions had set the pace of every tile (a ~0.4 us floor a
+//    tap with no quantize, product or epilogue at all);
 //  - persistent: one block per SM walks the tiles (spatial fastest), and the
 //    producers run ahead into the next tile while the consumers run the
 //    epilogue, in registers, writing only n < N. setmaxnreg moves registers
 //    from the producers to the consumers (Cfg: 96 / 200 at TN = 256, where
 //    they hold 128 s32 accumulators; 104 / 152 with two producer
-//    warpgroups at TN <= 128);
-//  - where cin <= 128 (one chunk) a work item is a spatial tile and all its
+//    warpgroups at TN <= 128, 64 accumulators);
+//  - where the input is one chunk a work item is a spatial tile and all its
 //    column tiles: the x tile is staged and quantized once and stays in its
 //    buffer while the consumers walk the columns (the 512^2 h-conv's 512,
 //    the 256^2 x-conv's 1024).
@@ -70,57 +88,65 @@
 #include "common.cuh"
 #include "hopper.cuh"
 
+#include <type_traits>
+
 namespace lut {
 namespace q8 {
 
-constexpr int kRows = 2;         // output rows per tile, one per consumer warpgroup
+constexpr int kWarpgroups = 2;   // consumer warpgroups; each owns MR rows of a tile
 constexpr int kCols = 64;        // output pixels per row: one wgmma M tile
-constexpr int kPlanes = 8;       // 16-byte planes per x tile and per weight stage
-constexpr int kChunk = 128;      // input channels of one chunk (one byte each)
+constexpr int kPlanes = 8;       // 16-byte planes of a chunk of the pack (the most a chunk has)
+constexpr int kChunk = 128;      // input channels of one chunk of the pack (one byte each)
 constexpr int kConsumers = 256;  // two warpgroups
 constexpr int kConsumerWarps = kConsumers / 32;
 
 // The block for a tile of TN columns. TN = 256: one producer warpgroup (three
 // loader warps and the weight thread's warp) beside consumers that hold 128
-// s32 accumulators; TN <= 128: the consumers' 64 accumulators leave the
-// registers for a second producer warpgroup (seven loader warps), which the
-// 3x3 and 1x1 sites need: their tiles carry less tensor work per quantized
-// value. kStages is the weight ring's depth (96 KB at 256 and 128 columns).
+// s32 accumulators; TN <= 128: the consumers' 64 accumulators (kRows = MR
+// rows of TN / 2, 2 at 64 columns and 4 at 32: measured against 1 and 2 at
+// the published decoder's shapes) leave the registers for a second producer
+// warpgroup (seven loader
+// warps), which the 3x3 and 1x1 sites need: their tiles carry less tensor
+// work per quantized value. kStages is the weight ring's depth (96 KB at 256
+// and 128 columns).
 template <int TN>
 struct Cfg {
+  static constexpr int kRows = TN == 64 ? 2 : TN == 32 ? 4 : 1;  // MR: M tiles a warpgroup
   static constexpr int kProducerWarps = TN == 256 ? 4 : 8;
   static constexpr int kThreads = kConsumers + 32 * kProducerWarps;
   static constexpr int kLoaders = 32 * (kProducerWarps - 1);  // threads that stage x
   static constexpr int kProducerRegs = TN == 256 ? 96 : 104;
   static constexpr int kConsumerRegs = TN == 256 ? 200 : 152;
-  static constexpr int kStages = TN == 256 ? 3 : TN == 128 ? 6 : 8;
+  static constexpr int kStages = TN == 256 ? 3 : TN >= 64 ? 6 : 8;
 };
 
 constexpr int kRaw = 3;               // slabs of the raw x ring
 constexpr int kSmemLimit = 232448;    // bytes of shared memory a Hopper block may use
 
 struct Layout {
-  int HP, WP, APlane, ABytes, BStage, AOff, RawOff, SlabPix, Slab, BarOff, Smem;
+  int Rows, HP, WP, APlane, ABytes, BStage, AOff, RawOff, SlabPix, Slab, BarOff, Smem;
 };
 
-// shared memory: [stages][8 planes][TN][16] weights, then two quantized x
-// tiles of [8 planes][HP][WP][16] (a plane is an odd number of 16-byte
-// units, so the 8 planes of one pixel land in distinct banks), then the raw
-// x ring of kRaw slabs of SlabPix pixels (16 KB of x each, 8 KB where that
-// does not fit: K = 5 with the 96 KB weight ring; each pixel padded by 16
-// bytes, so the pixels one warp reads start in distinct banks), then the
-// mbarriers. xbytes is the size of an element of x.
-__host__ __device__ __forceinline__ Layout layout(int K, int TN, int nstages, int xbytes) {
+// shared memory: [stages][P planes][TN][16] weights, then two quantized x
+// tiles of [P planes][HP][WP][16] (a plane is an odd number of 16-byte
+// units, so the planes of one pixel land in distinct banks), then the raw x
+// ring of kRaw slabs of SlabPix pixels (16 KB of x each, 8 KB where that
+// does not fit; each pixel padded by 16 bytes, so the pixels one warp reads
+// start in distinct banks), then the mbarriers. A tile has 2 * MR output
+// rows, a chunk 16 * P channels; xbytes is the size of an element of x.
+__host__ __device__ __forceinline__ Layout layout(int K, int TN, int MR, int P, int nstages,
+                                                  int xbytes) {
   Layout l;
-  l.HP = kRows + K - 1;
+  l.Rows = kWarpgroups * MR;
+  l.HP = l.Rows + K - 1;
   l.WP = kCols + K - 1;
   l.APlane = ((l.HP * l.WP) | 1) * 16;
-  l.ABytes = kPlanes * l.APlane;
-  l.BStage = kPlanes * TN * 16;
+  l.ABytes = P * l.APlane;
+  l.BStage = P * TN * 16;
   l.AOff = nstages * l.BStage;
   l.RawOff = l.AOff + 2 * l.ABytes;
   const int bars = (2 * nstages + 4) * 8;
-  const int pix = kChunk * xbytes;  // raw bytes of one pixel of a chunk
+  const int pix = 16 * P * xbytes;  // raw bytes of one pixel of a chunk
   l.SlabPix = 16384 / pix;
   if (l.RawOff + kRaw * l.SlabPix * (pix + 16) + bars > kSmemLimit) l.SlabPix = 8192 / pix;
   l.Slab = l.SlabPix * (pix + 16);
@@ -147,11 +173,11 @@ struct Tile {
   int b, nt, y0, x0;
 };
 
-__device__ __forceinline__ Tile tile_at(int t, int nx, int ny, int ngroups) {
+__device__ __forceinline__ Tile tile_at(int t, int nx, int ny, int ngroups, int rows) {
   Tile r;
   r.x0 = (t % nx) * kCols;
   t /= nx;
-  r.y0 = (t % ny) * kRows;
+  r.y0 = (t % ny) * rows;
   t /= ny;
   r.nt = t % ngroups;
   r.b = t / ngroups;
@@ -159,7 +185,7 @@ __device__ __forceinline__ Tile tile_at(int t, int nx, int ny, int ngroups) {
 }
 
 // Column tiles that share one staged x tile (a work item): all of them where
-// the input is one chunk (cin <= 128: the tile stays in its buffer while the
+// the input is one chunk (cin <= chunk: the tile stays in its buffer while the
 // consumers walk the columns), else one (each chunk's buffer is handed back
 // as the next is staged).
 __host__ __device__ __forceinline__ int group_of(int N, int pack_tn, int TN, int nchunks) {
@@ -197,6 +223,27 @@ __device__ __forceinline__ void wgmma_s8(int (&d)[64], uint64_t a, uint64_t b) {
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {" LUT_ACC_0_63 "}, %64, %65, p;\n}\n"
       : Q8_ACC_REGS64(d)
+      : "l"(a), "l"(b), "r"(1));
+}
+
+#define Q8_ACC_0_15 "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+#define Q8_ACC_16_31 \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+
+__device__ __forceinline__ void wgmma_s8(int (&d)[32], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {" Q8_ACC_0_15 ", " Q8_ACC_16_31
+      "}, %32, %33, p;\n}\n"
+      : Q8_ACC8(d, 0), Q8_ACC8(d, 8), Q8_ACC8(d, 16), Q8_ACC8(d, 24)
+      : "l"(a), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_s8(int (&d)[16], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 {" Q8_ACC_0_15 "}, %16, %17, p;\n}\n"
+      : Q8_ACC8(d, 0), Q8_ACC8(d, 8)
       : "l"(a), "l"(b), "r"(1));
 }
 
@@ -276,27 +323,28 @@ __device__ __forceinline__ void loaders_sync() {
   asm volatile("bar.sync 1, %0;" ::"n"(kLoaders) : "memory");
 }
 
-// Stage the halo'd x tile of channels [ch*128, ch*128 + 128), quantized,
-// into [plane][HP][WP][16 bytes] at dst; zero outside the frame and past C.
-// The raw x goes through the ring of kRaw slabs (consecutive pixels of the
-// tile) by cp.async, so the loads are in flight without holding registers;
-// each slab is quantized from shared memory once it has landed. Run by the
-// kLoaders producer threads; li is the thread's index among them.
-template <typename T, int kLoaders>
+// Stage the halo'd x tile of the chunk's channels [ch * 16P, ch * 16P + 16P),
+// quantized, into [plane][HP][WP][16 bytes] at dst; zero outside the frame
+// and past C. The raw x goes through the ring of kRaw slabs (consecutive
+// pixels of the tile) by cp.async, so the loads are in flight without
+// holding registers; each slab is quantized from shared memory once it has
+// landed. Run by the kLoaders producer threads; li is the thread's index
+// among them.
+template <typename T, int kLoaders, int P>
 __device__ __forceinline__ void stage_x(const T* __restrict__ xb, uint32_t dst, uint32_t raw,
                                         const unsigned char* raw_ptr, const Args& a,
                                         const Layout& L, int y0, int x0, int ch, float s,
                                         float r, bool exact, int li) {
-  constexpr int kPixBytes = kChunk * sizeof(T);   // raw bytes of one pixel of a chunk
-  constexpr int kPixStride = kPixBytes + 16;      // and their stride in a slab
-  constexpr int kPieces = kPixBytes / 16;         // 16-byte pieces of one pixel
-  constexpr int kPieceCh = 16 / sizeof(T);        // channels of one piece
-  constexpr int kPixStep = kLoaders / kPieces;    // pixels a loader moves on per piece
+  constexpr int kPixBytes = P * 16 * sizeof(T);  // raw bytes of one pixel of a chunk
+  constexpr int kPixStride = kPixBytes + 16;     // and their stride in a slab
+  constexpr int kPieces = kPixBytes / 16;        // 16-byte pieces of one pixel
+  constexpr int kPieceCh = 16 / sizeof(T);       // channels of one piece
+  constexpr int kPixStep = kLoaders / kPieces;   // pixels a loader moves on per piece
   const int R = a.K / 2;
   const int npix = L.HP * L.WP;
   const int spx = L.SlabPix;
   const int nslab = (npix + spx - 1) / spx;
-  const int c = ch * kChunk + (li % kPieces) * kPieceCh;  // this loader's channels
+  const int c = ch * 16 * P + (li % kPieces) * kPieceCh;  // this loader's channels
   const bool in_c = c < a.C;                               // C % 16 == 0: all or none
 
   auto issue = [&](int j) {
@@ -331,8 +379,8 @@ __device__ __forceinline__ void stage_x(const T* __restrict__ xb, uint32_t dst, 
     asm volatile("cp.async.wait_group %0;" ::"n"(kRaw - 1) : "memory");
     loaders_sync<kLoaders>();  // every loader's pieces of slab j have landed
     const unsigned char* buf = raw_ptr + (j % kRaw) * L.Slab;
-    for (int it = li; it < spx * kPlanes; it += kLoaders) {
-      const int pl = it / kPlanes, g = it % kPlanes;
+    for (int it = li; it < spx * P; it += kLoaders) {
+      const int pl = it / P, g = it % P;
       const int p = j * spx + pl;
       if (p < npix) {
         Vec16<T> v;
@@ -416,11 +464,16 @@ __device__ __forceinline__ void epilogue(const int (&acc)[TN / 2], const Args& a
   }
 }
 
-template <typename T, typename TOut, int TN>
+// TN columns (Cfg<TN>::kRows = MR output rows a consumer warpgroup), chunks
+// of 16 * P input channels: the tile configuration, fitted to the site by
+// the wrapper
+template <typename T, typename TOut, int TN, int P>
 __global__ void __launch_bounds__(Cfg<TN>::kThreads, 1) conv_int8_wgmma_kernel(const Args a) {
   using C = Cfg<TN>;
+  constexpr int MR = C::kRows;
   constexpr int S = C::kStages;
-  const Layout L = layout(a.K, TN, S, sizeof(T));
+  constexpr int kChunkC = 16 * P;  // input channels of a chunk of the kernel
+  const Layout L = layout(a.K, TN, MR, P, S, sizeof(T));
   extern __shared__ __align__(128) unsigned char smem[];
   const uint32_t sbase = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
   const uint32_t b_full = sbase + L.BarOff;  // [S]
@@ -430,8 +483,8 @@ __global__ void __launch_bounds__(Cfg<TN>::kThreads, 1) conv_int8_wgmma_kernel(c
 
   const int KK = a.K * a.K;
   const int nx = (a.W + kCols - 1) / kCols;
-  const int ny = (a.H + kRows - 1) / kRows;
-  const int nchunks = (a.C + kChunk - 1) / kChunk;
+  const int ny = (a.H + L.Rows - 1) / L.Rows;
+  const int nchunks = (a.C + kChunkC - 1) / kChunkC;  // chunks of the kernel
   const int G = group_of(a.N, a.pack_tn, TN, nchunks);
   const int ngroups = (a.N + a.pack_tn - 1) / a.pack_tn * a.pack_tn / TN / G;
   const int tiles = nx * ny * ngroups * a.B;  // work items: a spatial tile and G column tiles
@@ -455,28 +508,38 @@ __global__ void __launch_bounds__(Cfg<TN>::kThreads, 1) conv_int8_wgmma_kernel(c
   if (warp >= kConsumerWarps) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(C::kProducerRegs));
     if (warp == kConsumerWarps + 1) {
-      // one thread: the weight stages [chunk, tap] of each of a work
-      // item's column tiles
+      // one thread: the weight stages [chunk, tap] of each of a work item's
+      // column tiles, each the P planes of its chunk (contiguous in the
+      // pack's stage of 8), addresses walked without a division
       if (lane == 0) {
         const long long plane = (long long)a.pack_tn * 16;  // bytes of a plane of the pack
-        const int per_tile = nchunks * KK;
-        int i = 0;
+        const long long stage = kPlanes * plane;            // bytes of a stage of the pack
+        const long long column_tile = (long long)(a.C + kChunk - 1) / kChunk * KK * stage;
+        int s = 0, phase = 0;  // the ring's slot and the parity of its pass
         for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
-          const Tile tl = tile_at(t, nx, ny, ngroups);
-          for (int j = 0; j < G * per_tile; ++j, ++i) {
-            const int col = (tl.nt * G + j / per_tile) * TN;
-            const int8_t* st = a.w + ((long long)(col / a.pack_tn) * per_tile + j % per_tile) *
-                                         kPlanes * plane +
-                               (col % a.pack_tn) * 16;
-            const int s = i % S;
-            mbar_wait(b_empty + 8 * s, ((i / S) & 1) ^ 1);
-            mbar_expect_tx(b_full + 8 * s, L.BStage);
-            const uint32_t dst = sbase + s * L.BStage;
-            if (TN == a.pack_tn) {
-              bulk_load(dst, st, L.BStage, b_full + 8 * s);
-            } else {
-              for (int p = 0; p < kPlanes; ++p)
-                bulk_load(dst + p * TN * 16, st + p * plane, TN * 16, b_full + 8 * s);
+          const Tile tl = tile_at(t, nx, ny, ngroups, L.Rows);
+          for (int g = 0; g < G; ++g) {
+            const int col = (tl.nt * G + g) * TN;
+            const int8_t* wt = a.w + col / a.pack_tn * column_tile + (col % a.pack_tn) * 16;
+            for (int ch = 0; ch < nchunks; ++ch) {
+              const int cc = ch * kChunkC;  // the chunk's first channel
+              const int8_t* st = wt + cc / kChunk * KK * stage + (cc % kChunk) / 16 * plane;
+              for (int tap = 0; tap < KK; ++tap, st += stage) {
+                mbar_wait(b_empty + 8 * s, phase ^ 1);
+                mbar_expect_tx(b_full + 8 * s, L.BStage);
+                const uint32_t dst = sbase + s * L.BStage;
+                if (TN == a.pack_tn) {
+                  bulk_load(dst, st, L.BStage, b_full + 8 * s);
+                } else {
+#pragma unroll
+                  for (int p = 0; p < P; ++p)
+                    bulk_load(dst + p * TN * 16, st + p * plane, TN * 16, b_full + 8 * s);
+                }
+                if (++s == S) {
+                  s = 0;
+                  phase ^= 1;
+                }
+              }
             }
           }
         }
@@ -491,30 +554,33 @@ __global__ void __launch_bounds__(Cfg<TN>::kThreads, 1) conv_int8_wgmma_kernel(c
       const T* x = static_cast<const T*>(a.x);
       int it = 0;
       for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
-        const Tile tl = tile_at(t, nx, ny, ngroups);
+        const Tile tl = tile_at(t, nx, ny, ngroups, L.Rows);
         const T* xb = x + (long long)tl.b * a.H * a.W * a.C;
         for (int ch = 0; ch < nchunks; ++ch, ++it) {
           const int buf = it & 1;
           mbar_wait(a_empty + 8 * buf, ((it >> 1) & 1) ^ 1);
-          stage_x<T, C::kLoaders>(xb, sbase + L.AOff + buf * L.ABytes, sbase + L.RawOff,
-                                  smem + L.RawOff, a, L, tl.y0, tl.x0, ch, s, r, exact, li);
+          stage_x<T, C::kLoaders, P>(xb, sbase + L.AOff + buf * L.ABytes, sbase + L.RawOff,
+                                     smem + L.RawOff, a, L, tl.y0, tl.x0, ch, s, r, exact, li);
           mbar_arrive(a_full + 8 * buf);
         }
       }
     }
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(C::kConsumerRegs));
-    // consumers: warpgroup wg owns output row wg of a tile
+    // consumers: warpgroup wg owns output rows wg * MR .. wg * MR + MR - 1 of
+    // a tile, one M tile each, all against the same weight stage
     const int wg = warp / 4;
     const float sx = scale_of<T>(a);
     const uint32_t bplane = TN * 16;
-    int acc[TN / 2];
+    int acc[MR][TN / 2];
     int it = 0, i = 0;  // x chunks before this work item; weight stages
     for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
-      const Tile tl = tile_at(t, nx, ny, ngroups);
+      const Tile tl = tile_at(t, nx, ny, ngroups, L.Rows);
       for (int n = 0; n < G; ++n) {  // the work item's column tiles, one x tile
 #pragma unroll
-        for (int j = 0; j < TN / 2; ++j) acc[j] = 0;
+        for (int m = 0; m < MR; ++m)
+#pragma unroll
+          for (int j = 0; j < TN / 2; ++j) acc[m][j] = 0;
         for (int ch = 0; ch < nchunks; ++ch) {
           const int buf = (it + ch) & 1;
           if (n == 0) mbar_wait(a_full + 8 * buf, ((it + ch) >> 1) & 1);
@@ -524,15 +590,21 @@ __global__ void __launch_bounds__(Cfg<TN>::kThreads, 1) conv_int8_wgmma_kernel(c
             const int s = i % S;
             mbar_wait(b_full + 8 * s, (i / S) & 1);
             const uint32_t bbase = sbase + s * L.BStage;
-            const uint32_t arow = abase + ((wg + ky) * L.WP + kx) * 16;
-            fence_acc(acc);
+            const uint32_t arow = abase + ((wg * MR + ky) * L.WP + kx) * 16;
+#pragma unroll
+            for (int m = 0; m < MR; ++m) fence_acc(acc[m]);
             asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
 #pragma unroll
-            for (int kk = 0; kk < kPlanes / 2; ++kk)
-              wgmma_s8(acc, make_desc(arow + 2 * kk * L.APlane, L.APlane, 128),
-                       make_desc(bbase + 2 * kk * bplane, bplane, 128));
+            for (int kk = 0; kk < P / 2; ++kk) {
+              const uint64_t bd = make_desc(bbase + 2 * kk * bplane, bplane, 128);
+#pragma unroll
+              for (int m = 0; m < MR; ++m)
+                wgmma_s8(acc[m],
+                         make_desc(arow + m * L.WP * 16 + 2 * kk * L.APlane, L.APlane, 128), bd);
+            }
             asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-            fence_acc(acc);
+#pragma unroll
+            for (int m = 0; m < MR; ++m) fence_acc(acc[m]);
             // the previous tap's products are done: hand its weight stage
             // back, and at a chunk's first tap the previous chunk's x tile
             // (one arrival per warp, after its own wait)
@@ -548,24 +620,54 @@ __global__ void __launch_bounds__(Cfg<TN>::kThreads, 1) conv_int8_wgmma_kernel(c
           }
         }
         asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-        fence_acc(acc);
+#pragma unroll
+        for (int m = 0; m < MR; ++m) fence_acc(acc[m]);
         if (lane == 0) {  // the producers may fill the next stages now
           mbar_arrive(b_empty + 8 * ((i + S - 1) % S));
           if (n == G - 1) mbar_arrive(a_empty + 8 * ((it + nchunks - 1) & 1));
         }
-        epilogue<TN, TOut>(acc, a, sx, tl.b, tl.y0 + wg, tl.x0 + 16 * (warp % 4) + lane / 4,
-                           (tl.nt * G + n) * TN + 2 * (lane % 4));
+#pragma unroll
+        for (int m = 0; m < MR; ++m)
+          epilogue<TN, TOut>(acc[m], a, sx, tl.b, tl.y0 + wg * MR + m,
+                             tl.x0 + 16 * (warp % 4) + lane / 4,
+                             (tl.nt * G + n) * TN + 2 * (lane % 4));
       }
       it += nchunks;
     }
   }
 }
 
-template <typename T, typename TOut, int TN>
+// f(TN, P) for the tile configurations the kernel is compiled for (TN
+// columns, P planes a chunk), `other` for another: full chunks at 256 and
+// 128 columns; chunks of 128, 64 or 32 channels at 64 columns, 64 or 32 at
+// 32 columns (a full chunk of 8 rows does not fit), 128 or 32 at the
+// 8-column head
+template <typename F>
+static int with_tile(int tile_n, int planes, int other, F&& f) {
+  using std::integral_constant;
+#define Q8_TILE(tn, p) \
+  case tn * 16 + p: return f(integral_constant<int, tn>(), integral_constant<int, p>())
+  switch (tile_n * 16 + planes) {
+    Q8_TILE(256, 8);
+    Q8_TILE(128, 8);
+    Q8_TILE(64, 8);
+    Q8_TILE(64, 4);
+    Q8_TILE(64, 2);
+    Q8_TILE(32, 4);
+    Q8_TILE(32, 2);
+    Q8_TILE(8, 8);
+    Q8_TILE(8, 2);
+    default: return other;
+  }
+#undef Q8_TILE
+}
+
+template <typename T, typename TOut, int TN, int P>
 static int launch(const Args& a, cudaStream_t stream) {
-  auto kernel = conv_int8_wgmma_kernel<T, TOut, TN>;
+  auto kernel = conv_int8_wgmma_kernel<T, TOut, TN, P>;
   using C = Cfg<TN>;
-  const int smem = layout(a.K, TN, C::kStages, sizeof(T)).Smem;
+  const int smem = layout(a.K, TN, C::kRows, P, C::kStages, sizeof(T)).Smem;
+  if (smem > kSmemLimit) return (int)cudaErrorInvalidValue;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
@@ -580,9 +682,10 @@ static int launch(const Args& a, cudaStream_t stream) {
   if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
   if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
     return (int)err;
-  const int nchunks = (a.C + kChunk - 1) / kChunk;
+  const int rows = kWarpgroups * C::kRows;
+  const int nchunks = (a.C + 16 * P - 1) / (16 * P);
   const long long npad = (a.N + a.pack_tn - 1) / a.pack_tn * a.pack_tn;
-  const long long tiles = (long long)((a.W + kCols - 1) / kCols) * ((a.H + kRows - 1) / kRows) *
+  const long long tiles = (long long)((a.W + kCols - 1) / kCols) * ((a.H + rows - 1) / rows) *
                           (npad / TN / group_of(a.N, a.pack_tn, TN, nchunks)) * a.B;
   if (tiles > 0x7fffffff) return (int)cudaErrorInvalidValue;
   const int grid = (int)(tiles < sms ? tiles : sms);
@@ -591,48 +694,48 @@ static int launch(const Args& a, cudaStream_t stream) {
 }
 
 template <typename T, typename TOut>
-static int dispatch_tn(const Args& a, int tile_n, cudaStream_t s) {
-  switch (tile_n) {
-    case 256: return launch<T, TOut, 256>(a, s);
-    case 128: return launch<T, TOut, 128>(a, s);
-    case 8: return launch<T, TOut, 8>(a, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+static int dispatch_tile(const Args& a, int tile_n, int planes, cudaStream_t s) {
+  return with_tile(tile_n, planes, (int)cudaErrorInvalidValue, [&](auto tn, auto p) {
+    return launch<T, TOut, decltype(tn)::value, decltype(p)::value>(a, s);
+  });
 }
 
 template <typename T>
-static int dispatch_out(const Args& a, int tile_n, int out_dtype, cudaStream_t s) {
-  if (out_dtype == kF32) return dispatch_tn<T, float>(a, tile_n, s);
-  if (out_dtype == kBF16) return dispatch_tn<T, __nv_bfloat16>(a, tile_n, s);
+static int dispatch_out(const Args& a, int tile_n, int planes, int out_dtype, cudaStream_t s) {
+  if (out_dtype == kF32) return dispatch_tile<T, float>(a, tile_n, planes, s);
+  if (out_dtype == kBF16) return dispatch_tile<T, __nv_bfloat16>(a, tile_n, planes, s);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace q8
 }  // namespace lut
 
-// Shared-memory bytes of one block at kernel size K, tile width tile_n and
-// x elements of xbytes (2: bf16, 4: f32); 0 for what the kernel does not take.
-extern "C" long long lut_conv2d_int8_wgmma_smem(int K, int tile_n, int xbytes) {
+// Shared-memory bytes of one block at kernel size K, a tile of tile_n columns
+// (and its rows), chunks of `chunk` input channels and x elements of xbytes
+// (2: bf16, 4: f32); 0 for what the kernel does not take (it refuses a
+// launch above 232,448 bytes).
+extern "C" long long lut_conv2d_int8_wgmma_smem(int K, int tile_n, int chunk, int xbytes) {
   using namespace lut::q8;
-  if ((K != 1 && K != 3 && K != 5) || (xbytes != 2 && xbytes != 4)) return 0;
-  switch (tile_n) {
-    case 256: return layout(K, 256, Cfg<256>::kStages, xbytes).Smem;
-    case 128: return layout(K, 128, Cfg<128>::kStages, xbytes).Smem;
-    case 8: return layout(K, 8, Cfg<8>::kStages, xbytes).Smem;
-    default: return 0;
-  }
+  if ((K != 1 && K != 3 && K != 5) || (xbytes != 2 && xbytes != 4) || chunk % 16 != 0)
+    return 0;
+  return with_tile(tile_n, chunk / 16, 0, [&](auto tn, auto p) {
+    using C = Cfg<decltype(tn)::value>;
+    return layout(K, decltype(tn)::value, C::kRows, decltype(p)::value, C::kStages, xbytes).Smem;
+  });
 }
 
 // x [B,H,W,C] in in_dtype (kF32 or kBF16), C % 16 == 0; w the pack of
 // ops/kernels/conv_int8.py::pack_weight_wgmma with pack_tn columns a tile;
 // scale the static 0-d f32 s_x, or with dynamic != 0 the 0-d amax = max|x|
 // in in_dtype; w_scale [N] f32, bias [N] f32 or null; y [B,H,W,N] in
-// out_dtype. K in {1, 3, 5}; tile_n (256, 128 or 8) divides pack_tn.
+// out_dtype. K in {1, 3, 5}; tile_n divides pack_tn; (tile_n, chunk) one of
+// the configurations of with_tile: tile_n columns, chunks of `chunk` input
+// channels.
 extern "C" int lut_conv2d_int8_wgmma(const void* x, const void* w, const void* scale,
                                      int dynamic, const void* w_scale, const void* bias,
                                      void* y, int B, int H, int W, int C, int K, int N,
-                                     int pack_tn, int tile_n, int in_dtype, int out_dtype,
-                                     void* stream) {
+                                     int pack_tn, int tile_n, int chunk, int in_dtype,
+                                     int out_dtype, void* stream) {
   using namespace lut;
   using namespace lut::q8;
   Args a;
@@ -650,12 +753,14 @@ extern "C" int lut_conv2d_int8_wgmma(const void* x, const void* w, const void* s
   a.N = N;
   a.pack_tn = pack_tn;
   a.dynamic = dynamic;
-  const bool pack_ok = pack_tn == 8 || pack_tn == 128 || pack_tn == 256;
+  const bool pack_ok = pack_tn == 8 || pack_tn == 32 || pack_tn == 64 || pack_tn == 128 ||
+                       pack_tn == 256;
   if (!pack_ok || tile_n <= 0 || tile_n > pack_tn || pack_tn % tile_n != 0 || C % 16 != 0 ||
-      (K != 1 && K != 3 && K != 5) || B <= 0 || H <= 0 || W <= 0 || C <= 0 || N <= 0)
+      chunk % 16 != 0 || (K != 1 && K != 3 && K != 5) || B <= 0 || H <= 0 || W <= 0 ||
+      C <= 0 || N <= 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (in_dtype == kBF16) return dispatch_out<__nv_bfloat16>(a, tile_n, out_dtype, s);
-  if (in_dtype == kF32) return dispatch_out<float>(a, tile_n, out_dtype, s);
+  if (in_dtype == kBF16) return dispatch_out<__nv_bfloat16>(a, tile_n, chunk / 16, out_dtype, s);
+  if (in_dtype == kF32) return dispatch_out<float>(a, tile_n, chunk / 16, out_dtype, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -22,6 +22,10 @@ launch count:
   its staging, so no int8 activation reaches device memory; with a dynamic
   scale one abs-max pass stays outside it. Weights go in packed once by
   :func:`pack_weight_wgmma`. It takes 24 of the flagship's 25 int8 sites.
+  Its tile fits the site (:func:`kernel_tile_n`, :func:`kernel_chunk`):
+  32- and 64-column tiles (counted apart too, :data:`WGMMA_NARROW_COUNT`)
+  for cout <= 64, chunks of 64 or 32 channels where cin is not a multiple
+  of 128.
 - ``"smallk"`` (``csrc/conv_int8_smallk.cu``, :func:`conv2d_int8_smallk`,
   :data:`SMALLK_COUNT`): the sites whose whole reduction K = KH*KW*cin,
   padded to 32, is at most :data:`SMALLK_MAX_K` and whose block fits its
@@ -55,15 +59,22 @@ from . import _build
 
 COUNT = _build.LaunchCount()         # the mma_sync route
 WGMMA_COUNT = _build.LaunchCount()   # the wgmma route (quantize folded in)
+WGMMA_NARROW_COUNT = _build.LaunchCount()  # of those, the 32- and 64-column tiles
 SMALLK_COUNT = _build.LaunchCount()  # the small-K route (quantize folded in)
 
 BLOCK_N, BLOCK_K = 128, 64  # tile of csrc/conv_int8.cu: N and K padding
 
-# csrc/conv_int8_wgmma.cu: 128-channel chunks of 8 planes of 16 bytes, tiles
-# of 2 rows x 64 pixels, N tiles of 256, 128 or 8 columns
-WG_CHUNK, WG_PLANES, WG_ROWS, WG_COLS = 128, 8, 2, 64
+# csrc/conv_int8_wgmma.cu: the pack in 128-channel chunks of 8 planes of 16
+# bytes; the kernel's chunks of 128, 64 or 32 channels; tiles of 2 * rows
+# output rows (rows M tiles a consumer warpgroup) x 64 pixels x N columns
+WG_CHUNK, WG_PLANES, WG_COLS = 128, 8, 64
 WG_KERNEL_SIZES = (1, 3, 5)
-WG_STAGES = {256: 3, 128: 6, 8: 8}  # the weight ring's depth per N tile
+WG_TILE_ROWS = {256: 1, 128: 1, 64: 2, 32: 4, 8: 1}  # rows a warpgroup per N tile
+# the chunks the kernel is compiled for per N tile, widest first: full chunks
+# at 256 and 128 columns; at 32 columns a full chunk of 8 rows does not fit
+WG_TILE_CHUNKS = {256: (128,), 128: (128,), 64: (128, 64, 32), 32: (64, 32), 8: (128, 32)}
+WG_STAGES = {256: 3, 128: 6, 64: 6, 32: 8, 8: 8}  # the weight ring's depth per N tile
+WG_NARROW = (32, 64)  # the N tiles counted in WGMMA_NARROW_COUNT
 WG_RAW = 3  # slabs of the raw x ring
 SMEM_LIMIT = 232_448  # bytes of shared memory one Hopper block may use
 # csrc/conv_int8_smallk.cu: K padded to the mma.sync k of 32, at most 8 k
@@ -279,19 +290,25 @@ def conv2d_int8(xq: torch.Tensor, s_x: torch.Tensor, packed: torch.Tensor,
 # [K, K taps][8 planes][T columns][16 channels]: stage (tile, chunk, tap) is
 # one contiguous block in the no-swizzle K-major layout wgmma reads from
 # shared memory (plane p of a stage holds channels 16p .. 16p + 15 of the
-# chunk for T output columns). T is the pack's tile: 8 for cout <= 8 (the
-# head, N padded to wgmma's smallest s8 N), 128 for cout <= 128, else 256.
-# Padding (columns >= cout, channels >= cin) is zero.
+# chunk for T output columns). T is the pack's tile: the smallest of 8 (the
+# head, N padded to wgmma's smallest s8 N), 32, 64, 128 and 256 that holds
+# cout, so a narrow site computes no padded column. Padding (columns >=
+# cout, channels >= cin) is zero. The kernel reads a chunk of 64 or 32
+# channels as 4 or 2 consecutive planes of a stage.
 
 
 def pack_tile_n(cout: int) -> int:
     """Columns of one tile of :func:`pack_weight_wgmma`'s pack."""
-    return 8 if cout <= 8 else 128 if cout <= 128 else 256
+    for t in (8, 32, 64, 128):
+        if cout <= t:
+            return t
+    return 256
 
 
-def pack_weight_wgmma(kernel_q: torch.Tensor) -> torch.Tensor:
+def pack_weight_wgmma(kernel_q: torch.Tensor, tile_n: Optional[int] = None) -> torch.Tensor:
     """OIHW int8 ``kernel_q [N,Cin,K,K]`` (Cin % 16 == 0) -> the wgmma
-    route's pack ``[N_pad/T, Cin_pad/128, K, K, 8, T, 16]``, in one copy."""
+    route's pack ``[N_pad/T, Cin_pad/128, K, K, 8, T, 16]``, in one copy.
+    ``tile_n`` overrides :func:`pack_tile_n` (T), for measurements."""
     if kernel_q.dtype != torch.int8 or kernel_q.dim() != 4:
         raise ValueError(f"pack_weight_wgmma takes an OIHW int8 kernel, got "
                          f"{tuple(kernel_q.shape)} {kernel_q.dtype}")
@@ -299,7 +316,9 @@ def pack_weight_wgmma(kernel_q: torch.Tensor) -> torch.Tensor:
     if weight_route(kernel_q) != "wgmma":
         raise ValueError(f"the wgmma route takes Cin % 16 == 0 and a square 1, 3 or 5 "
                          f"kernel, got Cin={cin} {kh}x{kw}")
-    t = pack_tile_n(n)
+    t = tile_n or pack_tile_n(n)
+    if t not in WG_STAGES:
+        raise ValueError(f"the wgmma pack's tile is one of {tuple(WG_STAGES)}, got {t}")
     npad, cpad = _ceil_to(n, t), _ceil_to(cin, WG_CHUNK)
     w = torch.zeros(npad, kh, kw, cpad, dtype=torch.int8, device=kernel_q.device)
     w[:n, :, :, :cin] = kernel_q.permute(0, 2, 3, 1)
@@ -315,17 +334,20 @@ def unpack_weight_wgmma(packed: torch.Tensor, n: int, cin: int) -> torch.Tensor:
     return w[:n, :, :, :cin].permute(0, 3, 1, 2)
 
 
-def wgmma_smem_bytes(k: int, tile_n: int, x_bytes: int = 2) -> int:
+def wgmma_smem_bytes(k: int, tile_n: int, x_bytes: int = 2, chunk: int = WG_CHUNK) -> int:
     """Shared memory one block of the wgmma route needs for x elements of
-    ``x_bytes``: the weight ring, two quantized x tiles of one chunk (each
-    plane padded to an odd number of 16-byte units), the ring of WG_RAW raw x
-    slabs (16 KB of x each, or 8 KB where that does not fit; each pixel
-    padded by 16 bytes) and the mbarriers."""
-    plane = (((WG_ROWS + k - 1) * (WG_COLS + k - 1)) | 1) * 16
+    ``x_bytes`` and chunks of ``chunk`` channels at an N tile (and its
+    :data:`WG_TILE_ROWS`): the weight ring of the chunk's planes, two
+    quantized x tiles of one chunk (each plane padded to an odd number of
+    16-byte units), the ring of WG_RAW raw x slabs (16 KB of x each, or 8 KB
+    where that does not fit; each pixel padded by 16 bytes) and the
+    mbarriers."""
+    rows, planes = WG_TILE_ROWS[tile_n], chunk // 16
+    plane = (((2 * rows + k - 1) * (WG_COLS + k - 1)) | 1) * 16
     stages = WG_STAGES[tile_n]
-    raw_off = stages * WG_PLANES * tile_n * 16 + 2 * WG_PLANES * plane
+    raw_off = stages * planes * tile_n * 16 + 2 * planes * plane
     bars = (2 * stages + 4) * 8
-    pix = WG_CHUNK * x_bytes
+    pix = chunk * x_bytes
     slab_pix = 16384 // pix
     if raw_off + WG_RAW * slab_pix * (pix + 16) + bars > SMEM_LIMIT:
         slab_pix = 8192 // pix
@@ -337,8 +359,22 @@ def kernel_tile_n(b: int, h: int, w: int, cout: int, sms: int) -> int:
     frame with fewer 256-column tiles than the card has SMs (the flagship's
     64^2 and 128^2 3x3 sites) takes 128-column tiles, twice as many."""
     t = pack_tile_n(cout)
-    tiles = -(-w // WG_COLS) * -(-h // WG_ROWS) * b * (_ceil_to(cout, t) // t)
+    tiles = -(-w // WG_COLS) * -(-h // (2 * WG_TILE_ROWS[t])) * b * (_ceil_to(cout, t) // t)
     return 128 if t == 256 and tiles < sms else t
+
+
+def kernel_chunk(cin: int, k: int, tile_n: int, x_bytes: int = 2) -> int:
+    """The wgmma kernel's chunk of input channels at an N tile: the widest
+    of :data:`WG_TILE_CHUNKS` that divides cin rounded up to 32 and whose
+    block fits (at 32 and 64 columns and the 8-column head: 64 channels for
+    cin 192, 32 for cin 32), so no k32 product and no quantize is spent on
+    padded channels past that rounding; 128, the whole chunk of the pack,
+    at 128 and 256 columns and wherever cin % 128 == 0 fits."""
+    c32 = _ceil_to(cin, 32)
+    for chunk in WG_TILE_CHUNKS[tile_n]:
+        if c32 % chunk == 0 and wgmma_smem_bytes(k, tile_n, x_bytes, chunk) <= SMEM_LIMIT:
+            return chunk
+    return WG_TILE_CHUNKS[tile_n][-1]
 
 
 def conv2d_int8_wgmma_plain(x: torch.Tensor, scale: Optional[torch.Tensor],
@@ -348,6 +384,8 @@ def conv2d_int8_wgmma_plain(x: torch.Tensor, scale: Optional[torch.Tensor],
     """Plain PyTorch version of the wgmma kernel (same arguments):
     :func:`quantize_act`, then the exact sums and the dequant."""
     WGMMA_COUNT.plain += 1
+    if packed.shape[5] in WG_NARROW:
+        WGMMA_NARROW_COUNT.plain += 1
     xq, s_x = quantize_act(x, scale)
     kq = unpack_weight_wgmma(packed, w_scale.shape[0], x.shape[-1])
     return _dequant_plain(xq, s_x, kq, w_scale, bias, out_dtype)
@@ -361,7 +399,8 @@ def _check_wgmma(x, scale, packed, w_scale, bias, k, out_dtype) -> None:
     if route(1, 1, cin, k, n) != "wgmma":
         raise ValueError(f"the wgmma route takes Cin % 16 == 0 and k in {WG_KERNEL_SIZES}, "
                          f"got Cin={cin} k={k}")
-    t = pack_tile_n(n)
+    # the pack's own tile where it is one (a pack made with a tile_n), else cout's
+    t = packed.shape[5] if packed.dim() == 7 and packed.shape[5] in WG_STAGES else pack_tile_n(n)
     want = (_ceil_to(n, t) // t, -(-cin // WG_CHUNK), k, k, WG_PLANES, t, 16)
     if packed.dtype != torch.int8 or tuple(packed.shape) != want:
         raise ValueError(f"packed weight {tuple(packed.shape)} {packed.dtype} is not the "
@@ -374,14 +413,16 @@ def _check_wgmma(x, scale, packed, w_scale, bias, k, out_dtype) -> None:
 def conv2d_int8_wgmma(x: torch.Tensor, scale: Optional[torch.Tensor], packed: torch.Tensor,
                       w_scale: torch.Tensor, bias: Optional[torch.Tensor], k: int,
                       out_dtype: torch.dtype = torch.float32,
-                      tile_n: Optional[int] = None) -> torch.Tensor:
+                      tile_n: Optional[int] = None, chunk: Optional[int] = None
+                      ) -> torch.Tensor:
     """``y [B,H,W,N]`` in ``out_dtype`` of the int8 conv of float ``x``
     (bf16 or f32) quantized with ``scale`` (0-d f32), or dynamically with
     ``scale=None``: ``quantize_act`` and the conv in one kernel.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel (any
-    other device raises). ``tile_n`` overrides :func:`kernel_tile_n` (a
-    divisor of the pack's tile among 256, 128, 8), for measurements.
+    other device raises). For measurements, ``tile_n`` overrides
+    :func:`kernel_tile_n` (a divisor of the pack's tile) and ``chunk``
+    :func:`kernel_chunk` (one of :data:`WG_TILE_CHUNKS` at that tile).
     """
     _check_wgmma(x, scale, packed, w_scale, bias, k, out_dtype)
     if x.device.type == "cpu":
@@ -400,13 +441,19 @@ def conv2d_int8_wgmma(x: torch.Tensor, scale: Optional[torch.Tensor], packed: to
     if tile_n is None:
         sms = torch.cuda.get_device_properties(x.device).multi_processor_count
         tile_n = kernel_tile_n(b, h, w, n, sms)
+    if tile_n not in WG_TILE_ROWS:
+        raise ValueError(f"the wgmma kernel's N tile is one of {tuple(WG_TILE_ROWS)}, "
+                         f"got {tile_n}")
+    chunk = chunk or kernel_chunk(cin, k, tile_n, x.element_size())
     _call(_build.library().lut_conv2d_int8_wgmma, x,
           (x.data_ptr(), packed.data_ptr(), scale.data_ptr(), int(dynamic),
            w_scale.data_ptr(), None if bias is None else bias.data_ptr(), y.data_ptr(),
-           b, h, w, cin, k, n, packed.shape[5], tile_n, _build.DTYPES[x.dtype],
+           b, h, w, cin, k, n, packed.shape[5], tile_n, chunk, _build.DTYPES[x.dtype],
            _build.DTYPES[out_dtype], _build.stream_handle(x)),
           "lut_conv2d_int8_wgmma")
     WGMMA_COUNT.kernel += 1
+    if tile_n in WG_NARROW:
+        WGMMA_NARROW_COUNT.kernel += 1
     return y
 
 

@@ -9,6 +9,9 @@ versions, and its plain version (``quantize_act`` + the exact conv) against
 the JAX reference's ``conv2d_q``, bit for bit.
 """
 
+import json
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -16,6 +19,7 @@ import torch
 import jax.numpy as jnp
 
 import chip_smoke
+from portbench.harness import arith, cell
 from lstm_unet_tpu.ops import quant as jq
 from lstm_unet_tpu_torch.config import default_net_kernel_params, tiny_net_kernel_params
 from lstm_unet_tpu_torch.models import ModelConfig, ULSTMnet2D, quantize_model_int8
@@ -31,14 +35,14 @@ def _kernel(cout, cin, k, seed):
 # ---------------------------------------------------------------- the pack
 
 
-@pytest.mark.parametrize("cout", [3, 128, 256, 512])
+@pytest.mark.parametrize("cout", [3, 32, 64, 128, 256, 512])
 @pytest.mark.parametrize("k", [1, 3, 5])
-@pytest.mark.parametrize("cin", [16, 128, 1024])
+@pytest.mark.parametrize("cin", [16, 32, 64, 128, 192, 384, 1024])
 def test_wgmma_pack_round_trips_and_layout(cin, k, cout):
     w = quant.QWeight(_kernel(cout, cin, k, cin + 7 * k + cout), None)
     q, _ = quant.quantize_weight(_kernel(cout, cin, k, cin + 7 * k + cout))
     t = conv_int8.pack_tile_n(cout)
-    assert t == (8 if cout == 3 else 128 if cout == 128 else 256)
+    assert t == {3: 8, 32: 32, 64: 64, 128: 128}.get(cout, 256)
     assert tuple(w.packed.shape) == (-(-cout // t), -(-cin // 128), k, k, 8, t, 16)
     assert w.packed.dtype == torch.int8
     assert torch.equal(w.kernel_q, q)
@@ -150,6 +154,12 @@ def test_kernel_tile_n_and_smem():
     assert conv_int8.kernel_tile_n(1, 512, 512, 3, 132) == 8
     assert conv_int8.kernel_tile_n(1, 512, 512, 128, 132) == 128
     assert conv_int8.kernel_tile_n(2, 128, 128, 256, 132) == 256  # B = 2: 256 tiles
+    # the narrow tiles: cout up to 32 or 64, never split
+    assert {c: conv_int8.pack_tile_n(c) for c in (1, 8, 9, 16, 32, 33, 64, 65, 128, 129)} == {
+        1: 8, 8: 8, 9: 32, 16: 32, 32: 32, 33: 64, 64: 64, 65: 128, 128: 128, 129: 256}
+    assert conv_int8.kernel_tile_n(1, 512, 512, 32, 132) == 32
+    assert conv_int8.kernel_tile_n(1, 64, 64, 64, 132) == 64
+    assert conv_int8.WG_TILE_ROWS == {256: 1, 128: 1, 64: 2, 32: 4, 8: 1}
     # K = 5 at 256 columns: K4's bf16 budget and three raw x slabs of 8 KB of
     # x (bf16: 32 pixels of 256 + 16 bytes); 16 KB of x elsewhere; all
     # within a block's 227 KB
@@ -158,6 +168,71 @@ def test_kernel_tile_n_and_smem():
     assert conv_int8.wgmma_smem_bytes(3, 256) == 98_304 + 67_840 + 3 * 64 * 272 + 80
     assert max(conv_int8.wgmma_smem_bytes(k, t, xb) for k in (1, 3, 5)
                for t in (256, 128, 8) for xb in (2, 4)) <= convlstm_cell.SMEM_LIMIT
+    # 32 columns, 8 rows, K = 5, chunks of 64: 8 weight stages of 4 planes x 32
+    # columns, two x tiles of 4 planes of 12 x 68 pixels (odd: 817 units),
+    # three raw slabs of 128 bf16 pixels of 64 channels (+ 16 bytes)
+    assert conv_int8.wgmma_smem_bytes(5, 32, 2, 64) == (8 * 4 * 32 * 16 + 2 * 4 * 817 * 16
+                                                         + 3 * 128 * 144 + 20 * 8)
+    # the chunk: the widest compiled for the tile that divides cin rounded up
+    # to 32 and fits (128 at 128 and 256 columns); every (K, N tile, x bytes)
+    # block of the kernel's chunk fits
+    assert {(cin, k, t): conv_int8.kernel_chunk(cin, k, t)
+            for cin, k, t in ((192, 5, 32), (32, 5, 32), (384, 5, 64), (64, 5, 64), (32, 1, 8),
+                              (1024, 3, 128), (128, 5, 32), (144, 3, 256), (144, 3, 128), (16, 3, 32),
+                              (48, 3, 64))} == {
+        (192, 5, 32): 64, (32, 5, 32): 32, (384, 5, 64): 128, (64, 5, 64): 64, (32, 1, 8): 32,
+        (1024, 3, 128): 128, (128, 5, 32): 64, (144, 3, 256): 128, (144, 3, 128): 128,
+        (16, 3, 32): 32,
+        (48, 3, 64): 64}
+    for k in (1, 3, 5):
+        for t in conv_int8.WG_STAGES:
+            for xb in (2, 4):
+                for cin in (16, 32, 48, 64, 128, 192, 384, 1024):
+                    chunk = conv_int8.kernel_chunk(cin, k, t, xb)
+                    assert conv_int8.wgmma_smem_bytes(k, t, xb, chunk) <= conv_int8.SMEM_LIMIT
+
+
+def test_the_published_widths_take_narrow_tiles_at_four_decoder_sites():
+    """The benchmark's configuration (LSTM-UNet's published widths): exactly
+    ``decoder/0/convs/{0,1}`` and ``decoder/1/convs/{0,1}`` take 32- or
+    64-column tiles, each as wide as its cout, and every site's chunk holds
+    no padded channel past 32; the port's default net takes none."""
+    with open(os.path.join(chip_smoke.HERE, "portbench", "configs", "flagship-int8.json")) as f:
+        widths = cell.as_run(json.load(f))
+    narrow, chunks = {}, {}
+    for site, h, w, k, cin, cout in arith.conv_sites(widths, 512, 512):
+        if conv_int8.route(h, w, cin, k, cout) != "wgmma":
+            continue
+        t = conv_int8.kernel_tile_n(1, h, w, cout, 132)
+        chunks[site] = conv_int8.kernel_chunk(cin, k, t)
+        assert -(-cin // chunks[site]) * chunks[site] == -(-cin // 32) * 32, site
+        if t in conv_int8.WG_NARROW:
+            assert t == cout
+            narrow[site] = (t, chunks[site])
+    assert narrow == {"decoder/1/convs/0": (64, 128), "decoder/1/convs/1": (64, 64),
+                      "decoder/0/convs/0": (32, 64), "decoder/0/convs/1": (32, 32)}
+    assert chunks["head"] == 32  # the K half alone: 8 columns already
+    assert [s for s, c in chunks.items() if c != 128] == [
+        "decoder/1/convs/1", "decoder/0/convs/0", "decoder/0/convs/1", "head"]
+    for _, h, cin, k, cout in chip_smoke.int8_conv_sites(default_net_kernel_params(), 512):
+        if conv_int8.route(h, h, cin, k, cout) == "wgmma":
+            assert conv_int8.kernel_tile_n(1, h, h, cout, 132) not in conv_int8.WG_NARROW
+
+
+def test_the_narrow_count_counts_the_narrow_packs():
+    """``conv2d_int8_wgmma_narrow`` counts a call whose pack has 32 or 64
+    columns (here the plain versions, on the CPU), beside the route's own
+    count: the published widths' decoder shapes at 8^2, and a wide one."""
+    shapes = [(192, 5, 32), (32, 5, 32), (384, 5, 64), (64, 5, 64), (128, 5, 128), (32, 1, 3)]
+    reset_counts()
+    for cin, k, cout in shapes:
+        weight = quant.QWeight(_kernel(cout, cin, k, cin + cout), None)
+        x = torch.from_numpy(np.random.default_rng(cin).normal(0, 1, (1, 8, 8, cin))
+                             .astype(np.float32)).to(torch.bfloat16)
+        quant.conv2d_q(x, weight, None, torch.bfloat16)
+    ran = counts()
+    assert ran["conv2d_int8_wgmma"] == {"kernel": 0, "plain": 6}
+    assert ran["conv2d_int8_wgmma_narrow"] == {"kernel": 0, "plain": 4}
 
 
 # ---------------------------------------------------------------- the kernel's arithmetic
@@ -211,48 +286,63 @@ def test_kernel_quantize_equals_the_division(s):
 
 def _emulate_sums(xq, packed, k, tile_n):
     """The s32 sums [B,H,W,N_pad] as the wgmma kernel forms them: per tile
-    (b, column tile, 2 rows, 64 pixels) and 128-channel chunk the halo'd x
-    tile as 8 planes of [HP*WP, 16]; per tap the 64 pixels from (wg + ky)*WP
-    + kx of each plane against the weight stage read from the pack's flat
-    bytes at the kernel's offsets; K in the order wgmma reads it (plane
-    pairs of 16 bytes)."""
+    (b, column tile, 2 * rows rows, 64 pixels) and chunk of the kernel
+    (``kernel_chunk`` channels: that many / 16 planes of the pack's stage of
+    8) the halo'd x tile as the chunk's planes of [HP*WP, 16]; per tap and
+    per warpgroup's row the 64 pixels from (row + ky)*WP + kx of each plane
+    against the chunk's planes of the weight stage, read from the pack's
+    flat bytes at the kernel's offsets; K in the order wgmma reads it (plane
+    pairs of 16 bytes), only the chunk's own planes."""
     b, h, w, cin = xq.shape
-    tiles_p, nchunks, _, _, _, pack_tn, _ = packed.shape
+    tiles_p, pchunks, _, _, _, pack_tn, _ = packed.shape
+    rows = conv_int8.WG_TILE_ROWS[tile_n]
+    chunk = conv_int8.kernel_chunk(cin, k, tile_n)
+    planes, nchunks, tr = chunk // 16, -(-cin // chunk), 2 * rows
     npad, rad = tiles_p * pack_tn, k // 2
-    hp, wp = 2 + k - 1, 64 + k - 1
-    ny, nx = -(-h // 2), -(-w // 64)
-    x = torch.zeros(b, ny * 2 + 2 * rad, nx * 64 + 2 * rad, nchunks * 128, dtype=torch.int64)
+    hp, wp = tr + k - 1, 64 + k - 1
+    ny, nx = -(-h // tr), -(-w // 64)
+    x = torch.zeros(b, ny * tr + 2 * rad, nx * 64 + 2 * rad, nchunks * chunk, dtype=torch.int64)
     x[:, rad:rad + h, rad:rad + w, :cin] = xq
     flat = packed.reshape(-1).to(torch.int64)
-    out = torch.zeros(b, ny * 2, nx * 64, npad, dtype=torch.int64)
+    out = torch.zeros(b, ny * tr, nx * 64, npad, dtype=torch.int64)
     for bi in range(b):
         for nt in range(npad // tile_n):
             col = nt * tile_n
-            for y0 in range(0, ny * 2, 2):
+            for y0 in range(0, ny * tr, tr):
                 for x0 in range(0, nx * 64, 64):
-                    acc = torch.zeros(2, 64, tile_n, dtype=torch.int64)
+                    acc = torch.zeros(2, rows, 64, tile_n, dtype=torch.int64)
                     for ch in range(nchunks):
-                        t = x[bi, y0:y0 + hp, x0:x0 + wp, ch * 128:(ch + 1) * 128]
-                        planes = t.reshape(hp * wp, 8, 16).permute(1, 0, 2)
+                        cc = ch * chunk
+                        t = x[bi, y0:y0 + hp, x0:x0 + wp, cc:cc + chunk]
+                        pl = t.reshape(hp * wp, planes, 16).permute(1, 0, 2)
                         for tap in range(k * k):
                             ky, kx = divmod(tap, k)
-                            base = (((col // pack_tn) * nchunks + ch) * k * k + tap) * 8
+                            stage = ((col // pack_tn) * pchunks + cc // 128) * k * k + tap
+                            first = stage * 8 + (cc % 128) // 16
                             bmat = torch.cat([
-                                flat[(base + p) * pack_tn * 16 + (col % pack_tn) * 16:][
-                                    :tile_n * 16].reshape(tile_n, 16) for p in range(8)], 1)
+                                flat[(first + p) * pack_tn * 16 + (col % pack_tn) * 16:][
+                                    :tile_n * 16].reshape(tile_n, 16) for p in range(planes)], 1)
                             for wg in range(2):
-                                rows = (wg + ky) * wp + kx + torch.arange(64)
-                                amat = torch.cat([planes[p, rows] for p in range(8)], 1)
-                                acc[wg] += amat @ bmat.T
-                    out[bi, y0:y0 + 2, x0:x0 + 64, col:col + tile_n] = acc
+                                for m in range(rows):
+                                    r = (wg * rows + m + ky) * wp + kx + torch.arange(64)
+                                    amat = torch.cat([pl[p, r] for p in range(planes)], 1)
+                                    acc[wg, m] += amat @ bmat.T
+                    out[bi, y0:y0 + tr, x0:x0 + 64, col:col + tile_n] = acc.reshape(
+                        tr, 64, tile_n)
     return out[:, :h, :w]
 
 
 @pytest.mark.parametrize("b,h,w,cin,k,cout,tile_n", [
-    (1, 5, 70, 144, 3, 300, 256),   # ragged frame, two chunks (the second partial)
+    (1, 5, 70, 144, 3, 300, 256),   # ragged frame, two chunks of 128 (the second partial)
     (1, 5, 70, 144, 3, 300, 128),   # 128-column tiles over a 256-column pack
-    (2, 3, 9, 16, 5, 40, 128),      # cin 16, one plane of a chunk
+    (2, 3, 9, 16, 5, 40, 64),       # cin 16, one plane of a chunk of 32; cout 40 in 64 columns
     (1, 4, 66, 128, 1, 3, 8),       # the head: 1x1, N padded to 8
+    (1, 5, 70, 192, 5, 32, 32),     # decoder/0/convs/0: 32 columns, 8 rows, chunks of 64
+    (1, 4, 66, 32, 5, 32, 32),      # decoder/0/convs/1: one chunk of 32
+    (1, 3, 70, 384, 5, 64, 64),     # decoder/1/convs/0: 64 columns, 4 rows, full chunks
+    (2, 3, 9, 64, 5, 64, 64),       # decoder/1/convs/1: one chunk of 64
+    (1, 4, 66, 32, 1, 3, 8),        # the head at cin 32: one k32 product a tap
+    (1, 9, 20, 48, 3, 20, 32),      # cin 48: a chunk of 64, its last plane zero
 ])
 def test_tile_emulation_equals_the_exact_sums(b, h, w, cin, k, cout, tile_n):
     r = np.random.default_rng(cin + cout)

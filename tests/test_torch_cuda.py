@@ -540,11 +540,21 @@ def test_conv2d_int8_equals_plain(cuda, b, h, w, cin, k, cout, bias):
 
 
 @pytest.mark.parametrize("b,h,w,cin,k,cout", [
-    (2, 17, 70, 16, 3, 40),      # ragged frame (W > 64, odd H), cin 16, N tile 128
+    (2, 17, 70, 16, 3, 40),      # ragged frame (W > 64, odd H), cin 16, N tile 64
     (1, 32, 48, 128, 5, 512),    # an h-conv: N tile 256
     (1, 16, 16, 1024, 3, 512),   # cin 1024, 8 chunks; 128-column tiles (few tiles)
     (1, 24, 40, 384, 3, 128),    # cout 128: N tile 128, three chunks
     (1, 40, 40, 128, 1, 3),      # the 1x1 head: N padded to 8
+    # the published widths' narrow sites at their sizes: decoder/0/convs/0
+    # (32 columns, 8 rows, chunks of 64), /1 (a chunk of 32), decoder/1/convs/0
+    # (64 columns, 4 rows, full chunks), /1 (a chunk of 64), the head (cin 32)
+    (1, 512, 512, 192, 5, 32),
+    (1, 512, 512, 32, 5, 32),
+    (1, 256, 256, 384, 5, 64),
+    (1, 256, 256, 64, 5, 64),
+    (1, 512, 512, 32, 1, 3),
+    (2, 37, 100, 192, 5, 32),    # ragged: a partial tile of 8 rows and of 64 pixels
+    (1, 13, 70, 48, 3, 20),      # cin 48: a chunk of 64 half zero-filled
 ])
 @pytest.mark.parametrize("bias", [True, False])
 def test_conv2d_int8_wgmma_equals_plain(cuda, b, h, w, cin, k, cout, bias):
@@ -580,10 +590,12 @@ def test_conv2d_int8_wgmma_smem_formula_matches_the_kernel(cuda):
 
     lib = _build.library()
     for k in conv_int8.WG_KERNEL_SIZES:
-        for tn in conv_int8.WG_STAGES:
+        for tn in conv_int8.WG_TILE_ROWS:
             for xb in (2, 4):
-                assert (lib.lut_conv2d_int8_wgmma_smem(k, tn, xb)
-                        == conv_int8.wgmma_smem_bytes(k, tn, xb))
+                for chunk in conv_int8.WG_TILE_CHUNKS[tn]:
+                    assert (lib.lut_conv2d_int8_wgmma_smem(k, tn, chunk, xb)
+                            == conv_int8.wgmma_smem_bytes(k, tn, xb, chunk))
+    assert lib.lut_conv2d_int8_wgmma_smem(5, 32, 128, 2) == 0  # not compiled: does not fit
 
 
 @pytest.mark.parametrize("b,h,w,cin,kh,kw,cout", [
@@ -680,6 +692,39 @@ def test_conv2d_int8_wgmma_shares_the_dynamic_scale_over_lanes(cuda):
     got = conv_int8.conv2d_int8_wgmma(x, None, *a)
     assert torch.equal(got, conv_int8.conv2d_int8_wgmma_plain(x, None, *a))
     assert not torch.equal(conv_int8.conv2d_int8_wgmma(x[:1].contiguous(), None, *a), got[:1])
+
+
+def test_narrow_tiles_count_4_a_frame_at_the_published_widths(cuda, graph_models):
+    """A stream of the published-width int8 model (seeded weights, dynamic
+    scales) at 128^2: the engine's replayed step launches the 32- and
+    64-column tiles 4 times a frame (``decoder/0/convs/{0,1}``,
+    ``decoder/1/convs/{0,1}``) among its 24 wgmma convs, and the port's
+    default net (``graph_models``' int8 flagship) none."""
+    import json
+
+    from lstm_unet_tpu_torch.config import InferenceParams
+    from lstm_unet_tpu_torch.engine.infer import StreamingInferenceEngine
+    from lstm_unet_tpu_torch.models import quantize_model_int8
+    from lstm_unet_tpu_torch.ops.kernels import graph_counts
+    from portbench.harness import cell, port
+
+    with open(os.path.join(GOLDEN, "..", "..", "portbench", "configs", "flagship-int8.json")) as f:
+        cfg = port.model_config(cell.as_run(json.load(f)))
+    published = ULSTMnet2D(cfg, generator=torch.Generator(device=cuda).manual_seed(0),
+                           device=cuda)
+    quantize_model_int8(published, float_dtype=cfg.compute_dtype)
+    frames = synthetic.make_cell_sequence(num_frames=5, height=GRAPH_SIZE, width=GRAPH_SIZE,
+                                          num_cells=8, seed=5)[0]
+    for model, narrow in ((published, 4), (graph_models["int8"], 0)):
+        engine = StreamingInferenceEngine(model, InferenceParams(), cuda)
+        reset_counts()
+        for f in frames:
+            engine.step_batch_async(f[None])
+        torch.cuda.synchronize()
+        ran = counts()
+        assert graph_counts() == {"captures": 2, "replays": 4}
+        assert ran["conv2d_int8_wgmma"] == {"kernel": 24 * 5, "plain": 0}, ran
+        assert ran["conv2d_int8_wgmma_narrow"] == {"kernel": narrow * 5, "plain": 0}, ran
 
 
 def test_int8_scales_on_the_card_equal_the_cpu(cuda):
