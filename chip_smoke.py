@@ -37,7 +37,12 @@ Phases, each of which raises (exit != 0) when it fails:
      (``conv2d_int8``, int8 x, now on no main path) bit-equal to its plain
      version at all 16 (exact s32 sums, the same f32 epilogue); per shape
      the kernel's time, the mma_sync route (eager quantize + mma_sync) and its
-     kernel alone, cuDNN's bf16 conv, the bound and its share;
+     kernel alone, cuDNN's bf16 conv, the bound and its share; then the
+     published net's wide sites (N tiles of 256 and 128) at 512^2, B = 1 and
+     4: bit-equal to the plain version, timed, the bound and its share; the
+     published int8 net's launches a frame (alone, with where the kernel's
+     cycles go by role: ``python3 -c 'import chip_smoke as s;
+     s.conv_int8_wide_alone()'``);
   c2. ``postprocess_frame`` on cell-like 512^2 probabilities (made from a
      seed, no model) with the instance split off, 'dist' and 'prob': equal to
      the same call on the CPU, 1, 2 and 2 K3 launches a frame (and 1, 2, 2
@@ -1860,6 +1865,167 @@ def phase_conv_int8_narrow(torch):
     return out
 
 
+def published_config():
+    """The benchmark's published configuration
+    (``portbench/configs/flagship-int8.json``: LSTM-UNet's
+    ``net_kernel_params``) as a dict."""
+    with open(os.path.join(HERE, "portbench", "configs", "flagship-int8.json")) as f:
+        return json.load(f)
+
+
+def published_net_kernel_params():
+    """The published widths as the port's ``NetKernelParams``: the file
+    lists the decoder's stacks deepest level first, the last ending in the
+    1x1 output conv to the classes; the port indexes them shallowest first
+    and adds that conv itself (the head)."""
+    from lstm_unet_tpu_torch.config import NetKernelParams
+
+    cfg = published_config()
+    up = [list(lvl) for lvl in cfg["up_conv_kernels"][::-1]]
+    up[0] = up[0][:-1]  # the head
+    return NetKernelParams.from_dict(dict(cfg, up_conv_kernels=up))
+
+
+def published_wide_shapes():
+    """The published net's int8 sites at 512^2 that the wgmma route runs on
+    its wide tiles (N tiles of 256 and 128: cout > 64; full chunks: cin % 128
+    == 0), by shape: ``{(H = W, cin, K, cout): [site]}`` in the model's
+    order."""
+    from lstm_unet_tpu_torch.ops.kernels import conv_int8
+
+    shapes = {}
+    for site, hw, cin, k, cout in int8_conv_sites(published_net_kernel_params(), 512):
+        if (conv_int8.route(hw, hw, cin, k, cout) == "wgmma"
+                and conv_int8.pack_tile_n(cout) >= 128 and cin % 128 == 0):
+            shapes.setdefault((hw, cin, k, cout), []).append(site)
+    return shapes
+
+
+# the int8 wgmma kernel's cycle counters (its kTime build,
+# csrc/conv_int8_wgmma.cuh): name, index, the threads that add to it in each
+# block
+CYCLES = (("consumer_wait_weights", 0, 8), ("consumer_wait_x", 1, 8), ("consumer_epilogue", 2, 8),
+          ("consumer_wait_mma", 3, 8), ("consumer_run", 4, 8), ("loader_stage", 5, 1),
+          ("loader_wait_buffer", 6, 1), ("loader_run", 7, 1), ("weights_wait_slot", 8, 1),
+          ("weights_run", 9, 1))
+
+
+def probe_cycles(torch, args, tile_n):
+    """Where one launch's cycles go: the wgmma kernel built with its cycle
+    counters (``csrc/probes/conv_int8_wgmma_probe.cu``, a library of its
+    own, built at the first call) at a wide site (``args``: bf16 x, static
+    scale, pack, w_scale, bias, K; bf16 out), one block per SM: each counter
+    of ``CYCLES`` per thread that counts it, as a share of that role's run."""
+    from lstm_unet_tpu_torch.ops.kernels import _build
+
+    x, scale, packed, w_scale, bias, k = args
+    b, h, w, cin = x.shape
+    n = w_scale.shape[0]
+    y = torch.empty(b, h, w, n, dtype=torch.bfloat16, device=x.device)
+    prof = torch.zeros(10, dtype=torch.int64, device=x.device)
+    _build.check(_build.probe_library("conv_int8_wgmma_probe").lut_conv2d_int8_wgmma_probe(
+        x.data_ptr(), packed.data_ptr(), scale.data_ptr(), w_scale.data_ptr(), bias.data_ptr(),
+        y.data_ptr(), b, h, w, cin, k, n, packed.shape[5], tile_n, prof.data_ptr(),
+        torch.cuda.current_stream().cuda_stream), "lut_conv2d_int8_wgmma_probe")
+    got = prof.tolist()
+    runs = {"consumer": got[4] / 8, "loader": got[7], "weights": got[9]}
+    return {name: round(got[i] / per / runs[name.split("_")[0]], 4)
+            for name, i, per in CYCLES if not name.endswith("_run")}
+
+
+def phase_conv_int8_wide(torch, cycles=False):
+    """(c3, wide): the wgmma route's wide sites of the published net
+    (``published_wide_shapes``) at 512^2, B = 1 and 4: bit-equal to the
+    plain version at B = 1 (bf16 x dynamic -> bf16, f32 x static -> f32),
+    then timed with a calibrated static scale, beside the bound and its
+    share; with ``cycles``, also where the kernel's cycles go
+    (``probe_cycles``). Then one eager 512^2 step of the published int8 net
+    counted: 24 wgmma launches, 4 of them narrow, 1 small-K. Returns the
+    rows, one a shape and lane count."""
+    from lstm_unet_tpu_torch.models import ModelConfig, ULSTMnet2D, quantize_model_int8
+    from lstm_unet_tpu_torch.ops.kernels import conv_int8, counts, reset_counts
+
+    g = torch.Generator(device="cuda").manual_seed(21)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rows = []
+    for (hw, cin, k, cout), sites in published_wide_shapes().items():
+        kq = torch.randint(-127, 128, (cout, cin, k, k), device="cuda", generator=g,
+                           dtype=torch.int32).to(torch.int8)
+        packed = conv_int8.pack_weight_wgmma(kq)
+        w_scale = torch.rand(cout, device="cuda", generator=g) * 1e-3
+        bias = torch.randn(cout, device="cuda", generator=g)
+        for b in (1, 4):
+            tile = conv_int8.kernel_tile_n(b, hw, hw, cout, sms)
+            x = (torch.randn(b, hw, hw, cin, device="cuda", generator=g) * 1.5
+                 ).to(torch.bfloat16)
+            calib = torch.tensor(float(x.abs().max()) * 1.0137 / 127, device="cuda")
+            kern = (x, calib, packed, w_scale, bias, k, torch.bfloat16)
+            cases = [(x, None, torch.bfloat16), (x.float(), calib, torch.float32)]
+            for xx, sc, dt in cases if b == 1 else []:
+                a = (xx, sc, packed, w_scale, bias, k, dt)
+                got = conv_int8.conv2d_int8_wgmma(*a)
+                want = conv_int8.conv2d_int8_wgmma_plain(*a)
+                torch.cuda.synchronize()
+                if not torch.equal(got, want):
+                    raise AssertionError(f"conv2d_int8_wgmma {sites[0]} B={b} x {xx.dtype} -> "
+                                         f"{dt}: {int((got != want).sum())} outputs differ")
+                del got, want
+            row = dict(sites=sites, b=b, shape=f"{hw}^2 {cin}->{cout} {k}x{k}", tile_n=tile)
+            row["ms"] = time_ms(lambda: conv_int8.conv2d_int8_wgmma(*kern), 20)
+            row["bound_ms"], row["bound_by"] = conv_bound(b * hw * hw, cin, k, cout, 2)
+            row["share"] = row["bound_ms"] / row["ms"]
+            if cycles:
+                row["cycles"] = probe_cycles(torch, kern[:6], tile)
+            rows.append(row)
+            log(f"conv2d_int8_wgmma {','.join(sites)} B={b} {row['shape']} (tile N {tile}): "
+                f"bit-equal to the plain version; {row['ms']:.4f} ms "
+                f"({100 * row['share']:.1f}% of {row['bound_ms']:.4f})" +
+                (f"; cycles {row['cycles']}" if cycles else ""))
+            del x, kern
+        del kq, packed
+        torch.cuda.empty_cache()
+    for b in (1, 4):
+        mine = [r for r in rows if r["b"] == b]
+        n = sum(len(r["sites"]) for r in mine)
+        log(f"the {n} wide sites at B={b}: {sum(r['ms'] * len(r['sites']) for r in mine):.4f} "
+            f"ms, bound {sum(r['bound_ms'] * len(r['sites']) for r in mine):.4f} ms")
+    # the published net's launches a frame (seeded weights, dynamic scales)
+    cfg = published_config()
+    mc = ModelConfig.make(published_net_kernel_params(), in_channels=cfg["in_channels"],
+                          num_classes=cfg["num_classes"], activation=cfg["activation"],
+                          recurrent_activation=cfg["recurrent_activation"],
+                          upsample=cfg["upsample"], norm=cfg["norm"], dtype=cfg["dtype"],
+                          quant=cfg["quant"], fused_cell=cfg["fused_cell"],
+                          state_dtype=cfg["state_dtype"])
+    model = ULSTMnet2D(mc, generator=torch.Generator(device="cuda").manual_seed(0),
+                       device="cuda")
+    quantize_model_int8(model, float_dtype=mc.compute_dtype)
+    want = {"conv2d_int8_wgmma": 24, "conv2d_int8_wgmma_narrow": 4, "conv2d_int8_smallk": 1,
+            "conv2d_int8": 0}
+    with torch.inference_mode():
+        state = model.init_state(1, 512, 512)
+        reset_counts()
+        model.step(state, torch.rand(1, 512, 512, 1, device="cuda"))
+        torch.cuda.synchronize()
+    got = {name: counts()[name]["kernel"] for name in want}
+    if got != want:
+        raise AssertionError(f"the published int8 net's launches a frame: {got}, expected "
+                             f"{want}")
+    log(f"the published int8 net, one 512^2 frame: launches {got}")
+    return dict(sites=rows, launches=got)
+
+
+def conv_int8_wide_alone():
+    """Phase c3's wide sites on their own, with the kernel's cycle counters,
+    the kernels built first."""
+    import torch
+    from lstm_unet_tpu_torch.ops.kernels import _build
+
+    sys.path.insert(0, HERE)
+    _build.library()
+    log(card_name(torch))
+    return phase_conv_int8_wide(torch, cycles=True)
+
 def smallk_site(torch, g, b, hw, cin, k, cout, into=None):
     """(c3) The small-K kernel at one site of B lanes of hw^2: bit-equal to
     its plain version (bf16 and f32 x, dynamic and static scale, bf16 and
@@ -3392,7 +3558,7 @@ def main() -> int:
                                          f"{line.strip()}")
     if tensor_core != {"Bf16", "Tf32x3"}:
         raise AssertionError(f"ptxas reported no spill line for K4's {tensor_core} entries")
-    # int8 wgmma: x bf16 / f32, y bf16 / f32, its 10 tile configurations; K4 narrow:
+    # int8 wgmma: x bf16 / f32, y bf16 / f32, its 9 tile configurations; K4 narrow:
     # bf16 / 3xTF32, state bf16 / f32, 32 / 16 / 8 features, K 1 / 3 / 5 / 7;
     # int8 small-K: x and y bf16 / f32, one k step or more
     for what, seen, want in (("int8 wgmma", int8_wgmma,
@@ -3407,6 +3573,7 @@ def main() -> int:
     # (c) kernels vs plain versions; (f) K2
     kernel_summary = phase_kernels(torch)
     kernel_summary.update(phase_conv_int8(torch))
+    kernel_summary["conv2d_int8_wgmma"]["wide"] = phase_conv_int8_wide(torch)
     phase_postprocess(torch)
     # (p): the loop kernels, then the sync-free steps, counted from 0
     loop_summary, sync_free = phase_p(torch)

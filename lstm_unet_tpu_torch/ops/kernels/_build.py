@@ -9,6 +9,10 @@ unchanged tree reuses it. Only the sources in this repository are compiled.
 
 Every C entry returns ``cudaGetLastError()`` after its launch; :func:`check`
 turns a non-zero code into an exception.
+
+A measurement's own kernels (``csrc/probes/<name>.cu``, never the program's
+path) are built by :func:`probe_library` at their first call, into a library
+of their own, so the program's build does not compile them.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ import torch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CSRC_DIR = os.path.join(_PKG, "csrc")
+PROBE_DIR = os.path.join(CSRC_DIR, "probes")
 BUILD_DIR = os.path.join(_PKG, "build")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -69,9 +74,17 @@ _SIGNATURES = {
     "lut_trace_stamp": ([_P, _P, _LL, _LL, _P], _I),
     "lut_error_string": ([_I], ctypes.c_char_p),
 }
+# the same for the C entries of csrc/probes/<name>.cu, by name
+_PROBE_SIGNATURES = {
+    "conv_int8_wgmma_probe": {
+        "lut_conv2d_int8_wgmma_probe": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                                         _P, _P], _I),
+    },
+}
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
+_probes = {}
 build_seconds: Optional[float] = None  # compile time of this process's build
 
 
@@ -100,12 +113,17 @@ def _sources():
     return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
 
 
-def library_path() -> str:
+def _digest(paths) -> str:
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu*"))):
+    for path in paths:
         with open(path, "rb") as f:
             digest.update(os.path.basename(path).encode() + f.read())
-    return os.path.join(BUILD_DIR, f"libkernels-{digest.hexdigest()[:16]}.so")
+    return digest.hexdigest()[:16]
+
+
+def library_path() -> str:
+    digest = _digest(sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu*"))))
+    return os.path.join(BUILD_DIR, f"libkernels-{digest}.so")
 
 
 def _run_all(cmds, log_dir: str):
@@ -169,6 +187,35 @@ def library() -> ctypes.CDLL:
                 fn.restype = restype
             _lib = lib
         return _lib
+
+
+def probe_library(name: str) -> ctypes.CDLL:
+    """The bound library of the measurement ``csrc/probes/<name>.cu`` alone,
+    built at its first call (named by its source and the headers of
+    ``csrc/`` it may include; ptxas's output in ``build/<name>.log``)."""
+    with _lock:
+        if name not in _probes:
+            src = os.path.join(PROBE_DIR, f"{name}.cu")
+            digest = _digest([src, *sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh")))])
+            out = os.path.join(BUILD_DIR, f"{name}-{digest}.so")
+            if not os.path.exists(out):
+                os.makedirs(BUILD_DIR, exist_ok=True)
+                tmp = f"{out}.{os.getpid()}.tmp"
+                cmd = [_nvcc(), *NVCC_FLAGS, "-shared", "-o", tmp, src]
+                proc = subprocess.run(cmd, capture_output=True, text=True)
+                with open(os.path.join(BUILD_DIR, f"{name}.log"), "w") as f:
+                    f.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+                if proc.returncode != 0:
+                    raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+                                       f"{(proc.stdout + proc.stderr)[-4000:]}")
+                os.replace(tmp, out)
+            lib = ctypes.CDLL(out)
+            for entry, (argtypes, restype) in _PROBE_SIGNATURES[name].items():
+                fn = getattr(lib, entry)
+                fn.argtypes = argtypes
+                fn.restype = restype
+            _probes[name] = lib
+        return _probes[name]
 
 
 def check(err: int, name: str) -> None:

@@ -75,7 +75,6 @@ WG_TILE_ROWS = {256: 1, 128: 1, 64: 2, 32: 4, 8: 1}  # rows a warpgroup per N ti
 WG_TILE_CHUNKS = {256: (128,), 128: (128,), 64: (128, 64, 32), 32: (64, 32), 8: (128, 32)}
 WG_STAGES = {256: 3, 128: 6, 64: 6, 32: 8, 8: 8}  # the weight ring's depth per N tile
 WG_NARROW = (32, 64)  # the N tiles counted in WGMMA_NARROW_COUNT
-WG_RAW = 3  # slabs of the raw x ring
 SMEM_LIMIT = 232_448  # bytes of shared memory one Hopper block may use
 # csrc/conv_int8_smallk.cu: K padded to the mma.sync k of 32, at most 8 k
 # steps (|acc| < 2^22, which its int-to-float conversion needs); tiles of 64
@@ -339,25 +338,25 @@ def wgmma_smem_bytes(k: int, tile_n: int, x_bytes: int = 2, chunk: int = WG_CHUN
     ``x_bytes`` and chunks of ``chunk`` channels at an N tile (and its
     :data:`WG_TILE_ROWS`): the weight ring of the chunk's planes, two
     quantized x tiles of one chunk (each plane padded to an odd number of
-    16-byte units), the ring of WG_RAW raw x slabs (16 KB of x each, or 8 KB
-    where that does not fit; each pixel padded by 16 bytes) and the
+    16-byte units), the raw x ring (each loader thread's items of 16
+    channels in flight: 8 of bf16 or 4 of f32 beside the 96 loaders of a
+    256-column tile, 3 and 1 beside the 224 of the others), the column
+    tile's table of (scale, bias) pairs (8 bytes a column) and the
     mbarriers."""
     rows, planes = WG_TILE_ROWS[tile_n], chunk // 16
     plane = (((2 * rows + k - 1) * (WG_COLS + k - 1)) | 1) * 16
     stages = WG_STAGES[tile_n]
-    raw_off = stages * planes * tile_n * 16 + 2 * planes * plane
-    bars = (2 * stages + 4) * 8
-    pix = chunk * x_bytes
-    slab_pix = 16384 // pix
-    if raw_off + WG_RAW * slab_pix * (pix + 16) + bars > SMEM_LIMIT:
-        slab_pix = 8192 // pix
-    return raw_off + WG_RAW * slab_pix * (pix + 16) + bars
+    loaders, depth = (96, 16 // x_bytes) if tile_n == 256 else (224, 6 // x_bytes)
+    raw = loaders * depth * 16 * x_bytes
+    return (stages * planes * tile_n * 16 + 2 * planes * plane + raw + tile_n * 8
+            + (2 * stages + 4) * 8)
 
 
 def kernel_tile_n(b: int, h: int, w: int, cout: int, sms: int) -> int:
     """The wgmma kernel's N tile for a frame: the pack's tile, except that a
     frame with fewer 256-column tiles than the card has SMs (the flagship's
-    64^2 and 128^2 3x3 sites) takes 128-column tiles, twice as many."""
+    64^2 and 128^2 3x3 sites) takes 128-column tiles, twice as many. (The
+    kernel's work items then hold :func:`group_size` column tiles each.)"""
     t = pack_tile_n(cout)
     tiles = -(-w // WG_COLS) * -(-h // (2 * WG_TILE_ROWS[t])) * b * (_ceil_to(cout, t) // t)
     return 128 if t == 256 and tiles < sms else t
@@ -375,6 +374,58 @@ def kernel_chunk(cin: int, k: int, tile_n: int, x_bytes: int = 2) -> int:
         if c32 % chunk == 0 and wgmma_smem_bytes(k, tile_n, x_bytes, chunk) <= SMEM_LIMIT:
             return chunk
     return WG_TILE_CHUNKS[tile_n][-1]
+
+
+def group_size(ntiles: int, nchunks: int, nsp: int, b: int, blocks: int) -> int:
+    """``csrc/conv_int8_wgmma.cuh::group_size``: the column tiles of one work
+    item, of ``ntiles``. Where the input is one or two chunks they stay in
+    the kernel's two x buffers while it walks the column tiles, so each x
+    value is quantized once a spatial tile: the most that still gives each of
+    ``blocks`` blocks a work item (``nsp * b`` spatial tiles); else 1."""
+    if nchunks > 2:
+        return 1
+    for g in range(ntiles, 1, -1):
+        if ntiles % g == 0 and nsp * b * (ntiles // g) >= blocks:
+            return g
+    return 1
+
+
+def work_tile(t: int, nx: int, ny: int, ngroups: int, rows: int) -> Tuple[int, int, int, int]:
+    """``csrc/conv_int8_wgmma.cuh::tile_at``: ``(lane, column group, y0, x0)``
+    of work item ``t`` on a frame of ``nx`` x ``ny`` spatial tiles of
+    ``rows`` x 64 pixels: spatial tiles fastest, then column groups, then
+    lanes."""
+    x0 = t % nx * WG_COLS
+    t //= nx
+    y0 = t % ny * rows
+    t //= ny
+    return t // ngroups, t % ngroups, y0, x0
+
+
+def kernel_schedule(b: int, h: int, w: int, cin: int, k: int, cout: int, tile_n: int,
+                    chunk: int, blocks: int):
+    """The persistent grid of the wgmma kernel, block by block, as its loops
+    walk it: for each of ``blocks`` blocks the list of its work items' tiles
+    ``(lane, y0, x0, stages)``, with ``stages`` the weight stages ``(column
+    tile, chunk, tap)`` its ring takes in, in order."""
+    rows = 2 * WG_TILE_ROWS[tile_n]
+    pack_tn = pack_tile_n(cout)
+    nx, ny = -(-w // WG_COLS), -(-h // rows)
+    nchunks = -(-cin // chunk)
+    tiles_n = _ceil_to(cout, pack_tn) // tile_n
+    group = group_size(tiles_n, nchunks, nx * ny, b, blocks)  # column tiles of a work item
+    ngroups = tiles_n // group
+    items = nx * ny * ngroups * b
+    out = []
+    for block in range(blocks):
+        mine = []
+        for t in range(block, items, blocks):
+            lane, nt, y0, x0 = work_tile(t, nx, ny, ngroups, rows)
+            stages = tuple((nt * group + g, ch, tap) for g in range(group)
+                           for ch in range(nchunks) for tap in range(k * k))
+            mine.append((lane, y0, x0, stages))
+        out.append(mine)
+    return out
 
 
 def conv2d_int8_wgmma_plain(x: torch.Tensor, scale: Optional[torch.Tensor],

@@ -1,4 +1,4 @@
-"""The int8 conv's wgmma route (``csrc/conv_int8_wgmma.cu``) on the CPU.
+"""The int8 conv's wgmma route (``csrc/conv_int8_wgmma.cuh``) on the CPU.
 
 The kernel runs only on the card; what surrounds it is held here: its weight
 pack (round trip and element layout), the route table over the flagship's
@@ -160,19 +160,23 @@ def test_kernel_tile_n_and_smem():
     assert conv_int8.kernel_tile_n(1, 512, 512, 32, 132) == 32
     assert conv_int8.kernel_tile_n(1, 64, 64, 64, 132) == 64
     assert conv_int8.WG_TILE_ROWS == {256: 1, 128: 1, 64: 2, 32: 4, 8: 1}
-    # K = 5 at 256 columns: K4's bf16 budget and three raw x slabs of 8 KB of
-    # x (bf16: 32 pixels of 256 + 16 bytes); 16 KB of x elsewhere; all
-    # within a block's 227 KB
-    assert conv_int8.wgmma_smem_bytes(5, 256) == convlstm_cell.wgmma_smem_bytes(5) + 3 * 32 * 272
-    assert conv_int8.wgmma_smem_bytes(5, 256, 4) == convlstm_cell.wgmma_smem_bytes(5) + 3 * 16 * 528
-    assert conv_int8.wgmma_smem_bytes(3, 256) == 98_304 + 67_840 + 3 * 64 * 272 + 80
+    # K = 5 at 256 columns: K4's bf16 budget, the raw x ring (96 loaders x 8
+    # items of 16 bf16 channels, or x 4 of f32: 24 KB) and the column tile's
+    # table of (scale, bias) pairs (8 bytes a column); all within a block's
+    # 227 KB
+    raw, table = 96 * 8 * 32, 256 * 8
+    assert conv_int8.wgmma_smem_bytes(5, 256) == convlstm_cell.wgmma_smem_bytes(5) + raw + table
+    assert conv_int8.wgmma_smem_bytes(5, 256, 4) == (convlstm_cell.wgmma_smem_bytes(5)
+                                                     + 96 * 4 * 64 + table)
+    assert conv_int8.wgmma_smem_bytes(3, 256) == 98_304 + 67_840 + raw + table + 80
     assert max(conv_int8.wgmma_smem_bytes(k, t, xb) for k in (1, 3, 5)
                for t in (256, 128, 8) for xb in (2, 4)) <= convlstm_cell.SMEM_LIMIT
     # 32 columns, 8 rows, K = 5, chunks of 64: 8 weight stages of 4 planes x 32
     # columns, two x tiles of 4 planes of 12 x 68 pixels (odd: 817 units),
-    # three raw slabs of 128 bf16 pixels of 64 channels (+ 16 bytes)
+    # the raw ring of 224 loaders x 3 items of 16 bf16 channels, the table of
+    # 32 columns
     assert conv_int8.wgmma_smem_bytes(5, 32, 2, 64) == (8 * 4 * 32 * 16 + 2 * 4 * 817 * 16
-                                                         + 3 * 128 * 144 + 20 * 8)
+                                                         + 224 * 3 * 32 + 32 * 8 + 20 * 8)
     # the chunk: the widest compiled for the tile that divides cin rounded up
     # to 32 and fits (128 at 128 and 256 columns); every (K, N tile, x bytes)
     # block of the kernel's chunk fits
@@ -219,6 +223,24 @@ def test_the_published_widths_take_narrow_tiles_at_four_decoder_sites():
             assert conv_int8.kernel_tile_n(1, h, h, cout, 132) not in conv_int8.WG_NARROW
 
 
+def test_the_published_widths_in_the_ports_order_are_the_harness_sites():
+    """``chip_smoke.published_net_kernel_params`` (the published file's
+    decoder stacks turned shallowest first, the head apart) gives the
+    benchmark harness's own 25 sites of the file, in order; its wide shapes
+    (``published_wide_shapes``) are those 19 sites on 128- and 256-column
+    tiles with full chunks."""
+    with open(os.path.join(chip_smoke.HERE, "portbench", "configs", "flagship-int8.json")) as f:
+        widths = cell.as_run(json.load(f))
+    ours = chip_smoke.int8_conv_sites(chip_smoke.published_net_kernel_params(), 512)
+    assert ours == [(site, h, cin, k, cout)
+                    for site, h, w, k, cin, cout in arith.conv_sites(widths, 512, 512)]
+    wide = chip_smoke.published_wide_shapes()
+    assert sum(map(len, wide.values())) == 19 and len(wide) == 14
+    for (hw, cin, k, cout), sites in wide.items():
+        tile = conv_int8.kernel_tile_n(1, hw, hw, cout, 132)
+        assert tile in (128, 256) and conv_int8.kernel_chunk(cin, k, tile) == 128, sites
+
+
 def test_the_narrow_count_counts_the_narrow_packs():
     """``conv2d_int8_wgmma_narrow`` counts a call whose pack has 32 or 64
     columns (here the plain versions, on the CPU), beside the route's own
@@ -235,11 +257,160 @@ def test_the_narrow_count_counts_the_narrow_packs():
     assert ran["conv2d_int8_wgmma_narrow"] == {"kernel": 0, "plain": 4}
 
 
+# ---------------------------------------------------------------- the grid's walk
+
+
+@pytest.mark.parametrize("b,h,w,cin,k,cout,tile_n,blocks", [
+    (1, 8, 256, 128, 5, 512, 256, 8),      # one chunk: a work item takes both column tiles
+    (1, 16, 128, 256, 5, 1024, 256, 6),    # two chunks, kept: all four column tiles
+    (1, 16, 128, 256, 5, 1024, 256, 132),  # too few spatial tiles for 132 blocks: one
+    (3, 7, 100, 384, 5, 128, 128, 4),      # three chunks: a column tile an item, ragged
+    (1, 5, 70, 192, 5, 32, 32, 7),         # a narrow tile
+    (2, 6, 64, 256, 5, 256, 128, 6),       # two lanes of 3 spatial tiles each
+    (1, 130, 64, 256, 3, 256, 128, 10),    # a halo-extended height: 65 spatial tiles
+    (1, 64, 64, 512, 5, 2048, 256, 132),   # the published 64^2 h-conv: 4 chunks, 8 column tiles
+])
+def test_kernel_schedule_covers_each_tile_once(b, h, w, cin, k, cout, tile_n, blocks):
+    """``kernel_schedule`` (the kernel's ``tile_at`` and ``group_size``,
+    walked as its loops walk them): every (lane, column tile, spatial tile)
+    is computed once, each column tile's weight stages come in chunk and tap
+    order, and a work item keeps one x tile for ``group_size`` column tiles."""
+    chunk = conv_int8.kernel_chunk(cin, k, tile_n)
+    sched = conv_int8.kernel_schedule(b, h, w, cin, k, cout, tile_n, chunk, blocks)
+    rows = 2 * conv_int8.WG_TILE_ROWS[tile_n]
+    nx, ny = -(-w // 64), -(-h // rows)
+    ntiles = -(-cout // conv_int8.pack_tile_n(cout)) * conv_int8.pack_tile_n(cout) // tile_n
+    nchunks = -(-cin // chunk)
+    group = conv_int8.group_size(ntiles, nchunks, nx * ny, b, blocks)
+    done = {}
+    for items in sched:
+        for lane, y0, x0, stages in items:
+            cols = sorted({c for c, _, _ in stages})
+            assert len(cols) == group and cols[0] % group == 0
+            for c in cols:
+                assert [(ch, tap) for cc, ch, tap in stages if cc == c] == [
+                    (ch, tap) for ch in range(nchunks) for tap in range(k * k)]
+            assert y0 % rows == 0 and y0 < h and x0 % 64 == 0 and x0 < w
+            for c in cols:
+                key = (lane, c, y0, x0)
+                done[key] = done.get(key, 0) + 1
+    want = {(lane, c, y0, x0) for lane in range(b) for c in range(ntiles)
+            for y0 in range(0, ny * rows, rows) for x0 in range(0, nx * 64, 64)}
+    assert set(done) == want and set(done.values()) == {1}
+
+
+def test_kernel_schedule_of_single_blocks_is_the_persistent_grid_walk():
+    """The blocks, one an SM, walk the persistent grid: block i takes work items i,
+    i + blocks, ..., spatial tiles fastest, then column groups, then lanes;
+    three chunks take one column tile an item."""
+    b, h, w, cin, k, cout, blocks = 2, 12, 150, 384, 5, 256, 7
+    sched = conv_int8.kernel_schedule(b, h, w, cin, k, cout, 128, 128, blocks)
+    nx, ny = 3, 6
+    for block, items in enumerate(sched):
+        want = []
+        for t in range(block, nx * ny * 2 * b, blocks):
+            x0, y0 = t % nx * 64, t // nx % ny * 2
+            nt, lane = t // (nx * ny) % 2, t // (nx * ny * 2)
+            want.append((lane, y0, x0, nt))
+        assert [(lane, y0, x0, stages[0][0]) for lane, y0, x0, stages in items] == want
+
+
+def test_group_size_keeps_x_for_the_column_tiles_where_every_block_has_work():
+    """At the published widths on 132 SMs (B = 1): one- and two-chunk inputs
+    keep their x tile for all the column tiles where that still leaves a
+    work item for each block (the 256^2 h-conv's four), fewer where it would
+    not (the 128^2 h-conv's 128 spatial tiles: two), one at the 64^2
+    x-conv's 32 spatial tiles, and always one beyond two chunks."""
+    sms = 132
+    with open(os.path.join(chip_smoke.HERE, "portbench", "configs", "flagship-int8.json")) as f:
+        widths = cell.as_run(json.load(f))
+    got = {}
+    for site, h, w, k, cin, cout in arith.conv_sites(widths, 512, 512):
+        if conv_int8.route(h, w, cin, k, cout) != "wgmma":
+            continue
+        t = conv_int8.kernel_tile_n(1, h, w, cout, sms)
+        rows = 2 * conv_int8.WG_TILE_ROWS[t]
+        ntiles = -(-cout // conv_int8.pack_tile_n(cout)) * conv_int8.pack_tile_n(cout) // t
+        got[site] = conv_int8.group_size(ntiles, -(-cin // conv_int8.kernel_chunk(cin, k, t)),
+                                         -(-w // 64) * -(-h // rows), 1, sms)
+    assert got["encoder/0/lstm/0/h"] == 2 and got["encoder/1/lstm/0/x"] == 4
+    assert got["encoder/1/lstm/0/h"] == 4
+    assert got["encoder/2/lstm/0/x"] == got["encoder/2/lstm/0/h"] == 2
+    assert got["encoder/3/lstm/0/x"] == 1 and got["encoder/3/lstm/0/h"] == 1
+    assert got["decoder/3/convs/0"] == 1  # cin 1024: eight chunks
+    assert conv_int8.group_size(4, 3, 10_000, 1, 132) == 1
+    assert conv_int8.group_size(6, 2, 70, 1, 132) == 3  # 70 x 2 items >= 132 blocks
+
+
+@pytest.mark.parametrize("tile_n,x_bytes,planes,k", [
+    (256, 2, 8, 5), (256, 4, 8, 5), (128, 2, 8, 3), (128, 4, 8, 1), (64, 2, 4, 5),
+    (32, 2, 2, 5), (8, 4, 2, 1),
+])
+def test_loaders_stage_each_item_once_from_their_own_slots(tile_n, x_bytes, planes, k):
+    """csrc/conv_int8_wgmma.cuh::stage_x in Python: loader li takes the items
+    (pixel li // P + m * loaders // P, channel group li % P): every item of
+    the halo'd tile once; its raw ring slots (raw_depth of them, each the
+    item's 16-byte pieces) are its own, consecutive loaders 16 bytes apart,
+    so a warp's 16-byte reads of one piece cover 512 contiguous bytes, and
+    the ring holds loaders x raw_depth items."""
+    loaders = 96 if tile_n == 256 else 224
+    depth = (16 if loaders == 96 else 6) // x_bytes
+    pieces = x_bytes  # 16 channels of x in 16-byte pieces
+    rows = 2 * conv_int8.WG_TILE_ROWS[tile_n]
+    npix = (rows + k - 1) * (64 + k - 1)
+    step = loaders // planes
+    seen, slots = {}, set()
+    for li in range(loaders):
+        first = li // planes
+        mine = -(-(npix - first) // step) if first < npix else 0
+        for m in range(mine):
+            item = (first + m * step, li % planes)
+            seen[item] = seen.get(item, 0) + 1
+        for m in range(depth):
+            for q in range(pieces):
+                addr = (((m % depth) * pieces + q) * loaders + li) * 16
+                assert addr not in slots
+                slots.add(addr)
+    assert set(seen) == {(p, g) for p in range(npix) for g in range(planes)}
+    assert set(seen.values()) == {1}
+    assert max(slots) + 16 == loaders * depth * pieces * 16  # the ring's bytes
+    for warp in range(loaders // 32):  # one piece of one slot: a warp's 512 bytes
+        got = [li * 16 for li in range(32 * warp, 32 * warp + 32)]
+        assert got == list(range(got[0], got[0] + 512, 16))
+
+
+def test_the_epilogues_quad_exchange_stores_each_row_in_column_order():
+    """csrc/conv_int8_wgmma.cuh::epilogue_bf16x8 and quad_transpose in Python:
+    lane q of a quad holds column pairs 8j + 2q, + 1 of its pixel; after the
+    two xor exchanges of each group of 4 j, lane q stores 16 bytes at column
+    32 jb + 8q: together the quad writes every column of the 256-column row
+    once, in order."""
+    tn = 256
+    row = np.arange(tn)  # column ids of one pixel's output row
+    held = {q: [(row[8 * j + 2 * q], row[8 * j + 2 * q + 1]) for j in range(tn // 8)]
+            for q in range(4)}
+    out = np.full(tn, -1)
+    for jb in range(tn // 32):
+        w = {q: [held[q][4 * jb + kk] for kk in range(4)] for q in range(4)}
+        for mask in (1, 2):  # send the words whose index bit differs from the lane's
+            sent = {q: [w[q][kk] for kk in range(4) if bool(kk & mask) != bool(q & mask)]
+                    for q in range(4)}
+            for q in range(4):
+                idx = [kk for kk in range(4) if bool(kk & mask) != bool(q & mask)]
+                for t, kk in enumerate(idx):
+                    w[q][kk] = sent[q ^ mask][t]
+        for q in range(4):
+            start = 32 * jb + 8 * q
+            assert np.all(out[start:start + 8] == -1)
+            out[start:start + 8] = np.array(w[q]).reshape(-1)
+    assert np.array_equal(out, row)
+
+
 # ---------------------------------------------------------------- the kernel's arithmetic
 
 
 def _kernel_quantize(x, s, fallback=True):
-    """csrc/conv_int8_wgmma.cu::quantize16 in torch: q = rint(x * fl(1/s)) of
+    """csrc/conv_int8_wgmma.cuh::quantize16 in torch: q = rint(x * fl(1/s)) of
     the exact product (the kernel's FMA with 1.5 * 2^23), rounded half to even
     and clamped to [-127, 127]; each value whose product lies within 2^-14 of
     a half-integer (every value, with a subnormal 1/s) takes the true

@@ -35,6 +35,8 @@ from lstm_unet_tpu_torch.models import ModelConfig, ULSTMnet2D
 from lstm_unet_tpu_torch.io.tiff import read_tiff
 from lstm_unet_tpu_torch.ops.kernels import ccl, convlstm_cell, counts, lstm_gates, reset_counts
 
+import chip_smoke
+
 pytestmark = pytest.mark.cuda
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden")
 BF16_ULP = 2.0 ** -7  # relative spacing of bf16 values (8-bit significand)
@@ -596,6 +598,111 @@ def test_conv2d_int8_wgmma_smem_formula_matches_the_kernel(cuda):
                     assert (lib.lut_conv2d_int8_wgmma_smem(k, tn, chunk, xb)
                             == conv_int8.wgmma_smem_bytes(k, tn, xb, chunk))
     assert lib.lut_conv2d_int8_wgmma_smem(5, 32, 128, 2) == 0  # not compiled: does not fit
+
+
+# the published widths' wide int8 sites (N tiles of 256 and 128, chunks of
+# 128), by shape: (H = W, cin, K, cout)
+PUBLISHED_WIDE = list(chip_smoke.published_wide_shapes())
+
+
+def _wide_site(cuda, hw, cin, k, cout):
+    from lstm_unet_tpu_torch.ops.kernels import conv_int8
+
+    g = torch.Generator(device=cuda).manual_seed(cin + cout + hw)
+    kq = torch.randint(-127, 128, (cout, cin, k, k), device=cuda, generator=g,
+                       dtype=torch.int32).to(torch.int8)
+    w_scale = torch.rand(cout, device=cuda, generator=g) * 1e-3
+    bias = torch.randn(cout, device=cuda, generator=g)
+    return g, conv_int8.pack_weight_wgmma(kq), w_scale, bias
+
+
+@pytest.mark.parametrize("hw,cin,k,cout", PUBLISHED_WIDE)
+def test_published_wide_sites_equal_plain(cuda, hw, cin, k, cout):
+    """Each wide site of the published net at its frame size: the route is
+    bit-equal to the plain version at B = 1 (bf16 and f32 x, dynamic and
+    static scale, f32 and bf16 out) and at B = 4 (bf16 x dynamic -> bf16,
+    f32 x static -> f32), and at 256-column packs both N tiles give the
+    same outputs."""
+    from lstm_unet_tpu_torch.ops.kernels import conv_int8
+
+    g, packed, w_scale, bias = _wide_site(cuda, hw, cin, k, cout)
+    for b in (1, 4):
+        x32 = torch.randn(b, hw, hw, cin, device=cuda, generator=g) * 2
+        static = torch.tensor(2.5 / 127, device=cuda)
+        cases = [(xdt, sc, dt) for xdt in (torch.bfloat16, torch.float32)
+                 for sc in (None, static) for dt in (torch.float32, torch.bfloat16)]
+        if b == 4:
+            cases = [(torch.bfloat16, None, torch.bfloat16), (torch.float32, static, torch.float32)]
+        for xdt, sc, dt in cases:
+            args = (x32.to(xdt), sc, packed, w_scale, bias, k, dt)
+            assert torch.equal(conv_int8.conv2d_int8_wgmma(*args),
+                               conv_int8.conv2d_int8_wgmma_plain(*args)), (b, xdt, sc, dt)
+        args = (x32.to(torch.bfloat16), static, packed, w_scale, bias, k)
+        want = conv_int8.conv2d_int8_wgmma(*args, torch.bfloat16)
+        if conv_int8.pack_tile_n(cout) == 256:
+            for tn in (256, 128):
+                assert torch.equal(conv_int8.conv2d_int8_wgmma(*args, torch.bfloat16, tile_n=tn),
+                                   want), (b, tn)
+
+
+@pytest.mark.parametrize("b,h,w,cin,k,cout", [
+    (1, 130, 64, 256, 5, 1024),  # 65 spatial tiles
+    (1, 66, 64, 512, 5, 2048),   # a halo-extended 64^2 level (33 tiles)
+    (2, 6, 64, 256, 5, 256),     # 3 tiles a lane, two column tiles over a 256 pack
+    (3, 7, 100, 384, 3, 128),    # ragged, 4 tiles a lane, three chunks, 3x3
+    (1, 3, 40, 128, 1, 256),     # one tile: a 1x1 conv
+])
+def test_routes_at_ragged_wide_shapes_equal_plain(cuda, b, h, w, cin, k, cout):
+    """Row and column counts that leave a lane an odd number of spatial
+    tiles, and frames narrower than a tile's 64 pixels: the route (each of
+    the pack's N tiles, with and without bias, dynamic and static scale,
+    f32 and bf16 out) is bit-equal to the plain version."""
+    from lstm_unet_tpu_torch.ops.kernels import conv_int8
+
+    g, packed, w_scale, bias = _wide_site(cuda, h, cin, k, cout)
+    x = (torch.randn(b, h, w, cin, device=cuda, generator=g) * 2).to(torch.bfloat16)
+    static = torch.tensor(2.5 / 127, device=cuda)
+    for tn in ((256, 128) if conv_int8.pack_tile_n(cout) == 256 else (128,)):
+        for bb in (bias, None):
+            for sc in (None, static):
+                for dt in (torch.float32, torch.bfloat16):
+                    args = (x, sc, packed, w_scale, bb, k, dt)
+                    assert torch.equal(conv_int8.conv2d_int8_wgmma(*args, tile_n=tn),
+                                       conv_int8.conv2d_int8_wgmma_plain(*args)), (tn, sc, dt)
+
+
+def test_wide_site_replays_in_a_captured_step(cuda):
+    """The route inside ``engine/graph.py::CompiledStep``: a step whose body
+    adds the carried state to the frame and runs a published 256 -> 256 5x5
+    site on it, captured and replayed over 4 frames, equals the same steps
+    run eagerly, bit for bit, with one launch a step."""
+    from lstm_unet_tpu_torch.engine.graph import CompiledStep, CudaGraphs
+    from lstm_unet_tpu_torch.ops.kernels import conv_int8
+
+    hw, cin, k, cout = 128, 256, 5, 256
+    g, packed, w_scale, bias = _wide_site(cuda, hw, cin, k, cout)
+    frames = [(torch.randn(1, hw, hw, cin, device=cuda, generator=g)).to(torch.bfloat16)
+              for _ in range(4)]
+
+    def body(x, src, dst):
+        y = conv_int8.conv2d_int8_wgmma(x + src, None, packed, w_scale, bias, k, torch.bfloat16)
+        dst.copy_(y)
+        return (y,)
+
+    outs = {}
+    for mode in ("graph", "eager"):
+        sets = [torch.zeros(1, hw, hw, cout, dtype=torch.bfloat16, device=cuda)
+                for _ in range(2)]
+        step = CompiledStep(sets, CudaGraphs(cuda) if mode == "graph" else None)
+        reset_counts()
+        outs[mode] = []
+        for f in frames:
+            step.input(f.shape, f.dtype, cuda).copy_(f)
+            outs[mode].append(step.step(body)[0])
+        torch.cuda.synchronize()
+        assert counts()["conv2d_int8_wgmma"]["kernel"] == 4
+    for t, (got, want) in enumerate(zip(outs["graph"], outs["eager"])):
+        assert torch.equal(got, want), f"frame {t}"
 
 
 @pytest.mark.parametrize("b,h,w,cin,kh,kw,cout", [
