@@ -42,7 +42,10 @@ Phases, each of which raises (exit != 0) when it fails:
      4: bit-equal to the plain version, timed, the bound and its share; the
      published int8 net's launches a frame (alone, with where the kernel's
      cycles go by role: ``python3 -c 'import chip_smoke as s;
-     s.conv_int8_wide_alone()'``);
+     s.conv_int8_wide_alone()'``); the unfused int8 cell's h-conv with the
+     gate epilogue (``conv2d_int8_wgmma_gates``) at the four flagship levels,
+     B = 1 and 4: bit-equal to the h-conv + add + K1 it replaces, both timed
+     (alone: ``s.conv_int8_gates_alone()``);
   c2. ``postprocess_frame`` on cell-like 512^2 probabilities (made from a
      seed, no model) with the instance split off, 'dist' and 'prob': equal to
      the same call on the CPU, 1, 2 and 2 K3 launches a frame (and 1, 2, 2
@@ -90,7 +93,8 @@ Phases, each of which raises (exit != 0) when it fails:
      5 + 2 and 2 K4 narrow) and no mma_sync;
   e2. the flagship at 512^2 through ``run_inference`` with ``dtype='int8'``,
      fused cell off and on: per frame 24 wgmma + 1 small-K int8 convs and no
-     mma_sync, 4 K1, 1 K3 (unfused) or 20 + 1 int8 convs, 4 K4 bf16
+     mma_sync, 4 of the wgmma convs with the gate epilogue and no K1, 1 K3
+     (unfused) or 20 + 1 int8 convs, 4 K4 bf16
      tensor-core launches, 1 K3 (fused), no plain call; frames/s; one int8
      frame's logits within 0.15 of the bf16 frame's largest |logit|;
   f. K2 (the gate backward) against its plain version at the flagship
@@ -132,8 +136,9 @@ Phases, each of which raises (exit != 0) when it fails:
   j. the flagship at 512^2: steady ms/frame of B = 1, TTA 'flip' (4 lanes)
      and 'd4' (8 lanes) in bf16 fused and int8 unfused; ``run_inference``
      with 'd4' in bf16 fused (4 K4 wgmma launches a step at 8 lanes) and
-     'flip' in int8 unfused (24 wgmma + 1 small-K int8 convs a step at 4
-     lanes), counted, no plain call;
+     'flip' in int8 unfused (24 wgmma + 1 small-K int8 convs, 4 of them
+     with the gate epilogue and no K1, a step at 4 lanes), counted, no plain
+     call;
   k. (counted from 0) ``ctc_sweep`` in bf16 at ``--max_batch 4`` over four
      512^2 sequences (one chunk of 4 lanes) and a 384 x 512 one (a group of
      its own), with SEG and DET; each lane within 3 px per frame of its
@@ -1774,7 +1779,8 @@ def phase_conv_int8(torch):
                  bound_ms=wg_bound,
                  bound_by="operations" if wg_sum["ops_ms"] > wg_sum["bytes_ms"] else "bytes",
                  library_ms=None, yardstick_cudnn_bf16_ms=wg_sum["cudnn_ms"], frame=frame,
-                 shapes=rows, narrow=phase_conv_int8_narrow(torch))
+                 shapes=rows, narrow=phase_conv_int8_narrow(torch),
+                 gates=phase_conv_int8_gates(torch))
     # the tiny model's small-K sites (32^2 frames), B = 1
     tiny = {}
     for _, hw, cin, k, cout in int8_conv_sites(tiny_net_kernel_params(), 32):
@@ -1788,6 +1794,121 @@ def phase_conv_int8(torch):
                   bound_ms=head["bound_ms"], bound_by=head["bound_by"], library_ms=None,
                   shapes=smallk_rows)
     return {"conv2d_int8_wgmma": wgmma, "conv2d_int8": mma, "conv2d_int8_smallk": smallk}
+
+
+def phase_conv_int8_gates(torch):
+    """(c3) The unfused int8 cell's h-conv with the gate epilogue
+    (``conv2d_int8_wgmma_gates``) at the flagship's four ConvLSTM levels at
+    512^2 (5x5), B = 1 and 4, against what it replaces: the wgmma kernel on
+    the natural pack (4F gates in the gate dtype), the eager add of gx and
+    K1. Bit-equal in the four (gate, state) dtype pairs K1 takes, static and
+    dynamic scale, into new tensors and into ``out`` at B = 1, and in bf16 /
+    bf16 (the flagship int8 stream's) at B = 4; at B = 1 also against its
+    plain version (``conv2d_int8_wgmma_gates_plain``: the exact sums, the
+    add, K1's plain version) within K1's bound against its plain version;
+    then both timed in bf16 / bf16 with a calibrated static scale, into
+    state buffers as the captured step runs them, each part of the old route
+    beside. Returns the rows."""
+    from lstm_unet_tpu_torch.ops.kernels import conv_int8, lstm_gates
+
+    g = torch.Generator(device="cuda").manual_seed(22)
+    bf, f32 = torch.bfloat16, torch.float32
+    tol = {f32: (1e-6, 1e-6), bf: (1e-6, 2.0 ** -7)}  # K1's against its plain version
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rows, frame = [], {}
+    for b in (1, 4):
+        for hw, feat in FLAGSHIP_LEVELS:
+            n, k = 4 * feat, 5
+            kq = torch.randint(-127, 128, (n, feat, k, k), device="cuda", generator=g,
+                               dtype=torch.int32).to(torch.int8)
+            w_scale = torch.rand(n, device="cuda", generator=g) * 1e-3
+            order = conv_int8.gate_order(n, "cuda")
+            natural = conv_int8.pack_weight_wgmma(kq)
+            gpack, gscale = conv_int8.pack_weight_wgmma(kq[order]), w_scale[order]
+            h32 = torch.rand(b, hw, hw, feat, device="cuda", generator=g) * 2 - 1
+            c32 = torch.randn(b, hw, hw, feat, device="cuda", generator=g) * 1.5
+            gx32 = torch.randn(b, hw, hw, n, device="cuda", generator=g) * 2
+            static = torch.tensor(0.9 / 127, device="cuda")
+            shape = f"B{b} {hw}^2 F={feat}"
+            pairs = ((bf, bf), (bf, f32), (f32, f32), (f32, bf)) if b == 1 else ((bf, bf),)
+            cases, plain_err = 0, 0.0
+            for gdt, sdt in pairs:
+                h, c, gx = h32.to(sdt), c32.to(sdt), gx32.to(gdt)
+                for sc in ((None, static) if b == 1 else (static,)):
+                    r = conv_int8.conv2d_int8_wgmma(h, sc, natural, w_scale, None, k, gdt)
+                    want_c, want_h = lstm_gates.fused_lstm_gate_update(gx + r, c)
+                    outs = [None, (torch.empty_like(h), torch.empty_like(c))]
+                    for out in (outs if b == 1 else outs[:1]):
+                        got_h, got_c = conv_int8.conv2d_int8_wgmma_gates(h, sc, gpack, gscale, gx,
+                                                                         c, k, out=out)
+                        torch.cuda.synchronize()
+                        for what, got, want in (("h'", got_h, want_h), ("c'", got_c, want_c)):
+                            if not torch.equal(got, want):
+                                raise AssertionError(
+                                    f"gate epilogue {shape} {gdt}/{sdt} "
+                                    f"{'dynamic' if sc is None else 'static'}: {what} differs "
+                                    f"at {int((got != want).sum())} of {got.numel()}, max "
+                                    f"{max_err(got, want)}")
+                        cases += 1
+                    if b == 1:
+                        want = conv_int8.conv2d_int8_wgmma_gates_plain(h, sc, gpack, gscale, gx,
+                                                                       c, k)
+                        plain_err = max(plain_err, check_close(
+                            f"gate epilogue {shape} {gdt}/{sdt} "
+                            f"{'dynamic' if sc is None else 'static'} against plain",
+                            (got_h, got_c), want, *tol[sdt]))
+            h, c, gx = h32.to(bf), c32.to(bf), gx32.to(bf)
+            calib = torch.tensor(float(h.abs().max()) * 1.0137 / 127, device="cuda")
+            state = (torch.empty_like(h), torch.empty_like(c))
+            r = conv_int8.conv2d_int8_wgmma(h, calib, natural, w_scale, None, k, bf)
+            z = gx + r
+
+            def unfused():
+                y = conv_int8.conv2d_int8_wgmma(h, calib, natural, w_scale, None, k, bf)
+                return lstm_gates.fused_lstm_gate_update(gx + y, c, out=state[::-1])
+
+            row = dict(shape=shape, cases=cases, plain_max_abs_err=plain_err if b == 1 else None,
+                       tile_n=conv_int8.kernel_tile_n(b, hw, hw, n, sms),
+                       gates_ms=time_ms(lambda: conv_int8.conv2d_int8_wgmma_gates(
+                           h, calib, gpack, gscale, gx, c, k, out=state), 20),
+                       unfused_ms=time_ms(unfused, 20),
+                       hconv_ms=time_ms(lambda: conv_int8.conv2d_int8_wgmma(
+                           h, calib, natural, w_scale, None, k, bf), 20),
+                       add_ms=time_ms(lambda: gx + r, 20),
+                       k1_ms=time_ms(lambda: lstm_gates.fused_lstm_gate_update(
+                           z, c, out=state[::-1]), 20))
+            row["saved_ms"] = row["unfused_ms"] - row["gates_ms"]
+            # bf16 bytes of the 4F gates no longer written, added and read again
+            row["saved_gb"] = 16 * feat * b * hw * hw * 2 / 1e9
+            rows.append(row)
+            for key in ("gates_ms", "unfused_ms", "hconv_ms", "add_ms", "k1_ms"):
+                frame[(b, key)] = frame.get((b, key), 0.0) + row[key]
+            log(f"int8 gate epilogue {shape} (tile N {row['tile_n']}): bit-equal to h-conv + "
+                f"add + K1 ({cases} cases)"
+                + (f", plain within K1's bound (max_abs_err={plain_err:.3g})" if b == 1 else "")
+                + f"; {row['gates_ms']:.4f} ms against "
+                f"{row['unfused_ms']:.4f} ms (h-conv {row['hconv_ms']:.4f}, add "
+                f"{row['add_ms']:.4f}, K1 {row['k1_ms']:.4f}): {row['saved_ms']:.4f} ms saved, "
+                f"{row['saved_gb']:.3f} GB of 4F gates not moved")
+            del kq, natural, gpack, h32, c32, gx32, h, c, gx, r, z, state
+            torch.cuda.empty_cache()
+    for b in (1, 4):
+        log(f"int8 gate epilogue over the four levels, B{b}: {frame[(b, 'gates_ms')]:.4f} ms "
+            f"against h-conv + add + K1 {frame[(b, 'unfused_ms')]:.4f} ms (h-conv "
+            f"{frame[(b, 'hconv_ms')]:.4f}, add {frame[(b, 'add_ms')]:.4f}, K1 "
+            f"{frame[(b, 'k1_ms')]:.4f})")
+    return rows
+
+
+def conv_int8_gates_alone():
+    """Phase c3's gate epilogue on its own, the kernels built first."""
+    import torch
+    from lstm_unet_tpu_torch.ops.kernels import _build
+
+    sys.path.insert(0, HERE)
+    _build.library()
+    log(card_name(torch))
+    return phase_conv_int8_gates(torch)
 
 
 # the published widths' (portbench/configs/flagship-int8.json) sites whose
@@ -2332,8 +2453,9 @@ def phase_flagship_int8(torch, work, card):
         steps = n + 2
         want = {"conv2d_int8_smallk": steps, "conv2d_int8": 0,
                 "conv2d_int8_wgmma": (20 if fused else 24) * steps,
+                "conv2d_int8_wgmma_gates": (0 if fused else 4) * steps,
                 "fused_convlstm_level_wgmma": (4 if fused else 0) * steps,
-                "lstm_gate_update": (0 if fused else 4) * steps, "ccl": steps,
+                "lstm_gate_update": 0, "ccl": steps,
                 "fused_convlstm_level": 0, "fused_convlstm_level_tf32x3": 0,
                 "fused_convlstm_level_narrow": 0, "ccl_grid": 0}
         got = {k: d[k]["kernel"] for k in want}
@@ -2586,7 +2708,8 @@ def phase_flagship_tta(torch, work, card):
     B = 1, 'flip' (4 lanes) and 'd4' (8 lanes) in bf16 fused and int8
     unfused; then ``run_inference`` with 'd4' in bf16 fused (K4 wgmma 4
     launches a step at 8 lanes) and 'flip' in int8 unfused (24 wgmma + 1
-    small-K int8 convs, 4 K1 a step at 4 lanes), counted, no plain call."""
+    small-K int8 convs, 4 of the wgmma convs with the gate epilogue and no K1
+    a step at 4 lanes), counted, no plain call."""
     from lstm_unet_tpu_torch.config import InferenceParams
     from lstm_unet_tpu_torch.engine.infer import run_inference
     from lstm_unet_tpu_torch.io.tiff import read_tiff
@@ -2621,8 +2744,8 @@ def phase_flagship_tta(torch, work, card):
             want = {"fused_convlstm_level_wgmma": 4 * steps, "lstm_gate_update": 0,
                     "conv2d_int8": 0, "conv2d_int8_wgmma": 0}
         else:
-            want = {"conv2d_int8_wgmma": 24 * steps, "conv2d_int8_smallk": steps,
-                    "conv2d_int8": 0, "lstm_gate_update": 4 * steps,
+            want = {"conv2d_int8_wgmma": 24 * steps, "conv2d_int8_wgmma_gates": 4 * steps,
+                    "conv2d_int8_smallk": steps, "conv2d_int8": 0, "lstm_gate_update": 0,
                     "fused_convlstm_level_wgmma": 0}
         want.update(ccl=steps, ccl_grid=0, fused_convlstm_level=0, fused_convlstm_level_tf32x3=0)
         got = {k: d[k]["kernel"] for k in want}
@@ -3558,11 +3681,12 @@ def main() -> int:
                                          f"{line.strip()}")
     if tensor_core != {"Bf16", "Tf32x3"}:
         raise AssertionError(f"ptxas reported no spill line for K4's {tensor_core} entries")
-    # int8 wgmma: x bf16 / f32, y bf16 / f32, its 9 tile configurations; K4 narrow:
+    # int8 wgmma: x bf16 / f32, y bf16 / f32, its 9 tile configurations, and the
+    # gate epilogue's 4 (state, gate) dtype pairs at 256 and 128 columns; K4 narrow:
     # bf16 / 3xTF32, state bf16 / f32, 32 / 16 / 8 features, K 1 / 3 / 5 / 7;
     # int8 small-K: x and y bf16 / f32, one k step or more
     for what, seen, want in (("int8 wgmma", int8_wgmma,
-                              4 * sum(map(len, conv_int8.WG_TILE_CHUNKS.values()))),
+                              4 * sum(map(len, conv_int8.WG_TILE_CHUNKS.values())) + 4 * 2),
                              ("K4 narrow", narrow, 48),
                              ("int8 small-K", smallk, 8)):
         if len(seen) != want:
@@ -3604,8 +3728,9 @@ def main() -> int:
         phase_golden_int8(torch, work)
         phase_flagship_int8(torch, work, smi)
         int8 = kernels.counts()
-        for k in ("conv2d_int8_smallk", "conv2d_int8_wgmma", "lstm_gate_update", "ccl",
-                  "fused_convlstm_level_wgmma", "fused_convlstm_level_narrow"):
+        for k in ("conv2d_int8_smallk", "conv2d_int8_wgmma", "conv2d_int8_wgmma_gates",
+                  "lstm_gate_update", "ccl", "fused_convlstm_level_wgmma",
+                  "fused_convlstm_level_narrow"):
             if int8[k]["kernel"] == 0:
                 raise AssertionError(f"int8 path: {k} never launched: {int8}")
         if any(v["plain"] for v in int8.values()):

@@ -21,14 +21,20 @@ is inference-only, as in the reference: under grad the fused kernel raises.
 reference's two routes: fused, ``gx = conv2d_q(x)`` with the bias in x's
 dtype and Wh dequantized to that dtype (h is not quantized), then K4;
 unfused, ``conv2d_q(x) + conv2d_q(h)`` each in x's dtype (the bias in the
-x-conv only), then K1. The two differ by design (the reference holds them
-within 5e-3).
+x-conv only), then K1's gate math. The two differ by design (the reference
+holds them within 5e-3). Where F % 64 == 0 (the flagship's four levels) the
+unfused route's h-conv is the int8 wgmma conv with the gate epilogue
+(``quant.py::conv2d_q_gates``): it adds gx, runs K1's gate math and writes
+only h' and c', on a Wh packed once in the gate order; on the CPU its plain
+version runs the same three steps. Elsewhere the h-conv writes its 4F gates
+and K1 follows.
 
 Under a ``split`` of the rows (``parallel/mesh.py::Split``) both convs are
-halo convs (``ops/conv.py``, ``ops/quant.py``) and the fused kernel runs on
-the extended block: h with ``k // 2`` rows of each neighbour, gx and c with
-as many zero rows, whose outputs are cropped off (an output row of K4 reads
-only its own row of gx and c).
+halo convs (``ops/conv.py``, ``ops/quant.py``) and the fused kernel (and
+the int8 gate epilogue, likewise) runs on the extended block: h with
+``k // 2`` rows of each neighbour, gx and c with as many zero rows, whose
+outputs are cropped off (an output row of K4 reads only its own row of gx
+and c).
 """
 
 from __future__ import annotations
@@ -44,7 +50,7 @@ from ..parallel.halo import exchange_halo_h
 from .conv import conv2d
 from .kernels.convlstm_cell import fused_convlstm_level, pack_for_route, route, supported
 from .kernels.lstm_gates import lstm_gate_update
-from .quant import ActScales, QWeight, conv2d_q, static_scale
+from .quant import ActScales, QWeight, conv2d_q, conv2d_q_gates, split_scale, static_scale
 
 Carry = Tuple[torch.Tensor, torch.Tensor]  # (h, c), each [B,H,W,F]
 
@@ -64,21 +70,29 @@ def _kept_pack(cache: dict, key: tuple, wh: torch.Tensor, b: int, hh: int, ww: i
     return hit[1]
 
 
+def _on_rows(level, gx: torch.Tensor, h: torch.Tensor, c: torch.Tensor, halo: int, split,
+             out: Optional[Carry]) -> Carry:
+    """``level(gx, h, c, out) -> (h', c')``, a ConvLSTM level's new state, on
+    this rank's rows: on the block extended by ``halo`` rows when the rows
+    are split (h with its neighbours' rows, gx and c with zero rows: an
+    output row reads only its own row of gx and c), cropped back; into
+    ``out`` when given."""
+    group = None if split is None else split.spatial
+    if group is None or halo == 0:
+        return level(gx, h, c, out)
+    rows = (0, 0, 0, 0, halo, halo)  # zero rows above and below, NHWC
+    h_new, c_new = level(F.pad(gx, rows), exchange_halo_h(h, halo, group), F.pad(c, rows), None)
+    keep = slice(halo, halo + h.shape[1])
+    return _into(out, (h_new[:, keep].contiguous(), c_new[:, keep].contiguous()))
+
+
 def _fused_level(gx: torch.Tensor, h: torch.Tensor, c: torch.Tensor, wh: torch.Tensor,
                  recurrent_activation: str, packed: Optional[torch.Tensor], split,
                  out: Optional[Carry]) -> Carry:
-    """K4 on this rank's rows: ``fused_convlstm_level``, on the block
-    extended by ``k // 2`` rows when the rows are split; into ``out`` when
-    given."""
-    group = None if split is None else split.spatial
-    halo = wh.shape[0] // 2
-    if group is None or halo == 0:
-        return fused_convlstm_level(gx, h, c, wh, recurrent_activation, packed, out)
-    rows = (0, 0, 0, 0, halo, halo)  # zero rows above and below, NHWC
-    h_new, c_new = fused_convlstm_level(F.pad(gx, rows), exchange_halo_h(h, halo, group),
-                                        F.pad(c, rows), wh, recurrent_activation, packed)
-    keep = slice(halo, halo + h.shape[1])
-    return _into(out, (h_new[:, keep].contiguous(), c_new[:, keep].contiguous()))
+    """K4 on this rank's rows (:func:`_on_rows`): ``fused_convlstm_level``."""
+    return _on_rows(lambda g, hb, cb, o: fused_convlstm_level(g, hb, cb, wh, recurrent_activation,
+                                                              packed, o),
+                    gx, h, c, wh.shape[0] // 2, split, out)
 
 
 def _into(out: Optional[Carry], carry: Carry) -> Carry:
@@ -150,15 +164,16 @@ class ConvLSTMCell(nn.Module):
 
 class QConvLSTMCell(nn.Module):
     """The int8 form of a :class:`ConvLSTMCell`: ``wx`` (with the f32 bias)
-    and ``wh`` as :class:`quant.QWeight`, and the static ``x_scale`` /
-    ``h_scale`` of sites ``<site>/x`` and ``<site>/h`` (None: dynamic)."""
+    and ``wh`` as :class:`quant.QWeight` (packed in the gate order where the
+    gate epilogue takes it), and the static ``x_scale`` / ``h_scale`` of
+    sites ``<site>/x`` and ``<site>/h`` (None: dynamic)."""
 
     def __init__(self, cell: ConvLSTMCell, act_scales: ActScales = None, site: str = ""):
         super().__init__()
         dev = cell.kernel_x.device
         self.filters = cell.filters
         self.wx = QWeight(cell.kernel_x, cell.bias)
-        self.wh = QWeight(cell.kernel_h, None)
+        self.wh = QWeight(cell.kernel_h, None, gates=True)
         static_scale(self, "x_scale", act_scales, site + "/x", dev)
         static_scale(self, "h_scale", act_scales, site + "/h", dev)
         self._wh_float = {}
@@ -188,19 +203,29 @@ class QConvLSTMCell(nn.Module):
                 recurrent_activation: str = "sigmoid",
                 fused_cell: bool = False, split=None,
                 out: Optional[Carry] = None) -> Tuple[Carry, torch.Tensor]:
-        """:meth:`ConvLSTMCell.forward` of the int8 cell."""
+        """:meth:`ConvLSTMCell.forward` of the int8 cell. Unfused, with a
+        gate-ordered Wh, the h-conv, the add and the gate math are one launch
+        of the gate epilogue (:func:`quant.conv2d_q_gates`)."""
         h, c = carry
         b, hh, ww, _ = x.shape
         k = self.wh.shape[-1]
+        gx = conv2d_q(x, self.wx, self.x_scale, x.dtype, split)
         if fused_cell and supported(hh, ww, self.filters, k, k, b, x.dtype):
-            gx = conv2d_q(x, self.wx, self.x_scale, x.dtype, split)
             wh = self.wh_dequantized(x.dtype)
             packed = _kept_pack(self._packs, (wh.device, wh.data_ptr()), wh, b, hh, ww, x)
             h_new, c_new = _fused_level(gx, h, c, wh, recurrent_activation, packed, split,
                                         out)
             return (h_new, c_new), h_new
-        gates = (conv2d_q(x, self.wx, self.x_scale, x.dtype, split)
-                 + conv2d_q(h, self.wh, self.h_scale, x.dtype, split))
+        if self.wh.gates:
+            scale = self.h_scale
+            if scale is None and split is not None:  # the whole tensor's, as conv2d_q's
+                scale = split_scale(h, split)
+            h_new, c_new = _on_rows(
+                lambda g, hb, cb, o: conv2d_q_gates(hb, self.wh, scale, g, cb,
+                                                    recurrent_activation, o),
+                gx, h, c, k // 2, split, out)
+            return (h_new, c_new), h_new
+        gates = gx + conv2d_q(h, self.wh, self.h_scale, x.dtype, split)
         c_new, h_new = lstm_gate_update(gates, c, recurrent_activation,
                                         None if out is None else out[::-1])
         return (h_new, c_new), h_new

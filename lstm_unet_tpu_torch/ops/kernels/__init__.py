@@ -32,6 +32,7 @@ KERNELS = {
     "conv2d_int8": conv_int8.COUNT,                 # the int8 conv (no TPU kernel), mma_sync
     "conv2d_int8_wgmma": conv_int8.WGMMA_COUNT,     # the int8 conv, wgmma, quantize folded in
     "conv2d_int8_wgmma_narrow": conv_int8.WGMMA_NARROW_COUNT,  # of those, 32 or 64 columns
+    "conv2d_int8_wgmma_gates": conv_int8.GATES_COUNT,  # of those, with the gate epilogue
     "conv2d_int8_smallk": conv_int8.SMALLK_COUNT,   # the int8 conv, small K, quantize folded in
     "grow_into_band": postprocess_loops.GROW_COUNT,   # the growth loop (no TPU kernel)
     "erosion_distance": postprocess_loops.ERODE_COUNT,  # the erosion loop (no TPU kernel)

@@ -68,6 +68,8 @@ _SIGNATURES = {
     "lut_conv2d_int8_wgmma": ([_P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                                _I, _I, _I, _P], _I),
     "lut_conv2d_int8_wgmma_smem": ([_I, _I, _I, _I], _LL),
+    "lut_conv2d_int8_wgmma_gates": ([_P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                     _I, _I, _I, _P], _I),
     "lut_conv2d_int8_smallk": ([_P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                                 _I, _P], _I),
     "lut_conv2d_int8_smallk_smem": ([_I, _I, _I, _I, _I], _LL),

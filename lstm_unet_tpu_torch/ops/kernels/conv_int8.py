@@ -25,7 +25,10 @@ launch count:
   Its tile fits the site (:func:`kernel_tile_n`, :func:`kernel_chunk`):
   32- and 64-column tiles (counted apart too, :data:`WGMMA_NARROW_COUNT`)
   for cout <= 64, chunks of 64 or 32 channels where cin is not a multiple
-  of 128.
+  of 128. With the gate epilogue (:func:`conv2d_int8_wgmma_gates`,
+  ``csrc/conv_int8_wgmma_gates.cu``, counted also as :data:`GATES_COUNT`)
+  it is the unfused int8 ConvLSTM cell's h-conv, gate add and gate update
+  in one launch, on weights packed in the gate order (:func:`gate_order`).
 - ``"smallk"`` (``csrc/conv_int8_smallk.cu``, :func:`conv2d_int8_smallk`,
   :data:`SMALLK_COUNT`): the sites whose whole reduction K = KH*KW*cin,
   padded to 32, is at most :data:`SMALLK_MAX_K` and whose block fits its
@@ -56,10 +59,12 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
+from .lstm_gates import lstm_gate_update_plain
 
 COUNT = _build.LaunchCount()         # the mma_sync route
 WGMMA_COUNT = _build.LaunchCount()   # the wgmma route (quantize folded in)
 WGMMA_NARROW_COUNT = _build.LaunchCount()  # of those, the 32- and 64-column tiles
+GATES_COUNT = _build.LaunchCount()   # of those, the gate epilogue (an int8 ConvLSTM h-conv)
 SMALLK_COUNT = _build.LaunchCount()  # the small-K route (quantize folded in)
 
 BLOCK_N, BLOCK_K = 128, 64  # tile of csrc/conv_int8.cu: N and K padding
@@ -506,6 +511,150 @@ def conv2d_int8_wgmma(x: torch.Tensor, scale: Optional[torch.Tensor], packed: to
     if tile_n in WG_NARROW:
         WGMMA_NARROW_COUNT.kernel += 1
     return y
+
+
+# ---------------------------------------------------------------- gate epilogue
+#
+# The unfused int8 ConvLSTM cell's h-conv (cout = 4F, gates i | f | g | o in
+# blocks of F) on the wgmma route, with the cell's gate add and K1's gate
+# update as its epilogue (csrc/conv_int8_wgmma_gates.cu): only h' and c' are
+# written. Its weights are packed once in K4's column order
+# (csrc/convlstm_wgmma.cu, ops/kernels/convlstm_cell.py::_pack): per 16
+# columns of a 256-column pack tile [i f i f i f i f | g o g o g o g o], so
+# the accumulators of each consumer thread hold all four gates of 16 (at
+# 256-column tiles) or 8 (at 128) consecutive features. Every 16 columns hold
+# whole features, so both N tiles run over the one pack.
+
+GATE_TILE = 256  # the gate pack's tile: all four gates of 64 features
+
+
+def gate_pack_takes(kernel_q: torch.Tensor) -> bool:
+    """Whether the gate epilogue takes an h-conv's OIHW int8 kernel: the
+    wgmma route and 4F a multiple of :data:`GATE_TILE` (F % 64 == 0: all
+    four levels of the flagship; not the tiny model's F = 8 and 16)."""
+    return weight_route(kernel_q) == "wgmma" and kernel_q.shape[0] % GATE_TILE == 0
+
+
+def gate_order(n: int, device=None) -> torch.Tensor:
+    """The gate pack's column order for ``n = 4F`` gate columns: entry ``col``
+    is the natural output channel (``gate * F + feature``) that column
+    ``col`` holds. Column ``16 n16 + r`` of pack tile ``t`` holds gate
+    ``2 (r // 8) + r % 2`` of feature ``64 t + 16 ((r % 8) // 2) + n16``."""
+    col = torch.arange(n, device=device)
+    tile, r16 = col // GATE_TILE, col % GATE_TILE
+    n16, r = r16 // 16, r16 % 16
+    feat = GATE_TILE // 4 * tile + 16 * (r % 8 // 2) + n16
+    return (2 * (r // 8) + r % 2) * (n // 4) + feat
+
+
+def conv2d_int8_wgmma_gates_plain(h: torch.Tensor, scale: Optional[torch.Tensor],
+                                  packed: torch.Tensor, w_scale: torch.Tensor,
+                                  gx: torch.Tensor, c: torch.Tensor, k: int,
+                                  recurrent_activation: str = "sigmoid"
+                                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the gate kernel (same arguments): the unfused
+    cell's own steps, the h-conv (the wgmma route's plain version) in gx's
+    dtype and in natural order, the add ``gx + r`` and K1's plain version;
+    ``(h', c')``."""
+    GATES_COUNT.plain += 1
+    r = conv2d_int8_wgmma_plain(h, scale, packed, w_scale, None, k, gx.dtype)
+    r = r.index_select(-1, torch.argsort(gate_order(w_scale.shape[0], r.device)))
+    c_new, h_new = lstm_gate_update_plain(gx + r, c, recurrent_activation)
+    return h_new, c_new
+
+
+def _overlap(a: torch.Tensor, b: torch.Tensor) -> bool:
+    a0, b0 = a.data_ptr(), b.data_ptr()
+    return a0 < b0 + b.numel() * b.element_size() and b0 < a0 + a.numel() * a.element_size()
+
+
+def _check_gates(h, scale, packed, w_scale, gx, c, k, recurrent_activation, out) -> None:
+    if h.dim() != 4 or h.dtype not in _build.DTYPES:
+        raise ValueError(f"h must be float32 or bfloat16 [B,H,W,F], got {tuple(h.shape)} "
+                         f"{h.dtype}")
+    b, hh, ww, feat = h.shape
+    if c.shape != h.shape or c.dtype != h.dtype:
+        raise ValueError(f"c {tuple(c.shape)} {c.dtype} must be like h {tuple(h.shape)} "
+                         f"{h.dtype}")
+    if gx.dtype not in _build.DTYPES or tuple(gx.shape) != (b, hh, ww, 4 * feat):
+        raise ValueError(f"gx must be float32 or bfloat16 [B,H,W,4F] = "
+                         f"{(b, hh, ww, 4 * feat)}, got {tuple(gx.shape)} {gx.dtype}")
+    if w_scale.shape != (4 * feat,) or feat % (GATE_TILE // 4):
+        raise ValueError(f"the gate epilogue takes F % {GATE_TILE // 4} == 0 and w_scale "
+                         f"[4F], got F={feat} w_scale {tuple(w_scale.shape)}")
+    _check_wgmma(h, scale, packed, w_scale, None, k, gx.dtype)
+    if packed.shape[5] != GATE_TILE:
+        raise ValueError(f"the gate pack has {GATE_TILE}-column tiles, got {packed.shape[5]}")
+    if recurrent_activation not in _build.ACTIVATIONS:
+        raise ValueError(f"unknown recurrent_activation {recurrent_activation!r}")
+    if len({t.device for t in (h, gx, c, packed)}) != 1:
+        raise ValueError("h, gx, c and the weights must be on one device")
+    for t in out or ():
+        if (t.shape != c.shape or t.dtype != c.dtype or t.device != c.device
+                or not t.is_contiguous()):
+            raise ValueError(f"out {tuple(t.shape)} {t.dtype} on {t.device} is not a "
+                             f"contiguous tensor like c {tuple(c.shape)} {c.dtype}")
+        if any(_overlap(t, x) for x in (h, c, gx)):
+            raise ValueError("out may alias no input: the kernel's other tiles still read "
+                             "h's halo")
+    if out is not None and _overlap(*out):
+        raise ValueError("the two tensors of out overlap")
+
+
+def conv2d_int8_wgmma_gates(h: torch.Tensor, scale: Optional[torch.Tensor],
+                            packed: torch.Tensor, w_scale: torch.Tensor, gx: torch.Tensor,
+                            c: torch.Tensor, k: int, recurrent_activation: str = "sigmoid",
+                            out: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                            tile_n: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(h', c')`` of the unfused int8 ConvLSTM cell after its x-conv: the
+    int8 h-conv of the state ``h [B,H,W,F]`` (quantized with ``scale``, or
+    dynamically with None) on the gate pack ``packed`` (:func:`gate_order`,
+    then :func:`pack_weight_wgmma`) with ``w_scale`` in the pack's column
+    order, written in gx's dtype, plus ``gx [B,H,W,4F]`` (the x-conv's
+    output, natural order), through the gate math with ``c [B,H,W,F]`` (h's
+    dtype); ``h'`` and ``c'`` in c's dtype, into ``out`` (an ``(h, c)`` pair
+    like c, aliasing no input) when given.
+
+    CPU tensors take the plain version; CUDA tensors launch the wgmma kernel
+    with the gate epilogue (any other device raises). For measurements,
+    ``tile_n`` (256 or 128) overrides :func:`kernel_tile_n`.
+    """
+    _check_gates(h, scale, packed, w_scale, gx, c, k, recurrent_activation, out)
+    if h.device.type == "cpu":
+        got = conv2d_int8_wgmma_gates_plain(h, scale, packed, w_scale, gx, c, k,
+                                            recurrent_activation)
+        if out is None:
+            return got
+        for dst, src in zip(out, got):
+            dst.copy_(src)
+        return out
+    if h.device.type != "cuda":
+        raise ValueError(f"no int8 conv kernel for device {h.device}")
+    _cuda_inputs_ok(h, packed, scale, w_scale, gx, c)
+    if gx.data_ptr() % 16 or c.data_ptr() % 16:
+        raise ValueError("the gate epilogue needs 16-byte aligned gx and c")
+    b, hh, ww, feat = h.shape
+    h_out, c_out = out if out is not None else (torch.empty_like(c), torch.empty_like(c))
+    if h_out.numel() == 0:
+        return h_out, c_out
+    dynamic = scale is None
+    if dynamic:  # max|h|, exact in h's dtype; the kernel forms the scale from it
+        scale = torch.linalg.vector_norm(h, ord=float("inf"))
+    if tile_n is None:
+        sms = torch.cuda.get_device_properties(h.device).multi_processor_count
+        tile_n = kernel_tile_n(b, hh, ww, 4 * feat, sms)
+    if tile_n not in (GATE_TILE, GATE_TILE // 2):
+        raise ValueError(f"the gate epilogue's N tile is {GATE_TILE} or {GATE_TILE // 2}, "
+                         f"got {tile_n}")
+    _call(_build.library().lut_conv2d_int8_wgmma_gates, h,
+          (h.data_ptr(), packed.data_ptr(), scale.data_ptr(), int(dynamic), w_scale.data_ptr(),
+           gx.data_ptr(), c.data_ptr(), h_out.data_ptr(), c_out.data_ptr(), b, hh, ww, feat, k,
+           tile_n, _build.ACTIVATIONS[recurrent_activation], _build.DTYPES[gx.dtype],
+           _build.DTYPES[h.dtype], _build.stream_handle(h)),
+          "lut_conv2d_int8_wgmma_gates")
+    WGMMA_COUNT.kernel += 1
+    GATES_COUNT.kernel += 1
+    return h_out, c_out
 
 
 # ---------------------------------------------------------------- small-K route

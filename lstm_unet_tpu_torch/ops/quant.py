@@ -28,10 +28,13 @@ rows: each rank's abs-max of its own block, all-reduced with MAX over
 to the kernel as a given scale (a static scale needs no collective); with
 the rows split, each conv with ``k > 1`` runs on the halo-extended block.
 
-Gate math, LayerNorm and softmax stay as in the float model.
-:class:`QWeight` holds one conv's int8 weights, packed once for its route's
-kernel; ``models/ulstm_unet.py::quantize_model_int8`` builds the model's
-quantized sites from it.
+Gate math, LayerNorm and softmax stay as in the float model, except that
+on the card the unfused int8 ConvLSTM cell's h-conv takes the gate add and
+the gate update into its epilogue (:func:`conv2d_q_gates`: the h-conv writes
+h' and c', not its 4F gates). :class:`QWeight` holds one conv's int8
+weights, packed once for its route's kernel (an h-conv that the gate
+epilogue takes in the gate order); ``models/ulstm_unet.py::quantize_model_int8``
+builds the model's quantized sites from it.
 """
 
 from __future__ import annotations
@@ -43,7 +46,8 @@ from torch import nn
 
 from ..parallel.comm import all_reduce_
 from ..parallel.halo import on_extended_rows
-from .kernels.conv_int8 import (conv2d_int8, conv2d_int8_smallk, conv2d_int8_wgmma, div127,
+from .kernels.conv_int8 import (conv2d_int8, conv2d_int8_smallk, conv2d_int8_wgmma,
+                                 conv2d_int8_wgmma_gates, div127, gate_order, gate_pack_takes,
                                  pack_weight, pack_weight_smallk, pack_weight_wgmma,
                                  quantize_act, unpack_weight, unpack_weight_smallk,
                                  unpack_weight_wgmma, weight_route)
@@ -108,20 +112,32 @@ def _unpack(packed: torch.Tensor, n: int, cin: int, kh: int, kw: int) -> torch.T
 class QWeight(nn.Module):
     """One int8 conv's weights: ``packed`` (the layout of its route's kernel,
     made once), per-cout ``w_scale`` f32 and the optional f32 ``bias``;
-    ``kernel_q`` is the OIHW int8 kernel."""
+    ``kernel_q`` is the OIHW int8 kernel.
 
-    def __init__(self, kernel: torch.Tensor, bias: Optional[torch.Tensor]):
+    ``gates``: a ConvLSTM h-conv (no bias). Where the gate epilogue takes it
+    (``kernels/conv_int8.py::gate_pack_takes``) its one pack holds the
+    output channels in the gate order (``gates`` is then True), with
+    ``gate_scale`` (``w_scale`` in that order) and ``unorder`` (each natural
+    channel's column, for ``kernel_q``); only :func:`conv2d_q_gates` runs
+    it."""
+
+    def __init__(self, kernel: torch.Tensor, bias: Optional[torch.Tensor], gates: bool = False):
         super().__init__()
         q, s = quantize_weight(kernel.detach())
         self.shape = tuple(q.shape)  # (cout, cin, kh, kw)
-        self.register_buffer("packed", _pack(q))
+        self.gates = gates and bias is None and gate_pack_takes(q)
+        order = gate_order(q.shape[0], q.device) if self.gates else None
+        self.register_buffer("packed", _pack(q if order is None else q[order]))
         self.register_buffer("w_scale", s)
         self.register_buffer("bias", None if bias is None else bias.detach().float())
+        self.register_buffer("gate_scale", None if order is None else s[order])
+        self.register_buffer("unorder", None if order is None else torch.argsort(order))
         self._slices: Dict[Tuple[int, int], torch.Tensor] = {}
 
     @property
     def kernel_q(self) -> torch.Tensor:
-        return _unpack(self.packed, *self.shape)
+        q = _unpack(self.packed, *self.shape)
+        return q.index_select(0, self.unorder) if self.gates else q
 
     def packed_slice(self, c0: int, c1: int) -> torch.Tensor:
         """The pack of input channels ``c0:c1`` (for :func:`conv2d_q_pair`),
@@ -164,10 +180,31 @@ def conv2d_q(x: torch.Tensor, weight: QWeight, x_scale: Optional[torch.Tensor] =
              out_dtype: torch.dtype = torch.float32, split=None) -> torch.Tensor:
     """NHWC int8 conv of ``x`` (quantized dynamically, or with the static
     ``x_scale``) with the f32 dequant epilogue, in ``out_dtype``; under a
-    ``split``, of this rank's block."""
+    ``split``, of this rank's block. A gate-ordered pack is refused: it runs
+    only as :func:`conv2d_q_gates`."""
     _, _, kh, kw = weight.shape
+    if weight.gates:
+        raise ValueError("an h-conv packed for the gate epilogue runs as conv2d_q_gates")
     return _conv(x, x_scale, weight.packed, weight.w_scale, weight.bias, kh, kw, out_dtype,
                  split)
+
+
+def conv2d_q_gates(h: torch.Tensor, weight: QWeight, h_scale: Optional[torch.Tensor],
+                   gx: torch.Tensor, c: torch.Tensor, recurrent_activation: str = "sigmoid",
+                   out: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The unfused int8 ConvLSTM cell after its x-conv ``gx``: ``(h', c')`` of
+    ``gx + conv2d_q(h, weight, h_scale, gx.dtype)`` through the gate math
+    with ``c``, as one launch of the wgmma kernel with the gate epilogue
+    (``kernels/conv_int8.py::conv2d_int8_wgmma_gates``; its plain version on
+    the CPU) on ``weight``'s gate pack (``weight.gates``); into ``out`` (an
+    ``(h, c)`` pair) when given. Of the rows given: under a split of the
+    rows the cell runs it on the halo-extended block
+    (``ops/convlstm.py::_on_rows``)."""
+    if not weight.gates:
+        raise ValueError("conv2d_q_gates takes an h-conv packed for the gate epilogue")
+    return conv2d_int8_wgmma_gates(h, h_scale, weight.packed, weight.gate_scale, gx, c,
+                                   weight.shape[-1], recurrent_activation, out)
 
 
 def conv2d_q_pair(a: torch.Tensor, b: torch.Tensor, weight: QWeight,

@@ -671,6 +671,89 @@ def test_routes_at_ragged_wide_shapes_equal_plain(cuda, b, h, w, cin, k, cout):
                                        conv_int8.conv2d_int8_wgmma_plain(*args)), (tn, sc, dt)
 
 
+# the unfused int8 cell's h-conv with the gate epilogue: (B, H, W, F, K); the
+# flagship's four levels at B = 1 and 4, a halo-extended 64^2 block, widths
+# that are not a multiple of 64 (a 3x3 and a 1x1 cell)
+GATE_SHAPES = [(b, hw, hw, f, 5) for b in (1, 4) for hw, f in chip_smoke.FLAGSHIP_LEVELS]
+GATE_SHAPES += [(1, 36, 64, 512, 5), (2, 21, 100, 64, 3), (1, 9, 40, 128, 1)]
+
+
+@pytest.mark.parametrize("b,h,w,feat,k", GATE_SHAPES)
+def test_conv2d_int8_wgmma_gates_equals_hconv_add_k1(cuda, b, h, w, feat, k):
+    """The gate epilogue bit for bit against what it replaces on the card:
+    the wgmma kernel on the natural pack (4F gates in the gate dtype), the
+    eager add of gx and K1; both N tiles, the four (gate, state) dtype
+    pairs, static and dynamic scales, sigmoid and hard_sigmoid, into new
+    tensors and into ``out``, with some pre-activations infinite or beyond
+    +-87 (the sigmoid's division on its rare path). And against its plain
+    version (the exact sums, the add, K1's plain version) within K1's bound
+    against its own plain version: 1e-6, plus one bf16 unit in the last
+    place for a bf16 state."""
+    from lstm_unet_tpu_torch.ops.kernels import conv_int8
+
+    n = 4 * feat
+    g = torch.Generator(device=cuda).manual_seed(b * h + feat)
+    kq = torch.randint(-127, 128, (n, feat, k, k), device=cuda, generator=g,
+                       dtype=torch.int32).to(torch.int8)
+    w_scale = torch.rand(n, device=cuda, generator=g) * 1e-3 * 25 / (k * k)
+    order = conv_int8.gate_order(n, cuda)
+    natural = conv_int8.pack_weight_wgmma(kq)
+    gpack, gscale = conv_int8.pack_weight_wgmma(kq[order]), w_scale[order]
+    h32 = torch.rand(b, h, w, feat, device=cuda, generator=g) * 2 - 1
+    c32 = torch.randn(b, h, w, feat, device=cuda, generator=g) * 1.5
+    gx32 = torch.randn(b, h, w, n, device=cuda, generator=g) * 2
+    # pre-activations far out: the sigmoid's rare path (1 + e^-z >= 2^126, inf)
+    gx32[0, 0, 0, :8] = torch.tensor([float("inf"), -float("inf"), 100.0, -100.0, 1e4, -1e4,
+                                      88.0, -88.0])
+    gx32[0, 0, 1, 3 * feat:3 * feat + 2] = torch.tensor([-float("inf"), -95.0])
+    static = torch.tensor(0.9 / 127, device=cuda)
+    bf, f32 = torch.bfloat16, torch.float32
+    for gdt, sdt in ((bf, bf), (bf, f32), (f32, f32), (f32, bf)):
+        hh, c, gx = h32.to(sdt), c32.to(sdt), gx32.to(gdt)
+        for sc in (None, static):
+            for act in ("sigmoid", "hard_sigmoid"):
+                r = conv_int8.conv2d_int8_wgmma(hh, sc, natural, w_scale, None, k, gdt)
+                want_c, want_h = lstm_gates.fused_lstm_gate_update(gx + r, c, act)
+                for tn in (256, 128):
+                    out = (torch.empty_like(c), torch.empty_like(c)) if tn == 128 else None
+                    got_h, got_c = conv_int8.conv2d_int8_wgmma_gates(
+                        hh, sc, gpack, gscale, gx, c, k, act, out=out, tile_n=tn)
+                    assert got_h.dtype == got_c.dtype == sdt
+                    assert torch.equal(got_h, want_h), (gdt, sdt, sc, act, tn)
+                    assert torch.equal(got_c, want_c), (gdt, sdt, sc, act, tn)
+                    if out is not None:
+                        assert got_h is out[0] and got_c is out[1]
+                plain = conv_int8.conv2d_int8_wgmma_gates_plain(hh, sc, gpack, gscale, gx, c, k,
+                                                                act)
+                rtol = 2.0 ** -7 if sdt == bf else 1e-6
+                for got, want in zip((got_h, got_c), plain):
+                    torch.testing.assert_close(got.float(), want.float(), atol=1e-6, rtol=rtol)
+
+
+def test_int8_stream_runs_the_gate_epilogue(cuda, graph_models):
+    """Frames of the captured int8 stream (the flagship, unfused, calibrated,
+    128^2, replays): a frame launches the int8 h-conv with the gate epilogue
+    once a ConvLSTM level (4) among its 24 wgmma convs, and K1 never."""
+    from lstm_unet_tpu_torch.config import InferenceParams
+    from lstm_unet_tpu_torch.engine.infer import StreamingInferenceEngine
+    from lstm_unet_tpu_torch.ops.kernels import graph_counts
+
+    engine = StreamingInferenceEngine(graph_models["int8"], InferenceParams(), cuda)
+    frames = synthetic.make_cell_sequence(num_frames=5, height=GRAPH_SIZE, width=GRAPH_SIZE,
+                                          num_cells=8, seed=3)[0]
+    engine.step_batch_async(frames[0][None])
+    torch.cuda.synchronize()
+    reset_counts()
+    for f in frames[1:]:
+        engine.step_batch_async(f[None])
+    torch.cuda.synchronize()
+    ran = counts()
+    assert graph_counts()["replays"] == 4
+    assert ran["conv2d_int8_wgmma_gates"] == {"kernel": 16, "plain": 0}, ran
+    assert ran["conv2d_int8_wgmma"]["kernel"] == 96, ran
+    assert ran["lstm_gate_update"] == {"kernel": 0, "plain": 0}, ran
+
+
 def test_wide_site_replays_in_a_captured_step(cuda):
     """The route inside ``engine/graph.py::CompiledStep``: a step whose body
     adds the carried state to the frame and runs a published 256 -> 256 5x5

@@ -78,6 +78,17 @@ def _halo_inputs():
             g.normal(size=(2, 32, 24, 16)).astype(np.float32))
 
 
+def _gate_cell():
+    """An int8 ConvLSTM cell the gate epilogue takes (5x5, 8 -> F = 64) and
+    its inputs x [2, 32, 24, 8], h and c [2, 32, 24, 64]."""
+    from lstm_unet_tpu_torch.ops.convlstm import ConvLSTMCell, QConvLSTMCell
+
+    g = np.random.default_rng(4)
+    qc = QConvLSTMCell(ConvLSTMCell(5, 8, 64, generator=torch.Generator().manual_seed(4)))
+    return qc, [torch.from_numpy(g.normal(0, s, (2, 32, 24, n)).astype(np.float32))
+                for s, n in ((1.0, 8), (0.5, 64), (1.5, 64))]
+
+
 def _halo_conv(x, k, b, r, group=None, rows=slice(None)):
     """(y, dy/dx, dy/dk, dy/db) of ``sum(conv(x) * r)`` on ``x``'s rows."""
     xt = torch.from_numpy(x[:, rows]).requires_grad_()
@@ -187,7 +198,8 @@ def _blind_to(root):
 
 
 def _pair_session(rank, dev, root, seq, seqs):
-    """2 ranks: the halo conv under {'spatial': 2}; one step of the model
+    """2 ranks: the halo conv and the int8 cell's gate route (dynamic
+    scales) under {'spatial': 2}; one step of the model
     with bilinear upsampling under {'spatial': 2}; a TTA 'flip' stream under
     {'spatial': 2}; a 4-lane batched stream under {'data': 2}; a training
     run under {'data': 2} that saves and rolls back a spike, then a
@@ -204,6 +216,14 @@ def _pair_session(rank, dev, root, seq, seqs):
                    split.gather(gx, row_dim=1).numpy(),
                    all_reduce_(gk, "sum", split.spatial).numpy(),
                    all_reduce_(gb, "sum", split.spatial).numpy())
+
+    qc, (x, h, c) = _gate_cell()
+    reset_counts()
+    with torch.no_grad():
+        (h, c), _ = qc((h[:, rows].contiguous(), c[:, rows].contiguous()),
+                       x[:, rows].contiguous(), split=split)
+    out["gates"] = (split.gather(h, row_dim=1).numpy(), split.gather(c, row_dim=1).numpy(),
+                    counts()["conv2d_int8_wgmma_gates"])
 
     model = _model(upsample="bilinear")
     split = model.split = plan_split(mesh, 2, HW, 2)
@@ -427,6 +447,21 @@ def test_halo_conv_matches_unsharded(pair):
     for g, w, scale in zip(pair[0]["halo"], ref, (1, 1, np.abs(ref[2]).max(),
                                                   np.abs(ref[3]).max())):
         assert np.abs(g - w).max() <= 1e-5 * scale
+
+
+def test_int8_gate_route_under_spatial_mesh_matches_single_process(pair):
+    """The int8 cell's gate route under {'spatial': 2} (h's 2 halo rows
+    exchanged, gx and c with zero rows, the new state cropped; the dynamic
+    scales all-reduced): each rank's rows, gathered, equal one process's
+    bit for bit, one launch a rank."""
+    qc, (x, h, c) = _gate_cell()
+    assert qc.wh.gates
+    with torch.no_grad():
+        (want_h, want_c), _ = qc((h, c), x)
+    for o in pair:
+        np.testing.assert_array_equal(o["gates"][0], want_h.numpy())
+        np.testing.assert_array_equal(o["gates"][1], want_c.numpy())
+        assert o["gates"][2] == {"kernel": 0, "plain": 1}
 
 
 # ---------------------------------------------------------------- forward

@@ -29,6 +29,7 @@ from lstm_unet_tpu.models import ModelConfig as JaxConfig
 from lstm_unet_tpu.models import ULSTMnet2D as JaxNet
 from lstm_unet_tpu.ops import quant as jq
 from lstm_unet_tpu.ops.convlstm import ConvLSTMCell as JaxCell
+from lstm_unet_tpu.ops.pallas import lstm_gates as jax_lg
 from lstm_unet_tpu_torch.checkpoint.convert import params_from_jax
 from lstm_unet_tpu_torch.cli.inference2d import main as cli_main
 from lstm_unet_tpu_torch.config import tiny_net_kernel_params
@@ -436,11 +437,14 @@ def test_int8_close_to_f32_and_mixed_tree():
             assert float((got - want).abs().max() / want.abs().max()) < 0.15
 
 
-def test_fused_int8_cell_matches_reference_pallas_kernel():
+def test_fused_int8_cell_matches_reference_pallas_kernel(monkeypatch):
     """The fused int8 route against the reference's own fused Pallas kernel
     (interpret mode on the CPU) at a shape that kernel takes (5x5, F = 128,
-    W = 128), and the fused and unfused int8 routes within the reference's
-    5e-3 of each other (``tests/test_ops.py``): they differ by design."""
+    W = 128); the unfused route (here the gate epilogue's, F % 64 == 0)
+    against the reference's unfused cell, with its XLA gate update and with
+    its K1 Pallas kernel interpreted; and the fused and unfused int8 routes
+    within the reference's 5e-3 of each other (``tests/test_ops.py``): they
+    differ by design."""
     from lstm_unet_tpu.ops.quant import quantize_weight
 
     r = np.random.default_rng(8)
@@ -461,15 +465,190 @@ def test_fused_int8_cell_matches_reference_pallas_kernel():
     cell.load_state_dict({"kernel_x": _hwio_to_oihw(kx), "kernel_h": _hwio_to_oihw(kh),
                           "bias": _t(bias)})
     qc = QConvLSTMCell(cell)
+    assert qc.wh.gates
     with torch.no_grad():
         (h, c), _ = qc((_t(h0), _t(c0)), _t(x), fused_cell=True)
+        reset_counts()
         (hu, cu), _ = qc((_t(h0), _t(c0)), _t(x), fused_cell=False)
+    assert counts()["conv2d_int8_wgmma_gates"] == {"kernel": 0, "plain": 1}
     # f32 sums of the same exact products in other orders
     np.testing.assert_allclose(h.numpy(), np.asarray(hj), atol=1e-5)
     np.testing.assert_allclose(c.numpy(), np.asarray(cj), atol=1e-5)
+    # the same int32 sums and gates; the gate math in f32 (tanh, sigmoid)
+    for pallas in (False, True):
+        monkeypatch.setattr(jax_lg, "FORCE_INTERPRET", pallas)
+        (hju, cju), _ = JaxCell.apply(qcell, carry, jnp.asarray(x), use_pallas=pallas,
+                                      fused_cell=False)
+        np.testing.assert_allclose(hu.numpy(), np.asarray(hju), atol=1e-6)
+        np.testing.assert_allclose(cu.numpy(), np.asarray(cju), atol=1e-6)
     np.testing.assert_allclose(hu.numpy(), h.numpy(), atol=5e-3)
     np.testing.assert_allclose(cu.numpy(), c.numpy(), atol=5e-3)
     assert not np.array_equal(hu.numpy(), h.numpy())
+
+
+# ---------------------------------------------------------------- gate epilogue
+
+
+@pytest.mark.parametrize("k,filters", [(3, 64), (5, 128), (1, 64)])
+def test_gate_pack_round_trips(k, filters):
+    """An h-conv the gate epilogue takes is packed once, in K4's column
+    order: ``kernel_q`` is the quantized OIHW kernel, ``gate_scale`` the
+    per-cout scale in the pack's order, and the dequantized Wh of the fused
+    route is the natural one. A cell whose 4F is not a multiple of 256, or
+    a conv with a bias, keeps the natural pack."""
+    from lstm_unet_tpu_torch.ops.kernels import convlstm_cell
+
+    gen = torch.Generator().manual_seed(k + filters)
+    cell = ConvLSTMCell(k, 16, filters, generator=gen)
+    qc = QConvLSTMCell(cell)
+    q, s = quant.quantize_weight(cell.kernel_h)
+    assert qc.wh.gates and torch.equal(qc.kernel_h_q, q) and torch.equal(qc.wh.w_scale, s)
+    order = conv_int8.gate_order(4 * filters)
+    assert sorted(order.tolist()) == list(range(4 * filters))
+    assert torch.equal(qc.wh.gate_scale, s[order])
+    assert torch.equal(qc.wh.packed, conv_int8.pack_weight_wgmma(q[order]))
+    assert torch.equal(qc.wh.kernel_q[:, :, 0, 0], q[:, :, 0, 0])
+    want = (q.float() * s[:, None, None, None]).permute(2, 3, 1, 0)
+    assert torch.equal(qc.wh_dequantized(torch.float32), want)
+    # K4's bf16 pack puts natural column n of tile t at the same place
+    wh = torch.arange(4 * filters, dtype=torch.float32).expand(1, 1, filters, 4 * filters)
+    k4 = convlstm_cell._pack(wh, convlstm_cell.TC_FEAT, convlstm_cell.TC_CHUNK, 8)
+    assert torch.equal(k4[:, 0, 0, 0, :, 0].reshape(-1).long(), order)
+    # each lane's fragment (columns 8j + 2(lane % 4) + {0, 1} of a 128- or
+    # 256-column tile) holds i, f, g, o of the same features
+    for col0 in range(0, 4 * filters, 128):
+        for lane in range(4):
+            cols = [col0 + 8 * j + 2 * lane + e for j in range(16) for e in (0, 1)]
+            gate, feat = order[cols] // filters, order[cols] % filters
+            for g in range(4):
+                assert sorted(feat[gate == g].tolist()) == sorted(set(feat.tolist()))
+    assert not QConvLSTMCell(ConvLSTMCell(k, 16, 16, generator=gen)).wh.gates
+    assert not quant.QWeight(cell.kernel_h, cell.bias[:4 * filters], gates=True).gates
+
+
+GATE_CASES = {
+    "bf16/bf16": (torch.bfloat16, torch.bfloat16),
+    "bf16/f32": (torch.bfloat16, torch.float32),
+    "f32/f32": (torch.float32, torch.float32),
+}
+
+
+@pytest.mark.parametrize("with_out", [False, True])
+@pytest.mark.parametrize("static", [False, True])
+@pytest.mark.parametrize("dtypes", list(GATE_CASES))
+def test_unfused_int8_cell_gate_route_equals_parent_formula(dtypes, static, with_out):
+    """The unfused int8 cell on a gate-ordered Wh (F = 64, 3x3, frames of
+    32 x 48) against the formula it replaced, on natural packs: ``conv2d_q(x)
+    + conv2d_q(h)`` in x's dtype, then K1's plain version; output and new
+    state bit for bit, for each (gate, state) dtype pair, static and dynamic
+    scales, with ``out`` given and not. On the CPU the gate epilogue runs its
+    plain version: 0 kernel launches."""
+    from lstm_unet_tpu_torch.ops.kernels import lstm_gates
+
+    dt, sdt = GATE_CASES[dtypes]
+    gen = torch.Generator().manual_seed(5)
+    cell = ConvLSTMCell(3, 16, 64, generator=gen)
+    scales = {"s/x": 2.7, "s/h": 0.9} if static else None
+    qc = QConvLSTMCell(cell, scales, "s")
+    r = np.random.default_rng(6)
+    x = _t(r.normal(0, 1, (1, 32, 48, 16)), dt)
+    h = _t(r.uniform(-0.9, 0.9, (1, 32, 48, 64)), sdt)
+    c = _t(r.normal(0, 1.5, (1, 32, 48, 64)), sdt)
+    wx, wh = quant.QWeight(cell.kernel_x, cell.bias), quant.QWeight(cell.kernel_h, None)
+    assert qc.wh.gates and not wh.gates
+    act = "hard_sigmoid" if static and with_out else "sigmoid"
+    with torch.no_grad():
+        gates = (quant.conv2d_q(x, wx, qc.x_scale, dt) + quant.conv2d_q(h, wh, qc.h_scale, dt))
+        c_want, h_want = lstm_gates.lstm_gate_update_plain(gates, c, act)
+        out = (torch.empty_like(h), torch.empty_like(c)) if with_out else None
+        reset_counts()
+        (h_new, c_new), y = qc((h, c), x, recurrent_activation=act, out=out)
+    ran = counts()
+    assert ran["conv2d_int8_wgmma_gates"] == {"kernel": 0, "plain": 1}
+    assert ran["lstm_gate_update"]["kernel"] == 0
+    assert h_new.dtype == c_new.dtype == sdt and y is h_new
+    if with_out:
+        assert h_new is out[0] and c_new is out[1]
+    assert torch.equal(h_new, h_want) and torch.equal(c_new, c_want)
+
+
+def _within_one_bf16_ulp(got: torch.Tensor, want) -> None:
+    """``got`` (bf16) within 1e-6 (the f32 gate math's rounding, as with f32
+    states) plus one bf16 unit in the last place, 2^(e - 7) at exponent e,
+    of ``want`` (the reference's, bf16)."""
+    want = np.asarray(want).astype(np.float32)
+    ulp = np.exp2(np.floor(np.log2(np.maximum(np.abs(want), 2.0 ** -126))) - 7)
+    assert (np.abs(got.float().numpy() - want) <= ulp + 1e-6).all()
+
+
+@pytest.mark.parametrize("static", [False, True])
+@pytest.mark.parametrize("dtypes", list(GATE_CASES))
+def test_unfused_int8_gate_route_matches_reference(dtypes, static, monkeypatch):
+    """The gate epilogue's route (F = 64, 3x3, a frame of 16 x 32) against
+    the reference's unfused int8 cell on the same inputs, with its XLA gate
+    update and with its K1 Pallas kernel interpreted: the same int32 sums
+    and gate pre-activations, so a state in f32 agrees to f32 rounding
+    (1e-6: tanh and the sigmoid differ in the last bits) and one in bf16 to
+    one more bf16 unit in the last place, for each (gate, state) dtype pair,
+    static and dynamic scales."""
+    dt, sdt = GATE_CASES[dtypes]
+    r = np.random.default_rng(9)
+    kx = r.uniform(-0.1, 0.1, (3, 3, 16, 256)).astype(np.float32)
+    kh = r.uniform(-0.05, 0.05, (3, 3, 64, 256)).astype(np.float32)
+    bias = r.normal(0, 0.3, 256).astype(np.float32)
+    x = _t(r.normal(0, 1, (1, 16, 32, 16)), dt)
+    h = _t(r.uniform(-0.9, 0.9, (1, 16, 32, 64)), sdt)
+    c = _t(r.normal(0, 1.5, (1, 16, 32, 64)), sdt)
+    scales = {"s/x": 2.7, "s/h": 0.9} if static else None
+    jcell = jq._quantize_lstm_dict({"kernel_x": jnp.asarray(kx), "kernel_h": jnp.asarray(kh),
+                                    "bias": jnp.asarray(bias)}, scales, "s")
+    cell = ConvLSTMCell(3, 16, 64)
+    cell.load_state_dict({"kernel_x": _hwio_to_oihw(kx), "kernel_h": _hwio_to_oihw(kh),
+                          "bias": _t(bias)})
+    qc = QConvLSTMCell(cell, scales, "s")
+    assert qc.wh.gates and (qc.h_scale is None) != static
+    with torch.no_grad():
+        reset_counts()
+        (h_new, c_new), _ = qc((h, c), x)
+    assert counts()["conv2d_int8_wgmma_gates"] == {"kernel": 0, "plain": 1}
+    for pallas in (False, True):
+        monkeypatch.setattr(jax_lg, "FORCE_INTERPRET", pallas)
+        (hj, cj), _ = JaxCell.apply(jcell, (_j(h), _j(c)), _j(x), use_pallas=pallas,
+                                    fused_cell=False)
+        for got, want in ((h_new, hj), (c_new, cj)):
+            if sdt == torch.float32:
+                np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6)
+            else:
+                _within_one_bf16_ulp(got, want)
+
+
+def test_gate_epilogue_wrapper_checks():
+    """``conv2d_int8_wgmma_gates`` refuses an ``out`` that aliases an input,
+    a pack that is not a gate pack, and mismatched h and c (so does a cell
+    on a gate pack); ``conv2d_q`` refuses a gate pack, which runs only with
+    the gate epilogue."""
+    cell = ConvLSTMCell(3, 16, 64, generator=torch.Generator().manual_seed(2))
+    qc = QConvLSTMCell(cell)
+    h, c = torch.zeros(1, 8, 8, 64), torch.zeros(1, 8, 8, 64)
+    gx = torch.zeros(1, 8, 8, 256)
+    args = (None, qc.wh.packed, qc.wh.gate_scale, gx, c, 3)
+    h2, c2 = conv_int8.conv2d_int8_wgmma_gates(h, *args)
+    assert h2.shape == c2.shape == h.shape
+    with pytest.raises(ValueError, match="alias"):
+        conv_int8.conv2d_int8_wgmma_gates(h, *args, out=(h, torch.empty_like(c)))
+    with pytest.raises(ValueError, match="alias"):
+        conv_int8.conv2d_int8_wgmma_gates(h, *args, out=(torch.empty_like(h), c))
+    with pytest.raises(ValueError, match="like h"):
+        conv_int8.conv2d_int8_wgmma_gates(h.bfloat16(), *args)
+    natural = conv_int8.pack_weight_wgmma(qc.kernel_h_q, tile_n=128)
+    with pytest.raises(ValueError, match="256-column"):
+        conv_int8.conv2d_int8_wgmma_gates(h, None, natural, qc.wh.w_scale, gx, c, 3)
+    with pytest.raises(ValueError, match="gate epilogue"):
+        quant.conv2d_q_gates(h, quant.QWeight(cell.kernel_h, None), None, gx, c)
+    with torch.no_grad(), pytest.raises(ValueError, match="like h"):
+        qc((h.bfloat16(), c), gx[..., :16])
+    with pytest.raises(ValueError, match="conv2d_q_gates"):
+        quant.conv2d_q(h, qc.wh)
 
 
 # ---------------------------------------------------------------- scales file
