@@ -10,14 +10,12 @@ Phases, each of which raises (exit != 0) when it fails:
      shapes (K1 also at its training levels at B = 5 and 8), with its
      tolerance; times from CUDA events; K1's library call (PyTorch's fused
      LSTM cell, ``aten::_thnn_fused_lstm_cell``, which the port never calls)
-     held to K1 and timed beside it. K4 has four
-     routes: the bf16 tensor-core kernel and the f32 one (3xTF32), each at
-     all four flagship levels; the narrow kernel (bf16 and 3xTF32) at 512^2
-     F = 32 and 96 5x5 and F = 64 7x7 and at the tiny model's levels (32^2
-     F = 8, 16^2 F = 16, 3x3, B = 1 and 2), with the SIMT kernel it replaced
-     there (f32, called directly: no route sends it these levels) timed
-     beside it; each with cuDNN's h-conv + add + K1 in the same dtype timed
-     beside it as the yardstick the port does not call, and its bound; then
+     held to K1 and timed beside it. K4 has three routes: the bf16
+     tensor-core kernel and the f32 one (3xTF32), each at all four flagship
+     levels; the narrow kernel (bf16 and 3xTF32) at 512^2 F = 32 and 96 5x5
+     and F = 64 7x7 and at the tiny model's levels (32^2 F = 8, 16^2 F = 16,
+     3x3, B = 1 and 2); each with cuDNN's h-conv + add + K1 in the same dtype
+     timed beside it as the yardstick the port does not call, and its bound; then
      one flagship step with the fused cell against the
      unfused one, in f32 and in bf16. K3 has two routes (the cluster kernel,
      which takes the flagship's 512^2 frame, and the grid kernel for frames
@@ -75,7 +73,7 @@ Phases, each of which raises (exit != 0) when it fails:
      once and replayed at every later frame) against
      ``tests/golden/masks`` (f32: 0 px per frame), with
      the fused cell off and on (f32: the tiny levels take K4's narrow
-     route, 3xTF32, and the SIMT kernel never),
+     route, 3xTF32),
      then a 1024^2 sequence, whose frames take K3's grid route, against the
      same run on the CPU;
   e. the flagship model (512^2, random weights from a seed) through
@@ -192,11 +190,11 @@ The last two lines are a JSON kernel summary (the loop kernels
 beside; K3's two routes as ``ccl`` and
 ``ccl_grid``; ``conv2d_int8_wgmma`` summed over the 24 convs of one unfused
 int8 frame it takes, with each shape beside; ``conv2d_int8_smallk`` at the
-cin = 1 site, its B = 4 and tiny rows beside; ``conv2d_int8`` and the SIMT
-K4 ``fused_convlstm_level``, which no main path launches any more, at the
-shapes they served, launches 0; K4's narrow route at 512^2 F = 32 bf16,
-every timed shape beside; K4's tensor-core routes and the int8 routes with
-their rows at B > 1 under ``batched``) and the device JSON. The build fails
+cin = 1 site, its B = 4 and tiny rows beside; ``conv2d_int8``, which no
+main path launches, at the shapes it served, launches 0; K4's narrow route
+at 512^2 F = 32 bf16, every timed shape beside; K4's tensor-core routes and
+the int8 routes with their rows at B > 1 under ``batched``) and the device
+JSON. The build fails
 if ptxas reports spills for a tensor-core kernel (K4's bf16, 3xTF32 and
 narrow entries, the int8 conv's wgmma and small-K entries).
 """
@@ -219,9 +217,9 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(HERE, "tests", "golden")
 # the frozen recipe of tests/golden/make_golden.py
 GOLDEN_DATA = dict(num_frames=8, height=32, width=32, num_cells=3, seed=123)
-# H100 SXM peaks (NVIDIA data sheet, dense): bytes/s of HBM3, f32 FLOP/s on
-# the SIMT units, bf16 and TF32 FLOP/s on the tensor cores
-HBM_BPS, F32_FLOPS, BF16_FLOPS, TF32_FLOPS = 3.35e12, 67e12, 989e12, 495e12
+# H100 SXM peaks (NVIDIA data sheet, dense): bytes/s of HBM3, bf16 and TF32
+# FLOP/s on the tensor cores
+HBM_BPS, BF16_FLOPS, TF32_FLOPS = 3.35e12, 989e12, 495e12
 INT8_OPS = 1979e12
 # flagship ConvLSTM levels: (H = W, F), 5x5
 FLAGSHIP_LEVELS = ((512, 128), (256, 256), (128, 256), (64, 512))
@@ -838,9 +836,6 @@ def phase_k4(torch, g):
     from lstm_unet_tpu_torch.ops.kernels import _build, convlstm_cell, lstm_gates
 
     lib = _build.library()
-    for k, feat in ((5, 128), (3, 8), (3, 16)):
-        if lib.lut_convlstm_level_smem(k, feat) != convlstm_cell.smem_bytes(k, feat):
-            raise AssertionError(f"K4 SIMT smem formula differs at {k}x{k} F={feat}")
     for k in convlstm_cell.TC_KERNEL_SIZES:
         if lib.lut_convlstm_level_wgmma_smem(k) != convlstm_cell.wgmma_smem_bytes(k):
             raise AssertionError(f"K4 tensor-core smem formula differs at {k}x{k}")
@@ -941,16 +936,14 @@ TINY_LEVELS = ((1, 32, 8, 3), (2, 32, 8, 3), (1, 16, 16, 3), (2, 16, 16, 3))
 
 def phase_k4_narrow(torch, g):
     """(c), K4's narrow route (the levels the 64-feature tensor-core tiles do
-    not take) and the SIMT kernel it replaced there: at the three 512^2
-    shapes and the tiny model's levels, in bf16 and in f32 (3xTF32), against
-    the plain version; per shape the narrow kernel's time on a kept pack,
-    the SIMT kernel's (f32; called directly: the route no longer sends it
-    these levels), the unfused cell's cuDNN h-conv + add + K1 in the same
-    dtype (the yardstick the port does not call), the plain version's, and
-    the bound. Returns the narrow and SIMT summaries."""
+    not take): at the three 512^2 shapes and the tiny model's levels, in
+    bf16 and in f32 (3xTF32), against the plain version; per shape the
+    narrow kernel's time on a kept pack, the unfused cell's cuDNN h-conv +
+    add + K1 in the same dtype (the yardstick the port does not call), the
+    plain version's, and the bound. Returns the narrow summary."""
     from lstm_unet_tpu_torch.ops.kernels import convlstm_cell, lstm_gates
 
-    rows, simt_rows, errs, simt_errs = [], [], [], []
+    rows, errs = [], []
     for b, hw, feat, k in NARROW_SHAPES + TINY_LEVELS:
         flops = 2 * b * hw * hw * k * k * feat * 4 * feat
         for dt in (torch.bfloat16, torch.float32):
@@ -959,12 +952,11 @@ def phase_k4_narrow(torch, g):
                                      f"the narrow kernel")
             ins = k4_inputs(torch, g, b, hw, feat, k, dt, dt)
             tol = k4_tolerance(torch, k, feat, dt)
-            wants = {}
             for act in ("sigmoid", "hard_sigmoid"):
                 got = convlstm_cell.fused_convlstm_level(*ins, act)
-                wants[act] = convlstm_cell.fused_convlstm_level_plain(*ins, act)
+                want = convlstm_cell.fused_convlstm_level_plain(*ins, act)
                 errs.append(check_close(f"K4 narrow B={b} {hw}^2 F={feat} {k}x{k} {dt} {act}",
-                                        got, wants[act], *tol))
+                                        got, want, *tol))
             gx, h, c, wh = ins
             packed = convlstm_cell.pack_for_route(wh, "narrow")
             iters = 10 if hw == 512 else 50
@@ -979,34 +971,16 @@ def phase_k4_narrow(torch, g):
             row = dict(shape=f"B{b} {hw}^2 F={feat} {k}x{k} {str(dt)[6:]}", max_abs_err=errs[-1],
                        ms=ms, plain_ms=plain, bound_ms=bd[0], bound_by=bd[1],
                        share=bd[0] / ms, unfused_ms=alt)
-            extra = ""
-            if dt == torch.float32:
-                simt = time_ms(lambda: convlstm_cell.simt_level(*ins), 3 if hw == 512 else iters)
-                simt_errs.append(check_close(f"K4 SIMT B={b} {hw}^2 F={feat} {k}x{k}",
-                                             convlstm_cell.simt_level(*ins), wants["sigmoid"],
-                                             *tol))
-                sbd = bound(nbytes, flops, F32_FLOPS)
-                row.update(simt_ms=simt, simt_bound_ms=sbd[0])
-                simt_rows.append(dict(shape=row["shape"], max_abs_err=simt_errs[-1], ms=simt,
-                                      plain_ms=plain, bound_ms=sbd[0], bound_by=sbd[1]))
-                extra = f"; SIMT {simt:.4f} ms (its f32 bound {sbd[0]:.4f})"
             rows.append(row)
             log(f"K4 narrow {row['shape']}: max_abs_err={errs[-1]:.3g} (atol {tol[0]:.3g}, rtol "
                 f"{tol[1]:.3g}); kernel {ms:.4f} ms ({100 * row['share']:.1f}% of the "
                 f"{bd[0]:.4f} ms bound, {bd[1]}), cuDNN h-conv + add + K1 {alt:.4f} ms, plain "
-                f"{plain:.3f} ms{extra}")
-            del ins, gx, h, c, wh, packed, got, wants
+                f"{plain:.3f} ms")
+            del ins, gx, h, c, wh, packed, got, want
             torch.cuda.empty_cache()
-    narrow = dict(rows[0], max_abs_err=max(errs), shapes=rows)
+    narrow = dict(rows[0], max_abs_err=max(errs), shapes=rows, library_ms=None)
     narrow.pop("shape")
-    # the SIMT kernel served the tiny model's levels until this route: its
-    # row is tiny level 0 (B = 1, 32^2, F = 8), the others beside it
-    simt = dict(next(r for r in simt_rows if r["shape"].startswith("B1 32^2")),
-                max_abs_err=max(simt_errs), shapes=simt_rows)
-    simt.pop("shape")
-    for r in (narrow, simt):
-        r["library_ms"] = None
-    return {"fused_convlstm_level_narrow": narrow, "fused_convlstm_level": simt}
+    return {"fused_convlstm_level_narrow": narrow}
 
 
 def library_k1(torch, gates, c):
@@ -1515,7 +1489,7 @@ def phase_fused_vs_unfused(torch, dtype):
         s1, l1 = model.step(state, frame)
         ran = kernels.counts()
     tc = "fused_convlstm_level_tf32x3" if dtype == "float32" else "fused_convlstm_level_wgmma"
-    want = {k: 4 if k == tc else 0 for k in ("fused_convlstm_level", "fused_convlstm_level_wgmma",
+    want = {k: 4 if k == tc else 0 for k in ("fused_convlstm_level_wgmma",
                                               "fused_convlstm_level_tf32x3",
                                               "fused_convlstm_level_narrow")}
     if any(ran[k]["kernel"] != n for k, n in want.items()):
@@ -1670,8 +1644,7 @@ def phase_conv_int8(torch):
         # the route the model takes, from bf16 x, against the plain quantize + conv
         weight = quant.QWeight(kq.float(), bias)
         weight.w_scale.copy_(w_scale)
-        if not torch.equal(weight.kernel_q, kq) or weight.packed.dim() != {"wgmma": 7,
-                                                                            "smallk": 4}[rt]:
+        if not torch.equal(weight.kernel_q, kq) or weight.route != rt:
             raise AssertionError(f"int8 site {row['shape']}: the weights or route changed")
         got = quant.conv2d_q(x, weight, None, torch.bfloat16)
         qx, s_x = quant.quantize_act(x)
@@ -2169,7 +2142,7 @@ def smallk_site(torch, g, b, hw, cin, k, cout, into=None):
     x = (torch.randn(b, hw, hw, cin, device="cuda", generator=g) * ranges).to(torch.bfloat16)
     weight = quant.QWeight(kq.float(), bias)
     weight.w_scale.copy_(w_scale)
-    if weight.packed.dim() != 4 or not torch.equal(weight.kernel_q, kq):
+    if weight.route != "smallk" or not torch.equal(weight.kernel_q, kq):
         raise AssertionError(f"int8 site {cin}->{cout} {k}x{k}: not the small-K pack")
     packed = weight.packed
     shape = f"B{b} {hw}^2 {cin}->{cout} {k}x{k}"
@@ -2251,7 +2224,7 @@ def replayed(name, before, steps):
 def phase_golden(torch, work):
     """(d): the golden sequence in f32, fused cell off, then on (the tiny
     model's levels, F = 8 and 16, take K4's narrow route, 3xTF32: 2 per
-    frame, and the SIMT kernel none)."""
+    frame)."""
     from lstm_unet_tpu_torch.cli.inference2d import main as cli_main
     from lstm_unet_tpu_torch.io.synthetic import write_ctc_dataset
     from lstm_unet_tpu_torch.io.tiff import read_tiff
@@ -2269,18 +2242,17 @@ def phase_golden(torch, work):
                       "--pre_sequence_frames", "2", "--min_cell_size", "5",
                       "--dtype", "float32", *(["--fused_cell"] if fused else [])])
         after = kernels.counts()
-        narrow, simt = (after[k]["kernel"] - before[k]["kernel"]
-                        for k in ("fused_convlstm_level_narrow", "fused_convlstm_level"))
+        narrow = (after["fused_convlstm_level_narrow"]["kernel"]
+                  - before["fused_convlstm_level_narrow"]["kernel"])
         if n != len(want_paths) or n == 0:
             raise AssertionError(f"golden: wrote {n} masks, expected {len(want_paths)}")
-        if narrow != (2 * (n + 2) if fused else 0) or simt != 0:
-            raise AssertionError(f"golden fused_cell={fused}: {narrow} narrow and {simt} SIMT "
-                                 f"K4 launches")
+        if narrow != (2 * (n + 2) if fused else 0):
+            raise AssertionError(f"golden fused_cell={fused}: {narrow} narrow K4 launches")
         replays = replayed(f"golden fused_cell={fused}", graphs, n + 2)
         # f32 is held to the golden masks exactly
         diffs = compare_dirs(f"golden fused_cell={fused}", out, os.path.join(GOLDEN, "masks"), 0)
         log(f"golden masks on the card, f32 fused_cell={fused}: differing px per frame "
-            f"{diffs} (bar: 0 px); K4 launches: narrow {narrow}, SIMT {simt}; the step "
+            f"{diffs} (bar: 0 px); K4 narrow launches {narrow}; the step "
             f"captured once, replayed {replays} times")
 
     # frames too large for K3's cluster route: the same model on a 1024^2
@@ -2352,8 +2324,8 @@ def phase_flagship(torch, work, card):
         tc = ("fused_convlstm_level_tf32x3" if dtype == "float32"
               else "fused_convlstm_level_wgmma")
         k4 = {k: 4 * steps if fused and k == tc else 0
-              for k in ("fused_convlstm_level", "fused_convlstm_level_wgmma",
-                        "fused_convlstm_level_tf32x3", "fused_convlstm_level_narrow")}
+              for k in ("fused_convlstm_level_wgmma", "fused_convlstm_level_tf32x3",
+                        "fused_convlstm_level_narrow")}
         k1 = 4 * steps - sum(k4.values())
         k3 = (2 if split else 1) * steps
         if (d["ccl"]["kernel"] != k3 or d["ccl_grid"]["kernel"] != 0
@@ -2399,8 +2371,7 @@ def phase_golden_int8(torch, work):
                 per = (5, 2) if fused else (6, 3)
                 want = {"conv2d_int8_smallk": (n + 2) * per[0],
                         "conv2d_int8_wgmma": (n + 2) * per[1], "conv2d_int8": 0,
-                        "fused_convlstm_level_narrow": (n + 2) * (2 if fused else 0),
-                        "fused_convlstm_level": 0}
+                        "fused_convlstm_level_narrow": (n + 2) * (2 if fused else 0)}
                 got = {k: ran[k] for k in want}
                 if n != 8 or got != want:
                     raise AssertionError(f"golden int8 {tag}: {n} masks, int8 conv launches "
@@ -2455,8 +2426,7 @@ def phase_flagship_int8(torch, work, card):
                 "conv2d_int8_wgmma": (20 if fused else 24) * steps,
                 "conv2d_int8_wgmma_gates": (0 if fused else 4) * steps,
                 "fused_convlstm_level_wgmma": (4 if fused else 0) * steps,
-                "lstm_gate_update": 0, "ccl": steps,
-                "fused_convlstm_level": 0, "fused_convlstm_level_tf32x3": 0,
+                "lstm_gate_update": 0, "ccl": steps, "fused_convlstm_level_tf32x3": 0,
                 "fused_convlstm_level_narrow": 0, "ccl_grid": 0}
         got = {k: d[k]["kernel"] for k in want}
         if n != 8 or got != want or any(v["plain"] for v in d.values()):
@@ -2669,7 +2639,7 @@ def phase_golden_surface(torch, work):
                     want = {"conv2d_int8_smallk": per[0] * steps,
                             "conv2d_int8_wgmma": per[1] * steps, "conv2d_int8": 0,
                             "fused_convlstm_level_narrow": (2 if fused else 0) * steps,
-                            "fused_convlstm_level": 0, "ccl": steps}
+                            "ccl": steps}
                 got = {k: ran[k] for k in want}
                 if n != frames or got != want:
                     raise AssertionError(f"golden {tag}: {n} masks, launches {got}, "
@@ -3396,7 +3366,8 @@ def mesh_rank(rank, device, work, frames_dir, m3_seqs):
     from lstm_unet_tpu_torch.config import InferenceParams
     from lstm_unet_tpu_torch.engine.infer import StreamingInferenceEngine, run_inference_batched
     from lstm_unet_tpu_torch.io.dataset import CTCInferenceReader
-    from lstm_unet_tpu_torch.ops import convlstm, kernels, quant
+    from lstm_unet_tpu_torch.ops import convlstm, kernels
+    from lstm_unet_tpu_torch.ops.kernels import conv_int8
 
     kernels.reset_counts()
     out = {}
@@ -3427,8 +3398,8 @@ def mesh_rank(rank, device, work, frames_dir, m3_seqs):
         setattr(mod, name, rec)
 
     recording(convlstm, "fused_convlstm_level", "k4")
-    recording(quant, "conv2d_int8_wgmma", "int8")
-    recording(quant, "conv2d_int8_smallk", "int8")
+    recording(conv_int8, "conv2d_int8_wgmma", "int8")
+    recording(conv_int8, "conv2d_int8_smallk", "int8")
     frames = [f for _, f in CTCInferenceReader(frames_dir, pre_sequence_frames=0,
                                                normalize=False)][:M2_FRAMES]
     frame = torch.rand(1, 512, 512, 1, device=device,
@@ -3777,10 +3748,10 @@ def main() -> int:
         # (m): the meshes, two ranks sharing the card, counted from 0 on the ranks
         phase_mesh(torch, work, smi, launched)
     phase_train_vs_plain(torch)
-    # the kernels the narrow K4 and the small-K int8 routes replaced are held
-    # against their plain versions and timed in (c) and (c3), and no main
-    # path launches them; every other kernel runs on one
-    retired = ("fused_convlstm_level", "conv2d_int8")
+    # the kernel the small-K int8 route replaced is held against its plain
+    # version and timed in (c3), and no main path launches it; every other
+    # kernel runs on one
+    retired = ("conv2d_int8",)
     for k, v in launched.items():
         if (v["kernel"] == 0) != (k in retired) or v["plain"] != 0:
             raise AssertionError(f"main paths: {k} launched {v['kernel']} times, "
@@ -3795,8 +3766,6 @@ def main() -> int:
                        "lstm_unet_tpu/ops/pallas/ccl.py:94"),
                "ccl_grid": ("lstm_unet_tpu_torch/csrc/ccl.cu",
                             "lstm_unet_tpu/ops/pallas/ccl.py:94"),
-               "fused_convlstm_level": ("lstm_unet_tpu_torch/csrc/convlstm_cell.cu",
-                                        "lstm_unet_tpu/ops/pallas/convlstm_cell.py:140"),
                "fused_convlstm_level_wgmma": ("lstm_unet_tpu_torch/csrc/convlstm_wgmma.cu",
                                               "lstm_unet_tpu/ops/pallas/convlstm_cell.py:140"),
                "fused_convlstm_level_tf32x3": ("lstm_unet_tpu_torch/csrc/convlstm_wgmma.cu",

@@ -4,17 +4,16 @@
 // bf16 or in f32 as 3xTF32.
 //
 // Replaces lstm_unet_tpu/ops/pallas/convlstm_cell.py::fused_convlstm_level
-// (_kernel) at those levels, where convlstm_cell.cu's SIMT kernel ran. Same
-// function: the KxK SAME recurrent conv of h [B,H,W,F] (rounded to the
+// (_kernel) at those levels. Same function: the KxK SAME recurrent conv of h [B,H,W,F] (rounded to the
 // compute dtype) with Wh, exact products and f32 sums, plus gx [B,H,W,4F],
 // then the gate math; only h' and c' are written, in the state dtype.
 //
 // Bound: operations at every 512^2 level it was built for (e.g. F = 32, 5x5:
 // 54 GFLOP against 134 MB of bf16 traffic; 0.054 ms at 989 TFLOP/s bf16,
 // 0.33 ms as 3xTF32 at 495); the tiny model's 32^2 levels are bound by the
-// cost of a launch. The SIMT kernel gave each lane one feature of a
-// 32-feature slice (24 of 32 lanes idle at F = 8), ran every product on the
-// f32 SIMT units and needed 20 shared loads per 64 FMAs. Here:
+// cost of a launch. One feature a lane of a 32-feature slice on the f32
+// CUDA cores would leave 24 of 32 lanes idle at F = 8 and need 20 shared
+// loads per 64 FMAs. Here:
 //  - a tile is R output rows x 64 pixels x FT features, FT = 32, 16 or 8
 //    (the largest that divides F): N = 4 FT gate columns, one
 //    wgmma.m64nNk16 (bf16) or m64nNk8 (tf32) per row, tap and k step; each

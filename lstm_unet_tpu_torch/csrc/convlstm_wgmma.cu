@@ -2,10 +2,10 @@
 // as 3xTF32.
 //
 // Replaces lstm_unet_tpu/ops/pallas/convlstm_cell.py::fused_convlstm_level
-// (_kernel). Same function as convlstm_cell.cu: the KxK SAME recurrent conv
-// of h [B,H,W,F] (rounded to the compute dtype) with Wh, exact products and
-// f32 sums, plus gx [B,H,W,4F], then the gate math; only h' and c' are
-// written, in the state dtype (bf16 or f32).
+// (_kernel): the KxK SAME recurrent conv of h [B,H,W,F] (rounded to the
+// compute dtype) with Wh, exact products and f32 sums, plus gx [B,H,W,4F],
+// then the gate math; only h' and c' are written, in the state dtype (bf16
+// or f32).
 //
 // Bound: operations. Flagship level 0 (512^2, F = 128, 5x5) is 0.86 TFLOP
 // per frame against ~0.5 GB (bf16) or ~1 GB (f32) of traffic (0.15-0.3 ms).
@@ -14,7 +14,7 @@
 // so each operand is split as x = hi + lo, hi = tf32(x), lo = tf32(x - hi),
 // and each product taken as hi*lo + lo*hi + hi*hi (3xTF32; the dropped lo*lo
 // and the rounding of lo are ~2^-21 relative): three TF32 products at 495
-// TFLOP/s, 5.21 ms at level 0, against 12.8 ms for f32 on the SIMT units.
+// TFLOP/s, 5.21 ms at level 0, against 12.8 ms for f32 on the CUDA cores.
 // So the conv runs as an implicit GEMM on the tensor cores -- M = output
 // pixels, N = 4F gate columns, K = K*K*F (tap x input channel) -- and the
 // gate update is its epilogue, in registers.

@@ -12,10 +12,11 @@ fused kernel (K4) with the x-conv + bias computed outside: its
 tensor-core routes take every level with F % 64 == 0 at K in {1, 3, 5} (all
 four of the flagship model; bf16 as bf16, f32 as 3xTF32), its narrow route
 the other levels with F % 8 == 0 at K up to 7 (the tiny model's), on Wh
-packed once and kept by the cell; its SIMT route what is left. Otherwise the two convs run on
-cuDNN and the gate math in :func:`lstm_gate_update` (forward K1, backward
-K2). On the CPU both routes take the kernels' plain versions. The fused route
-is inference-only, as in the reference: under grad the fused kernel raises.
+packed once and kept by the cell. Otherwise (and at every level K4 does not
+take, as the reference) the two convs run on cuDNN and the gate math in
+:func:`lstm_gate_update` (forward K1, backward K2). On the CPU both routes
+take the kernels' plain versions. The fused route is inference-only, as in
+the reference: under grad the fused kernel raises.
 
 :class:`QConvLSTMCell` is the int8 cell (``ops/quant.py``), with the
 reference's two routes: fused, ``gx = conv2d_q(x)`` with the bias in x's

@@ -25,7 +25,6 @@ KERNELS = {
     "lstm_gate_update_bwd": lstm_gates.BWD_COUNT,   # K2
     "ccl": ccl.COUNT,                               # K3, cluster route
     "ccl_grid": ccl.GRID_COUNT,                     # K3, grid route
-    "fused_convlstm_level": convlstm_cell.COUNT,    # K4, SIMT route
     "fused_convlstm_level_wgmma": convlstm_cell.WGMMA_COUNT,  # K4, bf16 tensor cores
     "fused_convlstm_level_tf32x3": convlstm_cell.TF32X3_COUNT,  # K4, f32 as 3xTF32
     "fused_convlstm_level_narrow": convlstm_cell.NARROW_COUNT,  # K4, narrow levels

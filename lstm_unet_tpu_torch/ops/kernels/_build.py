@@ -46,9 +46,6 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     "lut_gate_update": ([_P, _P, _P, _P, _LL, _I, _I, _I, _I, _P], _I),
     "lut_gate_update_bwd": ([_P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _P], _I),
-    "lut_convlstm_level": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                            _I, _P], _I),
-    "lut_convlstm_level_smem": ([_I, _I], _LL),
     "lut_convlstm_level_wgmma": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                   _I, _P], _I),
     "lut_convlstm_level_wgmma_smem": ([_I], _LL),

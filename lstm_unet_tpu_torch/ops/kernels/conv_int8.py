@@ -42,6 +42,12 @@ launch count:
   tiny model), on an int8 ``xq`` from :func:`quantize_act`; weights packed
   once by :func:`pack_weight`.
 
+This module alone knows the packs: :func:`pack_site` chooses a kernel's
+route and packs it for that route (in the gate order where the gate
+epilogue takes it), :func:`unpack_site` gives the kernel back, and
+:func:`conv2d_int8_site` runs a float activation through the route a pack
+was made for; their callers keep the route beside the pack.
+
 Each wrapper takes its plain version for CPU tensors and launches its kernel
 for CUDA tensors. The plain versions are exact on both devices, so kernels
 and plain versions are compared bit for bit: the sums by ``F.conv2d`` on
@@ -455,12 +461,13 @@ def _check_wgmma(x, scale, packed, w_scale, bias, k, out_dtype) -> None:
     if route(1, 1, cin, k, n) != "wgmma":
         raise ValueError(f"the wgmma route takes Cin % 16 == 0 and k in {WG_KERNEL_SIZES}, "
                          f"got Cin={cin} k={k}")
-    # the pack's own tile where it is one (a pack made with a tile_n), else cout's
-    t = packed.shape[5] if packed.dim() == 7 and packed.shape[5] in WG_STAGES else pack_tile_n(n)
-    want = (_ceil_to(n, t) // t, -(-cin // WG_CHUNK), k, k, WG_PLANES, t, 16)
-    if packed.dtype != torch.int8 or tuple(packed.shape) != want:
+    # a pack of any tile (pack_weight_wgmma's tile_n may override cout's)
+    wants = {t: (_ceil_to(n, t) // t, -(-cin // WG_CHUNK), k, k, WG_PLANES, t, 16)
+             for t in WG_STAGES}
+    if packed.dtype != torch.int8 or tuple(packed.shape) not in wants.values():
         raise ValueError(f"packed weight {tuple(packed.shape)} {packed.dtype} is not the "
-                         f"wgmma pack of a {k}x{k} kernel, Cin={cin}, N={n}: want {want}")
+                         f"wgmma pack of a {k}x{k} kernel, Cin={cin}, N={n}: want "
+                         f"{wants[pack_tile_n(n)]}")
     _check_common(scale, w_scale, bias, out_dtype, "conv2d_int8_wgmma")
     if len({t.device for t in _present(x, scale, packed, w_scale, bias)}) != 1:
         raise ValueError("x, the scale, the weights and the bias must be on one device")
@@ -526,13 +533,6 @@ def conv2d_int8_wgmma(x: torch.Tensor, scale: Optional[torch.Tensor], packed: to
 # whole features, so both N tiles run over the one pack.
 
 GATE_TILE = 256  # the gate pack's tile: all four gates of 64 features
-
-
-def gate_pack_takes(kernel_q: torch.Tensor) -> bool:
-    """Whether the gate epilogue takes an h-conv's OIHW int8 kernel: the
-    wgmma route and 4F a multiple of :data:`GATE_TILE` (F % 64 == 0: all
-    four levels of the flagship; not the tiny model's F = 8 and 16)."""
-    return weight_route(kernel_q) == "wgmma" and kernel_q.shape[0] % GATE_TILE == 0
 
 
 def gate_order(n: int, device=None) -> torch.Tensor:
@@ -755,3 +755,52 @@ def conv2d_int8_smallk(x: torch.Tensor, scale: Optional[torch.Tensor], packed: t
           "lut_conv2d_int8_smallk")
     SMALLK_COUNT.kernel += 1
     return y
+
+
+# ---------------------------------------------------------------- a site's pack
+
+_PACKS = {"wgmma": pack_weight_wgmma, "smallk": pack_weight_smallk, "mma_sync": pack_weight}
+
+
+def pack_site(kernel_q: torch.Tensor, gates: bool = False
+              ) -> Tuple[str, torch.Tensor, Optional[torch.Tensor]]:
+    """OIHW int8 ``kernel_q`` -> ``(route, pack, order)``: its site's route
+    (:func:`weight_route`) and the pack that route's kernel reads. An h-conv
+    (``gates``) that the gate epilogue takes (the wgmma route and 4F a
+    multiple of :data:`GATE_TILE`: F % 64 == 0, all four flagship levels, not
+    the tiny model's F = 8 and 16) is packed with its output channels in
+    :func:`gate_order`, returned as ``order``; else ``order`` is None."""
+    which = weight_route(kernel_q)
+    order = None
+    if gates and which == "wgmma" and kernel_q.shape[0] % GATE_TILE == 0:
+        order = gate_order(kernel_q.shape[0], kernel_q.device)
+        kernel_q = kernel_q[order]
+    return which, _PACKS[which](kernel_q), order
+
+
+def unpack_site(which: str, packed: torch.Tensor, shape: Tuple[int, int, int, int]
+                ) -> torch.Tensor:
+    """Inverse of :func:`pack_site`'s pack for route ``which``: the OIHW int8
+    kernel of ``shape`` (cout, cin, kh, kw), in the pack's column order."""
+    n, cin, kh, kw = shape
+    if which == "wgmma":
+        return unpack_weight_wgmma(packed, n, cin)
+    if which == "smallk":
+        return unpack_weight_smallk(packed, n, cin, kh, kw)
+    return unpack_weight(packed, n, cin, kh, kw)
+
+
+def conv2d_int8_site(which: str, x: torch.Tensor, scale: Optional[torch.Tensor],
+                     packed: torch.Tensor, w_scale: torch.Tensor,
+                     bias: Optional[torch.Tensor], kh: int, kw: int,
+                     out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``y [B,H,W,N]`` of the int8 conv of float ``x`` (quantized with
+    ``scale``, or dynamically with None) on route ``which``, on its pack
+    from :func:`pack_site`. The wgmma and small-K kernels quantize x as they
+    stage it; the mma_sync route runs :func:`quantize_act` first."""
+    if which == "wgmma":
+        return conv2d_int8_wgmma(x, scale, packed, w_scale, bias, kh, out_dtype)
+    if which == "smallk":
+        return conv2d_int8_smallk(x, scale, packed, w_scale, bias, kh, kw, out_dtype)
+    qx, s_x = quantize_act(x, scale)
+    return conv2d_int8(qx, s_x, packed, w_scale, bias, kh, kw, out_dtype)

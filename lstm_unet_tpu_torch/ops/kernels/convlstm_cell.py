@@ -9,7 +9,7 @@ Returns ``(h', c')`` — the reverse of K1's ``(c', h')`` — in h's and c's
 dtypes.
 
 The TPU kernel's limits (B = 1, F and W multiples of 128, H of 4, 5x5 only,
-its VMEM budget) were the TPU's. On the card :func:`route` picks one of four
+its VMEM budget) were the TPU's. On the card :func:`route` picks one of three
 kernels by dtype and shape, each with its own launch count:
 
 - ``"wgmma"`` (``csrc/convlstm_wgmma.cu``, :data:`WGMMA_COUNT`): bf16 compute
@@ -30,13 +30,9 @@ kernels by dtype and shape, each with its own launch count:
   (:func:`narrow_tile`) and input-channel chunks of the instruction's k;
   Wh goes in packed (:func:`pack_wh_narrow`, :func:`pack_wh_narrow_tf32x3`;
   the cells make the pack once and keep it).
-- ``"simt"`` (``csrc/convlstm_cell.cu``, :data:`COUNT`): what is left that
-  fits one block's shared memory — the halo'd h tile for all F channels plus
-  one Wh chunk within the 227 KB a Hopper block can use
-  (:func:`smem_bytes`): F not a multiple of 8 (no level of the flagship or
-  of the tiny model).
 
-A level no route takes raises; the cell checks :func:`supported` first.
+A level no route takes (F % 8 != 0, K > 7, a dtype but f32 and bf16) raises
+on every device; the cells check :func:`supported` and run it unfused.
 
 Inference only, as the reference (which defines no VJP for it): with grad
 mode on and any input requiring grad the wrapper raises, on every device,
@@ -56,14 +52,10 @@ from .lstm_gates import gate_math
 # K4's (h', c') outputs given by the caller, or None
 Carry = Optional[Tuple[torch.Tensor, torch.Tensor]]
 
-COUNT = _build.LaunchCount()         # the SIMT route
 WGMMA_COUNT = _build.LaunchCount()   # the bf16 tensor-core route
 TF32X3_COUNT = _build.LaunchCount()  # the f32 tensor-core route (3xTF32)
 NARROW_COUNT = _build.LaunchCount()  # the narrow-level tensor-core route
 
-# block geometry of csrc/convlstm_cell.cu (SIMT route)
-TILE_H, TILE_W, FEAT_SLICE, CHUNK = 8, 16, 32, 4
-KERNEL_SIZES = (1, 3, 5, 7)
 SMEM_LIMIT = 232_448  # bytes of shared memory one Hopper block may use
 
 # block geometry of csrc/convlstm_wgmma.cu (tensor-core route): tiles of 2
@@ -75,7 +67,6 @@ TC_KERNEL_SIZES = (1, 3, 5)
 # columns), 16-channel chunks, each h tile and Wh stage as hi and lo planes of
 # 4 f32 channels, a 6-stage Wh ring
 TF32_FEAT, TF32_CHUNK, TF32_STAGES = 32, 16, 6
-GRID_LIMIT = 65535  # gridDim.z of the SIMT kernel
 # csrc/convlstm_narrow.cu: tiles of R rows (bf16 4: two M tiles a consumer
 # warpgroup; 3xTF32 2) x 64 pixels x FT features (32, 16 or 8), input-channel
 # chunks of the instruction's k (bf16 16 in 2 planes, 3xTF32 8 in 2 planes
@@ -86,13 +77,6 @@ NARROW_CHUNK = {torch.bfloat16: 16, torch.float32: 8}
 NARROW_PLANES = {torch.bfloat16: 2, torch.float32: 4}
 NARROW_ROWS = {torch.bfloat16: 4, torch.float32: 2}
 NARROW_STAGES = 4
-
-
-def smem_bytes(k: int, feat: int) -> int:
-    """Shared memory one SIMT block needs: the f32 halo'd h tile for all
-    ``feat`` channels plus one f32 Wh chunk (all taps, 4 gates, one slice)."""
-    return 4 * (feat * (TILE_H + k - 1) * (TILE_W + k - 1)
-                + k * k * CHUNK * 4 * FEAT_SLICE)
 
 
 def wgmma_smem_bytes(k: int) -> int:
@@ -138,21 +122,14 @@ def narrow_smem_bytes(k: int, tile: int, dtype: torch.dtype) -> int:
 def route(h: int, w: int, feat: int, k: int, batch: int,
           dtype: torch.dtype = torch.float32) -> Optional[str]:
     """The K4 kernel that takes a level of a square ``k`` x ``k`` kernel in
-    compute ``dtype``: ``"wgmma"``, ``"tf32x3"``, ``"narrow"``, ``"simt"``,
-    or None."""
-    if min(h, w, feat, batch) <= 0:
+    compute ``dtype``: ``"wgmma"``, ``"tf32x3"``, ``"narrow"``, or None."""
+    if min(h, w, feat, batch) <= 0 or dtype not in _build.DTYPES:
         return None
     if k in TC_KERNEL_SIZES and feat % TC_FEAT == 0:
-        if dtype == torch.bfloat16:
-            return "wgmma"
-        if dtype == torch.float32:
-            return "tf32x3"
-    if (k in NARROW_KERNEL_SIZES and feat % 8 == 0 and dtype in _build.DTYPES
+        return "wgmma" if dtype == torch.bfloat16 else "tf32x3"
+    if (k in NARROW_KERNEL_SIZES and feat % 8 == 0
             and narrow_smem_bytes(k, narrow_tile(feat), dtype) <= SMEM_LIMIT):
         return "narrow"
-    if (k in KERNEL_SIZES and batch * -(-feat // FEAT_SLICE) <= GRID_LIMIT
-            and smem_bytes(k, feat) <= SMEM_LIMIT):
-        return "simt"
     return None
 
 
@@ -163,13 +140,7 @@ def supported(h: int, w: int, feat: int, kh: int, kw: int, batch: int,
     return kh == kw and route(h, w, feat, kh, batch, dtype) is not None
 
 
-_COUNTS = {"simt": COUNT, "wgmma": WGMMA_COUNT, "tf32x3": TF32X3_COUNT,
-           "narrow": NARROW_COUNT}
-
-
-def _count(gx: torch.Tensor, h: torch.Tensor, wh: torch.Tensor) -> _build.LaunchCount:
-    b, hh, ww, feat = h.shape
-    return _COUNTS.get(route(hh, ww, feat, wh.shape[0], b, gx.dtype), COUNT)
+_COUNTS = {"wgmma": WGMMA_COUNT, "tf32x3": TF32X3_COUNT, "narrow": NARROW_COUNT}
 
 
 # ---------------------------------------------------------------- Wh pack
@@ -323,10 +294,13 @@ def fused_convlstm_level_plain(gx: torch.Tensor, h: torch.Tensor,
     """Plain PyTorch version of every route: the recurrent conv in f32 on the
     h rounded to wh's dtype (exact products, f32 sums, which the 3xTF32
     route matches to ~2^-21 relative per product), then the gate math.
-    Counted on the route the wrapper would take."""
-    _count(gx, h, wh).plain += 1
+    Counted on the route the wrapper takes (at a level no route takes, on
+    none)."""
+    b, hh, ww, feat = h.shape
     k = wh.shape[0]
-    feat = c.shape[-1]
+    count = _COUNTS.get(route(hh, ww, feat, k, b, gx.dtype))
+    if count is not None:
+        count.plain += 1
     hx = h.to(wh.dtype).float().permute(0, 3, 1, 2)
     acc = F.conv2d(hx, wh.float().permute(3, 2, 0, 1), padding=k // 2)
     z = acc.permute(0, 2, 3, 1) + gx.float()
@@ -346,8 +320,9 @@ def fused_convlstm_level(gx: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
     :func:`route` names (any other device raises). ``gx`` and ``wh`` share
     the compute dtype, ``h`` and ``c`` the state dtype, each float32 or
     bfloat16. ``gx``, ``h`` and ``c`` are contiguous; ``wh`` may be a view
-    (it is packed or made contiguous here, unless ``packed`` holds its
-    :func:`pack_for_route` pack, which the narrow route then takes).
+    (it is packed here, unless ``packed`` holds its :func:`pack_for_route`
+    pack, which the narrow route then takes). A level :func:`route` refuses
+    raises, on the CPU too.
     ``out``: two contiguous tensors like ``h`` and ``c``, aliasing no input,
     that receive ``(h', c')`` and are returned (the streaming step's
     buffers, ``engine/graph.py``).
@@ -368,6 +343,10 @@ def fused_convlstm_level(gx: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
             "fused_convlstm_level is inference-only (no backward, as in the "
             "reference): run it under torch.no_grad()/inference_mode, or train "
             "with fused_cell=False")
+    which = route(hh, ww, feat, k, b, gx.dtype)
+    if which is None:
+        raise ValueError(f"fused ConvLSTM kernel does not take {k}x{k}, F={feat}, "
+                         f"B={b}, {gx.dtype}; check supported() first")
     if h.device.type == "cpu":
         got = fused_convlstm_level_plain(gx, h, c, wh, recurrent_activation)
         if out is None:
@@ -377,28 +356,21 @@ def fused_convlstm_level(gx: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
         return out
     if h.device.type != "cuda":
         raise ValueError(f"no fused ConvLSTM kernel for device {h.device}")
-    if (gx.dtype != wh.dtype or h.dtype != c.dtype
-            or gx.dtype not in _build.DTYPES or h.dtype not in _build.DTYPES):
+    if gx.dtype != wh.dtype or h.dtype != c.dtype or h.dtype not in _build.DTYPES:
         raise TypeError(f"fused ConvLSTM kernel takes float32/bfloat16 with "
                         f"gx/wh and h/c dtypes equal, got gx {gx.dtype}, wh "
                         f"{wh.dtype}, h {h.dtype}, c {c.dtype}")
     if not all(t.is_contiguous() for t in (gx, h, c)):
         raise ValueError("fused ConvLSTM kernel needs contiguous gx, h and c")
-    which = route(hh, ww, feat, k, b, gx.dtype)
-    if which is None:
-        raise ValueError(f"fused ConvLSTM kernel does not take {k}x{k}, F={feat}, "
-                         f"B={b}, {gx.dtype}; check supported() first")
     if recurrent_activation not in _build.ACTIVATIONS:
         raise ValueError(f"unknown recurrent activation {recurrent_activation!r}")
     if which == "wgmma":
         return wgmma_level(gx, h, c, pack_wh(wh), k, recurrent_activation, out)
     if which == "tf32x3":
         return tf32x3_level(gx, h, c, pack_wh_tf32x3(wh), k, recurrent_activation, out)
-    if which == "narrow":
-        if packed is None:
-            packed = pack_for_route(wh, which)
-        return narrow_level(gx, h, c, packed, k, recurrent_activation, out)
-    return simt_level(gx, h, c, wh, recurrent_activation, out)
+    if packed is None:
+        packed = pack_for_route(wh, which)
+    return narrow_level(gx, h, c, packed, k, recurrent_activation, out)
 
 
 def _outputs(h: torch.Tensor, c: torch.Tensor, out: Carry) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -412,27 +384,6 @@ def _outputs(h: torch.Tensor, c: torch.Tensor, out: Carry) -> Tuple[torch.Tensor
             raise ValueError(f"out {tuple(t.shape)} {t.dtype} on {t.device} is not a "
                              f"contiguous tensor like {tuple(like.shape)} {like.dtype}")
     return out
-
-
-def simt_level(gx: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
-               wh: torch.Tensor, recurrent_activation: str = "sigmoid", out: Carry = None
-               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The SIMT launch, for CUDA tensors that :func:`fused_convlstm_level`
-    has checked (this entry also lets a caller time the SIMT kernel at a
-    level that :func:`route` sends to the tensor cores)."""
-    b, hh, ww, feat = h.shape
-    k = wh.shape[0]
-    h_out, c_out = _outputs(h, c, out)
-    wh = wh.contiguous()
-    with torch.cuda.device(h.device):
-        err = _build.library().lut_convlstm_level(
-            gx.data_ptr(), h.data_ptr(), c.data_ptr(), wh.data_ptr(),
-            h_out.data_ptr(), c_out.data_ptr(), b, hh, ww, feat, k,
-            _build.ACTIVATIONS[recurrent_activation], _build.DTYPES[gx.dtype],
-            _build.DTYPES[h.dtype], _build.stream_handle(h))
-    _build.check(err, "lut_convlstm_level")
-    COUNT.kernel += 1
-    return h_out, c_out
 
 
 def _tensor_core_level(entry: str, count: _build.LaunchCount, want, dtype: torch.dtype,

@@ -11,14 +11,13 @@ SAME zero padding stays exact:
 - conv: int8 x int8 -> exact int32 sums, dequantized in f32 as ``acc * (s_x *
   s_w) + bias`` and rounded once to the output dtype.
 
-:func:`conv2d_q` takes one of three kernels by the site's shape
-(``kernels/conv_int8.py::route``): the ``wgmma`` route (cin % 16 == 0) and
-the ``smallk`` route (a reduction of at most 256 bytes, such as the
-flagship's first x-conv) quantize the float activation inside the conv
-kernel (with a dynamic scale one abs-max pass stays outside it); the
-``mma_sync`` route (what neither takes) runs :func:`quantize_act` as plain
-tensor code, as the reference leaves it to XLA outside any Pallas kernel,
-then its kernel. On the CPU all take the plain versions:
+:func:`conv2d_q` runs a site on the route its :class:`QWeight` carries,
+which ``kernels/conv_int8.py::pack_site`` chose by the kernel's shape when
+it packed the weights. The kernels that take the model's sites quantize the
+float activation as they stage it (with a dynamic scale one abs-max pass
+stays outside the kernel); the route for what they do not take runs
+:func:`quantize_act` as plain tensor code first, as the reference leaves it
+to XLA outside any Pallas kernel. On the CPU all take the plain versions:
 :func:`quantize_act`, then the exact conv and the dequant.
 
 Under a ``split`` (``parallel/mesh.py::Split``) a dynamic scale stays the
@@ -46,11 +45,8 @@ from torch import nn
 
 from ..parallel.comm import all_reduce_
 from ..parallel.halo import on_extended_rows
-from .kernels.conv_int8 import (conv2d_int8, conv2d_int8_smallk, conv2d_int8_wgmma,
-                                 conv2d_int8_wgmma_gates, div127, gate_order, gate_pack_takes,
-                                 pack_weight, pack_weight_smallk, pack_weight_wgmma,
-                                 quantize_act, unpack_weight, unpack_weight_smallk,
-                                 unpack_weight_wgmma, weight_route)
+from .kernels import conv_int8
+from .kernels.conv_int8 import div127, quantize_act  # noqa: F401 (quantize_act re-exported)
 
 ActScales = Optional[Dict[str, float]]
 
@@ -91,61 +87,45 @@ def _site_kept(site: str, keep_float) -> bool:
     return False
 
 
-def _pack(kernel_q: torch.Tensor) -> torch.Tensor:
-    """The pack of an OIHW int8 kernel for its route's kernel."""
-    which = weight_route(kernel_q)
-    if which == "wgmma":
-        return pack_weight_wgmma(kernel_q)
-    if which == "smallk":
-        return pack_weight_smallk(kernel_q)
-    return pack_weight(kernel_q)
-
-
-def _unpack(packed: torch.Tensor, n: int, cin: int, kh: int, kw: int) -> torch.Tensor:
-    if packed.dim() == 2:  # pack_weight's [N_pad, K_pad]
-        return unpack_weight(packed, n, cin, kh, kw)
-    if packed.dim() == 4:  # pack_weight_smallk's [K steps, N tiles, 32, 8]
-        return unpack_weight_smallk(packed, n, cin, kh, kw)
-    return unpack_weight_wgmma(packed, n, cin)
-
-
 class QWeight(nn.Module):
-    """One int8 conv's weights: ``packed`` (the layout of its route's kernel,
-    made once), per-cout ``w_scale`` f32 and the optional f32 ``bias``;
-    ``kernel_q`` is the OIHW int8 kernel.
+    """One int8 conv's weights: ``route``, the kernel that
+    ``kernels/conv_int8.py::pack_site`` chose for the site, ``packed`` (that
+    kernel's layout, made once), per-cout ``w_scale`` f32 and the optional
+    f32 ``bias``; ``kernel_q`` is the OIHW int8 kernel.
 
     ``gates``: a ConvLSTM h-conv (no bias). Where the gate epilogue takes it
-    (``kernels/conv_int8.py::gate_pack_takes``) its one pack holds the
-    output channels in the gate order (``gates`` is then True), with
-    ``gate_scale`` (``w_scale`` in that order) and ``unorder`` (each natural
-    channel's column, for ``kernel_q``); only :func:`conv2d_q_gates` runs
-    it."""
+    its one pack holds the output channels in the gate order (``gates`` is
+    then True), with ``gate_scale`` (``w_scale`` in that order) and
+    ``unorder`` (each natural channel's column, for ``kernel_q``); only
+    :func:`conv2d_q_gates` runs it."""
 
     def __init__(self, kernel: torch.Tensor, bias: Optional[torch.Tensor], gates: bool = False):
         super().__init__()
         q, s = quantize_weight(kernel.detach())
         self.shape = tuple(q.shape)  # (cout, cin, kh, kw)
-        self.gates = gates and bias is None and gate_pack_takes(q)
-        order = gate_order(q.shape[0], q.device) if self.gates else None
-        self.register_buffer("packed", _pack(q if order is None else q[order]))
+        self.route, packed, order = conv_int8.pack_site(q, gates and bias is None)
+        self.gates = order is not None
+        self.register_buffer("packed", packed)
         self.register_buffer("w_scale", s)
         self.register_buffer("bias", None if bias is None else bias.detach().float())
         self.register_buffer("gate_scale", None if order is None else s[order])
         self.register_buffer("unorder", None if order is None else torch.argsort(order))
-        self._slices: Dict[Tuple[int, int], torch.Tensor] = {}
+        self._slices: Dict[Tuple[int, int], Tuple[str, torch.Tensor]] = {}
 
     @property
     def kernel_q(self) -> torch.Tensor:
-        q = _unpack(self.packed, *self.shape)
+        q = conv_int8.unpack_site(self.route, self.packed, self.shape)
         return q.index_select(0, self.unorder) if self.gates else q
 
-    def packed_slice(self, c0: int, c1: int) -> torch.Tensor:
-        """The pack of input channels ``c0:c1`` (for :func:`conv2d_q_pair`),
-        for that slice's route, made on first use and kept."""
-        p = self._slices.get((c0, c1))
-        if p is None or p.device != self.packed.device:
-            p = self._slices[(c0, c1)] = _pack(self.kernel_q[:, c0:c1].contiguous())
-        return p
+    def packed_slice(self, c0: int, c1: int) -> Tuple[str, torch.Tensor]:
+        """``(route, pack)`` of input channels ``c0:c1`` (for
+        :func:`conv2d_q_pair`): the slice's own route, made on first use and
+        kept."""
+        hit = self._slices.get((c0, c1))
+        if hit is None or hit[1].device != self.packed.device:
+            which, packed, _ = conv_int8.pack_site(self.kernel_q[:, c0:c1].contiguous())
+            hit = self._slices[(c0, c1)] = (which, packed)
+        return hit
 
 
 def split_scale(x: torch.Tensor, split) -> torch.Tensor:
@@ -156,24 +136,18 @@ def split_scale(x: torch.Tensor, split) -> torch.Tensor:
     return div127(torch.clamp(all_reduce_(amax, "max", split.parts)[0], min=1e-8))
 
 
-def _conv(x: torch.Tensor, scale: Optional[torch.Tensor], packed: torch.Tensor,
+def _conv(x: torch.Tensor, scale: Optional[torch.Tensor], which: str, packed: torch.Tensor,
           w_scale: torch.Tensor, bias: Optional[torch.Tensor], kh: int, kw: int,
           out_dtype: torch.dtype, split=None) -> torch.Tensor:
-    """The int8 conv of float ``x`` on its site's route (``packed`` is the
-    pack :class:`QWeight` made for that route)."""
+    """The int8 conv of float ``x`` on route ``which``, whose pack
+    :class:`QWeight` made; under a ``split``, of this rank's block."""
     if split is not None:
         if scale is None:
             scale = split_scale(x, split)
         return on_extended_rows(
-            lambda xe: _conv(xe, scale, packed, w_scale, bias, kh, kw, out_dtype), x,
+            lambda xe: _conv(xe, scale, which, packed, w_scale, bias, kh, kw, out_dtype), x,
             kh // 2, split.spatial)
-    # the wgmma and small-K kernels quantize x as they stage it
-    if packed.dim() == 7:
-        return conv2d_int8_wgmma(x, scale, packed, w_scale, bias, kh, out_dtype)
-    if packed.dim() == 4:
-        return conv2d_int8_smallk(x, scale, packed, w_scale, bias, kh, kw, out_dtype)
-    qx, s_x = quantize_act(x, scale)
-    return conv2d_int8(qx, s_x, packed, w_scale, bias, kh, kw, out_dtype)
+    return conv_int8.conv2d_int8_site(which, x, scale, packed, w_scale, bias, kh, kw, out_dtype)
 
 
 def conv2d_q(x: torch.Tensor, weight: QWeight, x_scale: Optional[torch.Tensor] = None,
@@ -185,8 +159,8 @@ def conv2d_q(x: torch.Tensor, weight: QWeight, x_scale: Optional[torch.Tensor] =
     _, _, kh, kw = weight.shape
     if weight.gates:
         raise ValueError("an h-conv packed for the gate epilogue runs as conv2d_q_gates")
-    return _conv(x, x_scale, weight.packed, weight.w_scale, weight.bias, kh, kw, out_dtype,
-                 split)
+    return _conv(x, x_scale, weight.route, weight.packed, weight.w_scale, weight.bias, kh, kw,
+                 out_dtype, split)
 
 
 def conv2d_q_gates(h: torch.Tensor, weight: QWeight, h_scale: Optional[torch.Tensor],
@@ -203,8 +177,8 @@ def conv2d_q_gates(h: torch.Tensor, weight: QWeight, h_scale: Optional[torch.Ten
     (``ops/convlstm.py::_on_rows``)."""
     if not weight.gates:
         raise ValueError("conv2d_q_gates takes an h-conv packed for the gate epilogue")
-    return conv2d_int8_wgmma_gates(h, h_scale, weight.packed, weight.gate_scale, gx, c,
-                                   weight.shape[-1], recurrent_activation, out)
+    return conv_int8.conv2d_int8_wgmma_gates(h, h_scale, weight.packed, weight.gate_scale, gx,
+                                             c, weight.shape[-1], recurrent_activation, out)
 
 
 def conv2d_q_pair(a: torch.Tensor, b: torch.Tensor, weight: QWeight,
@@ -218,7 +192,7 @@ def conv2d_q_pair(a: torch.Tensor, b: torch.Tensor, weight: QWeight,
     product."""
     _, cin, kh, kw = weight.shape
     ca = a.shape[-1]
-    ys = [_conv(x, scale, weight.packed_slice(c0, c1), weight.w_scale, None, kh, kw,
+    ys = [_conv(x, scale, *weight.packed_slice(c0, c1), weight.w_scale, None, kh, kw,
                 torch.float32, split)
           for x, c0, c1, scale in ((a, 0, ca, scale_a), (b, ca, cin, scale_b))]
     y = ys[0] + ys[1]

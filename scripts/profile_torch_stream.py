@@ -67,8 +67,6 @@ def kind(name: str) -> str:
         return "K4 tf32x3"
     if "convlstm_wgmma" in name:
         return "K4 wgmma"
-    if "convlstm_level" in name:
-        return "K4 SIMT"
     if "gate_update" in name:
         return "K1"
     if "ccl_" in name:

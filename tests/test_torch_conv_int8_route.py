@@ -63,26 +63,30 @@ def test_wgmma_pack_round_trips_and_layout(cin, k, cout):
 # ---------------------------------------------------------------- the routes
 
 
-def _model_sites(model):
-    """{site: (cin, k, cout, route of its pack)} of a quantized model."""
+def _sites(model, x, h, conv):
+    """{site: value} over a model's conv sites: ``x(cell)`` and ``h(cell)``
+    of each ConvLSTM cell, ``conv(c)`` of each conv."""
     out = {}
-
-    def add(site, qw):
-        cout, cin, k, _ = qw.shape
-        out[site] = (cin, k, cout,
-                     {7: "wgmma", 4: "smallk", 2: "mma_sync"}[qw.packed.dim()])
-
     for i, level in enumerate(model.encoder):
         for j, cell in enumerate(level.lstm):
-            add(f"encoder/{i}/lstm/{j}/x", cell.wx)
-            add(f"encoder/{i}/lstm/{j}/h", cell.wh)
-        for j, conv in enumerate(level.convs):
-            add(f"encoder/{i}/convs/{j}", conv.weight)
+            out[f"encoder/{i}/lstm/{j}/x"] = x(cell)
+            out[f"encoder/{i}/lstm/{j}/h"] = h(cell)
+        for j, c in enumerate(level.convs):
+            out[f"encoder/{i}/convs/{j}"] = conv(c)
     for i, level in enumerate(model.decoder):
-        for j, conv in enumerate(level.convs):
-            add(f"decoder/{i}/convs/{j}", conv.weight)
-    add("head", model.head.weight)
+        for j, c in enumerate(level.convs):
+            out[f"decoder/{i}/convs/{j}"] = conv(c)
+    out["head"] = conv(model.head)
     return out
+
+
+def _model_sites(model):
+    """{site: (cin, k, cout, route of its weight)} of a quantized model."""
+    def row(qw):
+        cout, cin, k, _ = qw.shape
+        return cin, k, cout, qw.route
+
+    return _sites(model, lambda c: row(c.wx), lambda c: row(c.wh), lambda c: row(c.weight))
 
 
 def _routes(nkp, hw):
@@ -128,6 +132,34 @@ def test_route_of_the_tiny_models_int8_sites():
     model = quantize_model_int8(ULSTMnet2D(cfg, generator=torch.Generator().manual_seed(0)))
     assert _model_sites(model) == {s: (cin, k, cout, routes[s])
                                    for s, _, cin, k, cout in sites}
+
+
+@pytest.mark.parametrize("name", ["tiny", "flagship"])
+def test_each_weight_carries_its_kernels_route_and_unpacks_to_it(name):
+    """Every int8 site of the tiny model (on the CPU) and of the flagship (on
+    the meta device: shapes only) keeps the route ``weight_route`` gives its
+    int8 kernel, and its pack unpacks to that kernel (the h-convs' gate packs
+    too, back in natural order)."""
+    nkp, device = {"tiny": (tiny_net_kernel_params(), "cpu"),
+                   "flagship": (default_net_kernel_params(), "meta")}[name]
+    cfg = ModelConfig.make(nkp, dtype="bfloat16", quant="int8")
+    gen = None if device == "meta" else torch.Generator().manual_seed(0)
+    model = ULSTMnet2D(cfg, generator=gen, device=device)
+    kernels = {s: quant.quantize_weight(k)[0] for s, k in _sites(
+        model, lambda c: c.kernel_x, lambda c: c.kernel_h, lambda c: c.kernel).items()}
+    weights = _sites(quantize_model_int8(model), lambda c: c.wx, lambda c: c.wh,
+                     lambda c: c.weight)
+    assert weights.keys() == kernels.keys()
+    gates = 0
+    for site, qw in weights.items():
+        kq = kernels[site]
+        assert qw.route == conv_int8.weight_route(kq), site
+        got = qw.kernel_q
+        assert got.shape == kq.shape and got.dtype == torch.int8, site
+        if device == "cpu":
+            assert torch.equal(got, kq), site
+        gates += qw.gates
+    assert gates == (4 if name == "flagship" else 0)
 
 
 @pytest.mark.parametrize("args,want", [
@@ -569,7 +601,7 @@ def test_wgmma_plain_equals_reference_conv2d_q(edge, in_dt, out_dt, scale):
     want = np.asarray(jq.conv2d_q(xj, qd, out_dtype=_jdt(out_dt)).astype(jnp.float32))
     weight = quant.QWeight(torch.from_numpy(np.ascontiguousarray(kern.transpose(3, 2, 0, 1))),
                            torch.from_numpy(bias))
-    assert weight.packed.dim() == 7  # cin 32: the wgmma route's pack
+    assert weight.route == "wgmma"  # cin 32
     xt = torch.from_numpy(x).to(in_dt)
     reset_counts()
     got = conv_int8.conv2d_int8_wgmma(xt, static, weight.packed, weight.w_scale, weight.bias,

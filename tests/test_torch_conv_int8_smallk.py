@@ -218,7 +218,7 @@ def test_smallk_plain_equals_reference_conv2d_q(cin, k, cout, hw, in_dt, out_dt,
     want = np.asarray(jq.conv2d_q(xj, qd, out_dtype=_jdt(out_dt)).astype(jnp.float32))
     weight = quant.QWeight(torch.from_numpy(np.ascontiguousarray(kern.transpose(3, 2, 0, 1))),
                            torch.from_numpy(bias))
-    assert weight.packed.dim() == 4  # the small-K route's pack
+    assert weight.route == "smallk"
     assert torch.equal(weight.kernel_q, torch.from_numpy(np.array(qk)).permute(3, 2, 0, 1))
     xt = torch.from_numpy(x).to(in_dt)
     reset_counts()

@@ -196,19 +196,17 @@ def _level(cuda, b, h, w, feat, k, dt, sdt, seed=0):
     (1, 19, 37, 40, 5, torch.float32, torch.float32),     # ragged tiles and slices
     (1, 24, 40, 128, 5, torch.bfloat16, torch.bfloat16),
     (1, 24, 40, 128, 5, torch.bfloat16, torch.float32),   # state_dtype float32
-    (1, 17, 9, 10, 7, torch.float32, torch.float32),     # ragged Wh chunk
     (3, 8, 8, 8, 1, torch.float32, torch.bfloat16),
 ])
 @pytest.mark.parametrize("act", ["sigmoid", "hard_sigmoid"])
 def test_fused_level_matches_plain(cuda, b, h, w, feat, k, dt, sdt, act):
     """Each case on the route that takes it (F % 64 == 0 at 5x5: tensor
-    cores, bf16 or 3xTF32; F % 8 == 0 otherwise: the narrow route; F = 10:
-    SIMT), counted there."""
+    cores, bf16 or 3xTF32; F % 8 == 0 otherwise: the narrow route), counted
+    there."""
     ins = _level(cuda, b, h, w, feat, k, dt, sdt)
     assert convlstm_cell.supported(h, w, feat, k, k, b, dt)
     which = convlstm_cell.route(h, w, feat, k, b, dt)
-    name = {"simt": "fused_convlstm_level", "wgmma": "fused_convlstm_level_wgmma",
-            "tf32x3": "fused_convlstm_level_tf32x3",
+    name = {"wgmma": "fused_convlstm_level_wgmma", "tf32x3": "fused_convlstm_level_tf32x3",
             "narrow": "fused_convlstm_level_narrow"}[which]
     reset_counts()
     got = convlstm_cell.fused_convlstm_level(*ins, act)
@@ -217,22 +215,13 @@ def test_fused_level_matches_plain(cuda, b, h, w, feat, k, dt, sdt, act):
     _close(got, want, sdt, atol=2e-5)
 
 
-def test_fused_level_smem_formula_matches_the_kernel(cuda):
-    from lstm_unet_tpu_torch.ops.kernels import _build
-
-    lib = _build.library()
-    for k in convlstm_cell.KERNEL_SIZES:
-        for feat in (8, 16, 128, 256):
-            assert lib.lut_convlstm_level_smem(k, feat) == convlstm_cell.smem_bytes(k, feat)
-
-
 def test_wgmma_level_smem_and_route_match_the_kernel(cuda):
     """The tensor-core kernel's shared memory is the Python formula's and
     fits a block; the route sends it exactly the kernel sizes it builds."""
     from lstm_unet_tpu_torch.ops.kernels import _build
 
     lib = _build.library()
-    for k in convlstm_cell.KERNEL_SIZES:
+    for k in convlstm_cell.NARROW_KERNEL_SIZES:
         got = lib.lut_convlstm_level_wgmma_smem(k)
         if k in convlstm_cell.TC_KERNEL_SIZES:
             assert got == convlstm_cell.wgmma_smem_bytes(k) <= convlstm_cell.SMEM_LIMIT
@@ -267,7 +256,6 @@ def test_wgmma_level_matches_plain(cuda, b, h, w, feat, k, sdt, act):
     want = convlstm_cell.fused_convlstm_level_plain(*ins, act)
     ran = counts()
     assert ran["fused_convlstm_level_wgmma"] == {"kernel": 1, "plain": 1}
-    assert ran["fused_convlstm_level"] == {"kernel": 0, "plain": 0}
     _tc_close(got, want, sdt, k, feat)
 
 
@@ -289,7 +277,7 @@ def test_tf32x3_level_smem_and_route_match_the_kernel(cuda):
     from lstm_unet_tpu_torch.ops.kernels import _build
 
     lib = _build.library()
-    for k in convlstm_cell.KERNEL_SIZES:
+    for k in convlstm_cell.NARROW_KERNEL_SIZES:
         got = lib.lut_convlstm_level_tf32x3_smem(k)
         if k in convlstm_cell.TC_KERNEL_SIZES:
             assert got == convlstm_cell.tf32x3_smem_bytes(k) <= convlstm_cell.SMEM_LIMIT
@@ -321,8 +309,7 @@ def test_tf32x3_level_matches_plain(cuda, b, h, w, feat, k, sdt, act):
     want = convlstm_cell.fused_convlstm_level_plain(*ins, act)
     ran = counts()
     assert ran["fused_convlstm_level_tf32x3"] == {"kernel": 1, "plain": 1}
-    assert ran["fused_convlstm_level"] == ran["fused_convlstm_level_wgmma"] == {
-        "kernel": 0, "plain": 0}
+    assert ran["fused_convlstm_level_wgmma"] == {"kernel": 0, "plain": 0}
     _tc_close(got, want, sdt, k, feat)
 
 
@@ -364,7 +351,7 @@ def test_narrow_level_matches_plain(cuda, b, h, w, feat, k, dt, sdt):
         ran = counts()
         assert ran["fused_convlstm_level_narrow"] == {"kernel": 1, "plain": 1}
         assert all(ran[n] == {"kernel": 0, "plain": 0} for n in (
-            "fused_convlstm_level", "fused_convlstm_level_wgmma", "fused_convlstm_level_tf32x3"))
+            "fused_convlstm_level_wgmma", "fused_convlstm_level_tf32x3"))
         _tc_close(got, want, sdt, k, feat)
     packed = convlstm_cell.pack_for_route(ins[3], "narrow")
     kept = convlstm_cell.fused_convlstm_level(*ins, "sigmoid", packed)
@@ -383,7 +370,7 @@ def test_tf32x3_level_takes_the_cells_weight_view(cuda):
 
 
 def test_fused_level_rejects_unsupported_shapes(cuda):
-    # F % 8 != 0 and over the SIMT kernel's shared memory: no route
+    # F % 8 != 0: no route
     ins = _level(cuda, 1, 8, 8, 204, 5, torch.float32, torch.float32)
     with pytest.raises(ValueError, match="supported"):
         convlstm_cell.fused_convlstm_level(*ins)
@@ -490,8 +477,8 @@ def test_golden_masks_on_the_card(cuda, tmp_path):
 
 def test_golden_masks_fused_f32_on_the_card(cuda, tmp_path):
     """With --fused_cell in f32 the tiny model's narrow levels (F = 8, 16)
-    take K4's narrow route (3xTF32) on every frame, the SIMT kernel never;
-    the masks hold the golden bar."""
+    take K4's narrow route (3xTF32) on every frame, K1 never; the masks hold
+    the golden bar."""
     seq_dir, _ = synthetic.write_ctc_dataset(str(tmp_path / "ctc"), num_frames=8,
                                              height=32, width=32, num_cells=3, seed=123)
     out = str(tmp_path / "res")
@@ -503,7 +490,7 @@ def test_golden_masks_fused_f32_on_the_card(cuda, tmp_path):
     ran = counts()
     assert all(v["plain"] == 0 for v in ran.values())
     assert ran["fused_convlstm_level_narrow"]["kernel"] == 20
-    assert ran["fused_convlstm_level"]["kernel"] == ran["lstm_gate_update"]["kernel"] == 0
+    assert ran["lstm_gate_update"]["kernel"] == 0
     golden = sorted(glob.glob(os.path.join(GOLDEN, "masks", "mask*.tif")))
     assert n == len(golden) == 8
     for p in golden:
@@ -1016,22 +1003,17 @@ def test_batched_stream_on_the_card_equals_cpu(cuda, tmp_path):
     (1, 68, 64, 256, 5, torch.float32, torch.float32),      # level 2
     (2, 18, 32, 8, 3, torch.float32, torch.float32),        # tiny level 0, narrow
     (2, 10, 16, 16, 3, torch.bfloat16, torch.bfloat16),     # tiny level 1, narrow
-    (1, 18, 32, 10, 3, torch.float32, torch.float32),       # F % 8 != 0: SIMT
 ])
 def test_fused_level_at_halo_extended_heights_matches_plain(cuda, b, h, w, feat, k, dt, sdt):
     ins = _level(cuda, b, h, w, feat, k, dt, sdt, seed=h)
     which = convlstm_cell.route(h, w, feat, k, b, dt)
-    name = {"simt": "fused_convlstm_level", "wgmma": "fused_convlstm_level_wgmma",
-            "tf32x3": "fused_convlstm_level_tf32x3",
+    name = {"wgmma": "fused_convlstm_level_wgmma", "tf32x3": "fused_convlstm_level_tf32x3",
             "narrow": "fused_convlstm_level_narrow"}[which]
     reset_counts()
     got = convlstm_cell.fused_convlstm_level(*ins)
     want = convlstm_cell.fused_convlstm_level_plain(*ins)
     assert counts()[name] == {"kernel": 1, "plain": 1}
-    if which == "simt":
-        _close(got, want, sdt, atol=2e-5)
-    else:
-        _tc_close(got, want, sdt, k, feat)
+    _tc_close(got, want, sdt, k, feat)
 
 
 @pytest.mark.parametrize("b,h,w,cin,k,cout", [
@@ -1042,13 +1024,11 @@ def test_fused_level_at_halo_extended_heights_matches_plain(cuda, b, h, w, feat,
 ])
 def test_conv2d_int8_at_halo_extended_heights_equals_plain(cuda, b, h, w, cin, k, cout):
     from lstm_unet_tpu_torch.ops.kernels import conv_int8
-    from lstm_unet_tpu_torch.ops.quant import _pack
 
     g = torch.Generator(device=cuda).manual_seed(h + cin)
     kq = torch.randint(-127, 128, (cout, cin, k, k), device=cuda, generator=g,
                        dtype=torch.int32).to(torch.int8)
-    which = conv_int8.weight_route(kq)
-    packed = _pack(kq)
+    which, packed, _ = conv_int8.pack_site(kq)
     w_scale = torch.rand(cout, device=cuda, generator=g) * 1e-3
     bias = torch.randn(cout, device=cuda, generator=g)
     x = (torch.randn(b, h, w, cin, device=cuda, generator=g) * 3).to(torch.bfloat16)

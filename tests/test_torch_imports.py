@@ -120,7 +120,7 @@ def test_build_dir_is_ignored_and_named_by_sources():
     assert path == _build.library_path()  # stable for an unchanged tree
     assert sorted(os.path.basename(p) for p in glob.glob(os.path.join(PORT, "csrc", "*.cu"))) \
         == ["ccl.cu", "conv_int8.cu", "conv_int8_smallk.cu", "conv_int8_wgmma.cu",
-            "conv_int8_wgmma_gates.cu", "convlstm_cell.cu", "convlstm_narrow.cu",
+            "conv_int8_wgmma_gates.cu", "convlstm_narrow.cu",
             "convlstm_wgmma.cu", "lstm_gates.cu", "postprocess_loops.cu", "trace_stamp.cu"]
 
 

@@ -209,7 +209,6 @@ def test_fused_level_plain_matches_interpreted_pallas():
     reset_counts()
     got = convlstm_cell.fused_convlstm_level(*map(torch.from_numpy, (gx, h, c, wh)))
     assert counts()["fused_convlstm_level_tf32x3"] == {"kernel": 0, "plain": 1}
-    assert counts()["fused_convlstm_level"] == {"kernel": 0, "plain": 0}
     want = jax_fused(jnp.asarray(gx[0]), jnp.asarray(h[0]), jnp.asarray(c[0]),
                      jnp.asarray(wh))
     for g, w in zip(got, want):  # both (h', c')
@@ -217,13 +216,15 @@ def test_fused_level_plain_matches_interpreted_pallas():
 
 
 @pytest.mark.parametrize("k,feat,hw,batch", [(5, 128, (8, 128), 1), (3, 8, (12, 10), 2),
-                                             (3, 16, (8, 8), 1), (5, 256, (8, 8), 1)])
+                                             (3, 16, (8, 8), 1), (5, 256, (8, 8), 1),
+                                             (3, 10, (32, 32), 1)])
 @pytest.mark.parametrize("fused", [False, True])
 def test_convlstm_cell_matches_unfused_jax_cell(k, feat, hw, batch, fused):
     """The port's cell, fused (K4 plain) or not (convs + K1 plain), against
     the reference's unfused cell with the same weights. In f32 the fused cell
-    takes K4 at every level here: the narrow ones (F = 8, 16) on the narrow
-    route, F = 128 and 256 on the 3xTF32 route; each counts its plain call."""
+    takes K4 at every level here with F % 8 == 0: the narrow ones (F = 8, 16)
+    on the narrow route, F = 128 and 256 on the 3xTF32 route; each counts its
+    plain call. F = 10 no route takes: the fused cell runs it unfused."""
     r = np.random.default_rng(3)
     cin = 3
     jcell = {"kernel_x": r.uniform(-0.3, 0.3, (k, k, cin, 4 * feat)).astype(np.float32),
@@ -245,10 +246,10 @@ def test_convlstm_cell_matches_unfused_jax_cell(k, feat, hw, batch, fused):
                              torch.from_numpy(x), fused_cell=fused)
     ran = counts()
     k4 = fused and convlstm_cell.supported(*hw, feat, k, k, batch)
-    assert k4 == fused
+    assert k4 == (fused and feat % 8 == 0)
     name = ("fused_convlstm_level_tf32x3" if feat % 64 == 0 else "fused_convlstm_level_narrow")
     assert ran[name]["plain"] == int(k4)
-    assert sum(ran[n]["plain"] for n in ("fused_convlstm_level", "fused_convlstm_level_wgmma",
+    assert sum(ran[n]["plain"] for n in ("fused_convlstm_level_wgmma",
                                          "fused_convlstm_level_tf32x3",
                                          "fused_convlstm_level_narrow")) == int(k4)
     assert ran["lstm_gate_update"]["plain"] == int(not k4)
@@ -285,15 +286,48 @@ def test_fused_level_refuses_grad():
     assert h1.requires_grad
 
 
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_cell_runs_a_level_no_route_takes_unfused(dtype, int8):
+    """F % 8 != 0 (F = 10, 3x3, 32^2): K4 takes no route, so the cell with
+    ``fused_cell`` runs the x- and h-convs and K1, as the reference runs every
+    level its Pallas kernel does not take, bit for bit the unfused cell; the
+    K4 wrapper itself refuses the level on the CPU too."""
+    from lstm_unet_tpu_torch.ops.convlstm import QConvLSTMCell
+
+    feat = 10
+    assert not convlstm_cell.supported(32, 32, feat, 3, 3, 1, dtype)
+    g = torch.Generator().manual_seed(4)
+    cell = ConvLSTMCell(3, 3, feat, generator=g)
+    cell = QConvLSTMCell(cell) if int8 else cell.to(dtype)
+    x = torch.randn(1, 32, 32, 3, generator=g).to(dtype)
+    carry = tuple(torch.randn(1, 32, 32, feat, generator=g).to(dtype) for _ in range(2))
+    outs = {}
+    for fused in (True, False):
+        reset_counts()
+        with torch.no_grad():
+            outs[fused], _ = cell(carry, x, fused_cell=fused)
+        ran = counts()
+        assert ran["lstm_gate_update"]["plain"] == 1
+        assert not any(v["plain"] or v["kernel"] for n, v in ran.items()
+                       if n.startswith("fused_convlstm_level")), ran
+    for a, b in zip(outs[True], outs[False]):
+        assert a.dtype == dtype and torch.equal(a, b)
+    gx, h, c, wh = (t.to(dtype) for t in map(torch.from_numpy,
+                                             _level_inputs(6, (32, 32), feat, 3)))
+    with pytest.raises(ValueError, match="check supported"):
+        convlstm_cell.fused_convlstm_level(gx, h, c, wh)
+
+
 def test_fused_supported_limits():
     assert convlstm_cell.supported(512, 512, 128, 5, 5, 1)      # flagship level 0
     assert convlstm_cell.supported(32, 32, 8, 3, 3, 1)          # tiny levels
     assert convlstm_cell.supported(16, 16, 16, 3, 3, 4)
     assert convlstm_cell.supported(256, 256, 256, 5, 5, 1)      # f32: 3xTF32
-    assert not convlstm_cell.supported(64, 64, 204, 5, 5, 1)    # F % 8 != 0: SIMT smem budget
+    assert not convlstm_cell.supported(64, 64, 204, 5, 5, 1)    # F % 8 != 0: none
     assert convlstm_cell.supported(64, 64, 200, 5, 5, 1)        # F % 64 != 0: narrow
     assert convlstm_cell.supported(64, 64, 160, 5, 5, 1)        # F % 64 != 0: narrow
-    assert convlstm_cell.supported(64, 64, 20, 5, 5, 1)         # F % 8 != 0: SIMT
+    assert not convlstm_cell.supported(64, 64, 20, 5, 5, 1)     # F % 8 != 0: none
     assert convlstm_cell.supported(256, 256, 256, 5, 5, 1, torch.bfloat16)  # tensor cores
     assert not convlstm_cell.supported(64, 64, 8, 4, 4, 1)      # even kernel
     assert not convlstm_cell.supported(64, 64, 8, 3, 5, 1)      # not square
@@ -316,7 +350,7 @@ def test_fused_route_table(dtype):
         assert got == want[name], name
     assert convlstm_cell.route(9, 70, 128, 5, 2, dtype) == ("wgmma" if bf16 else "tf32x3")
     assert convlstm_cell.route(9, 70, 16, 7, 2, dtype) == "narrow"
-    assert convlstm_cell.route(9, 70, 12, 7, 2, dtype) == "simt"
+    assert convlstm_cell.route(9, 70, 12, 7, 2, dtype) is None
     assert convlstm_cell.route(0, 70, 128, 5, 2, dtype) is None
 
 
@@ -402,7 +436,6 @@ def test_bf16_fused_cell_takes_the_tensor_core_route():
             outs[fused], _ = cell(carry, x, fused_cell=fused)
         ran = counts()
         assert ran["fused_convlstm_level_wgmma"] == {"kernel": 0, "plain": int(fused)}
-        assert ran["fused_convlstm_level"]["plain"] == 0
         assert ran["lstm_gate_update"]["plain"] == int(not fused)
     for a, b in zip(outs[True], outs[False]):
         assert a.dtype == b.dtype == torch.bfloat16

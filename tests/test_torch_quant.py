@@ -401,7 +401,6 @@ def test_streamed_int8_frames_match_reference(fused, scales, monkeypatch):
     ran = counts()
     assert _int8_plain() == tuple(3 * n for n in TINY_INT8_CONVS[fused])
     assert ran["fused_convlstm_level_narrow"]["plain"] == (6 if fused else 0)
-    assert ran["fused_convlstm_level"]["plain"] == 0
     assert ran["lstm_gate_update"]["plain"] == (0 if fused else 6)
     gap = np.abs(ours - ref).max() / np.abs(ref).max()
     assert gap < FRAME_BAR, gap
