@@ -47,7 +47,8 @@ Phases, each of which raises (exit != 0) when it fails:
   c2. ``postprocess_frame`` on cell-like 512^2 probabilities (made from a
      seed, no model) with the instance split off, 'dist' and 'prob': equal to
      the same call on the CPU, 1, 2 and 2 K3 launches a frame (and 1, 2, 2
-     of the growth kernel, 0, 1, 0 of the erosion kernel), ms per frame and
+     of the growth kernel, 0, 1, 0 of the erosion kernel and of the 'dist'
+     split's markers kernel), ms per frame and
      the rounds of the growth and erosion loops, read from the card's
      counter and equal to the CPU's;
   p. the postprocess's loop kernels (``csrc/postprocess_loops.cu``), then
@@ -56,7 +57,11 @@ Phases, each of which raises (exit != 0) when it fails:
      ``postprocess_frame`` gives it at 512^2 (split off, 'dist', 'prob',
      ``grow_iters=3``) and 1024^2 ('dist'), and on a 128^2 serpentine band,
      each timed beside its plain version; ``postprocess_frame`` with the
-     kernels beside the plain loops; then (counted from 0) 8 steady steps of
+     kernels beside the plain loops; the 'dist' split's markers kernel
+     (``split_markers``, window 16, rel window 48) at 512^2 and 1024^2,
+     bit-equal to its plain version and timed beside it, its bound and a
+     yardstick of separable ``max_pool2d`` (timed only); then (counted from
+     0) 8 steady steps of
      ``StreamingInferenceEngine.step_batch_async`` on the flagship at 512^2
      (bf16 fused, int8 calibrated unfused, f32 fused, TTA 'flip', B = 4,
      the 'dist' and 'prob' splits) and of the bench's ``build_pipeline``
@@ -64,8 +69,8 @@ Phases, each of which raises (exit != 0) when it fails:
      the first frame), all under ``torch.cuda.set_sync_debug_mode("error")``:
      a step that synchronizes fails, and so do replays whose labels (and
      probabilities) differ from the eager steps' by a bit or whose launches
-     differ from theirs, a step that launches the loop kernels or K3 other
-     than expected or runs a plain version, and an engine whose buffers or
+     differ from theirs, a step that launches the loop kernels, the markers
+     kernel or K3 other than expected or runs a plain version, and an engine whose buffers or
      graph pool stay allocated after it is dropped; host ms until each step
      returns, eager against graph. Its wall time is printed beside a budget
      of 40 s;
@@ -187,7 +192,7 @@ Phases, each of which raises (exit != 0) when it fails:
      version. Its wall time is printed beside a budget of 120 s.
 The last two lines are a JSON kernel summary (the loop kernels
 ``grow_into_band`` and ``erosion_distance`` at 512^2, every row of phase p
-beside; K3's two routes as ``ccl`` and
+beside; ``split_markers`` at 512^2, its 1024^2 row beside; K3's two routes as ``ccl`` and
 ``ccl_grid``; ``conv2d_int8_wgmma`` summed over the 24 convs of one unfused
 int8 frame it takes, with each shape beside; ``conv2d_int8_smallk`` at the
 cin = 1 site, its B = 4 and tiny rows beside; ``conv2d_int8``, which no
@@ -463,20 +468,21 @@ def phase_postprocess(torch):
     probs = cell_like_masks(torch)[0]
     probs_cpu = probs.cpu()
     counts = {}
-    # (split, launches of K3, the growth kernel and the erosion kernel)
-    for name, need, kw in (("off", (1, 1, 0), {}),
-                           ("dist", (2, 2, 1), dict(instance_split=True, split_method="dist")),
-                           ("prob", (2, 2, 0), dict(instance_split=True, split_method="prob"))):
+    # (split, launches of K3, the growth, erosion and markers kernels)
+    for name, need, kw in (("off", (1, 1, 0, 0), {}),
+                           ("dist", (2, 2, 1, 1), dict(instance_split=True, split_method="dist")),
+                           ("prob", (2, 2, 0, 0), dict(instance_split=True, split_method="prob"))):
         kernels.reset_counts()
         loops.clear_rounds()
         got = postprocess.postprocess_frame(probs, **kw)
         rounds = loops.device_rounds("cuda")
         ran = kernels.counts()
-        if (tuple(ran[k]["kernel"] for k in ("ccl", "grow_into_band", "erosion_distance"))
+        if (tuple(ran[k]["kernel"] for k in ("ccl", "grow_into_band", "erosion_distance",
+                                             "split_markers"))
                 != need or any(v["plain"] for v in ran.values())):
-            raise AssertionError(f"postprocess split {name}: expected {need} launches of K3 "
-                                 f"and the loop kernels, and no plain call on the card, "
-                                 f"got {ran}")
+            raise AssertionError(f"postprocess split {name}: expected {need} launches of K3, "
+                                 f"the loop kernels and the markers kernel, and no plain call "
+                                 f"on the card, got {ran}")
         ms = time_ms(lambda: postprocess.postprocess_frame(probs, **kw), 5)
         want = postprocess.postprocess_frame(probs_cpu, **kw)
         if not torch.equal(got.cpu(), want) or rounds != loops.ROUNDS:
@@ -485,7 +491,7 @@ def phase_postprocess(torch):
                                  f"on the card, {loops.ROUNDS} on the CPU")
         counts[name] = int(got.max())
         log(f"postprocess 512^2 cell-like, split {name}: {counts[name]} instances, equal "
-            f"on the card and the CPU; {ms:.3f} ms/frame, launches (K3, growth, erosion) "
+            f"on the card and the CPU; {ms:.3f} ms/frame, launches (K3, growth, erosion, markers) "
             f"{need}, growth rounds {rounds['grow']}, erosion rounds {rounds['erode']} "
             f"(the device's counter, equal to the CPU's)")
     if not counts["dist"] > counts["off"] < counts["prob"]:
@@ -612,6 +618,67 @@ def phase_loop_kernels(torch):
     return summaries
 
 
+# the markers kernel's symbols (a row pass, then a column pass), and the bytes
+# a pixel it reads once (dist, interior) and writes once (the markers)
+SPLIT_SYMBOLS = ("split_rows_kernel", "split_cols_kernel")
+SPLIT_BYTES_PX = 6
+
+
+def split_yardstick(torch, dist, window, radius):
+    """What the markers kernel does of the window maxima, as PyTorch does it
+    (timed only; the port never calls it): a float copy, then per radius a
+    max_pool2d along the rows and one along the columns (padded -inf, so
+    clipped to the frame)."""
+    import torch.nn.functional as F
+
+    x = dist.float()[None, None]
+    out = []
+    for r in (window, radius):
+        rows = F.max_pool2d(x, (1, 2 * r + 1), stride=1, padding=(0, r))
+        out.append(F.max_pool2d(rows, (2 * r + 1, 1), stride=1, padding=(r, 0)))
+    return out
+
+
+def phase_split_markers(torch):
+    """(p), the markers kernel of the 'dist' split on the distances
+    ``postprocess_frame`` gives it (512^2 and 1024^2 cell-like probabilities,
+    the default window 16 and rel window 48): bit-equal to its plain version,
+    timed beside it, its bound and the yardstick (two separable max pools a
+    radius, ``split_yardstick``). Returns its summary."""
+    from lstm_unet_tpu_torch.io.synthetic import cell_like_probs
+    from lstm_unet_tpu_torch.ops import postprocess
+    from lstm_unet_tpu_torch.ops.kernels import postprocess_loops as loops
+
+    window, min_dist, slack, rel, rel_window = 16, 4, 1, 0.65, 48
+    args = (window, min_dist, slack, rel, rel_window)
+    big = torch.from_numpy(cell_like_probs(1024, 1024, num_cells=1200, seed=1)[0]).cuda()
+    rows = {}
+    for name, probs in (("512^2 'dist'", cell_like_masks(torch)[0]), ("1024^2 'dist'", big)):
+        interior = (probs[..., 1] > 0.5).contiguous()
+        dist = postprocess.octagon_distance(interior)
+        got = loops.split_markers(dist, interior, *args)
+        want = loops.split_markers_plain(dist, interior, *args)
+        if not torch.equal(got, want):
+            raise AssertionError(f"split_markers kernel on {name}: "
+                                 f"{int((got != want).sum())} px differ from the plain version")
+        h, w = dist.shape
+        passes = [device_ms(lambda: loops.split_markers(dist, interior, *args), sym)
+                  for sym in SPLIT_SYMBOLS]
+        rows[name] = dict(
+            summary(time_ms(lambda: loops.split_markers(dist, interior, *args), 50),
+                    time_ms(lambda: loops.split_markers_plain(dist, interior, *args), 5), 0.0,
+                    bound(h * w * SPLIT_BYTES_PX)),
+            device_ms=None if None in passes else sum(passes), pass_ms=passes,
+            library_ms=time_ms(lambda: split_yardstick(torch, dist, window, rel_window), 20),
+            markers=int(got.sum()), shape=[h, w])
+        r = rows[name]
+        log(f"split_markers kernel {name}: bit-equal ({r['markers']} markers); kernel "
+            f"{r['ms']:.4f} ms (device {fmt(r['device_ms'])}: rows {fmt(passes[0])}, columns "
+            f"{fmt(passes[1])}), plain {r['plain_ms']:.3f} ms, yardstick (max_pool2d) "
+            f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms ({r['bound_by']})")
+    return dict(rows["512^2 'dist'"], rows=rows)
+
+
 def sync_free_models(torch):
     """The flagship at 512^2 from seed 0, by name: bf16 fused, int8 (f32
     weights quantized with scales calibrated on 4 synthetic frames,
@@ -728,14 +795,16 @@ def phase_sync_free(torch):
         ran = graph_against_eager(torch, name, runs)
         frames_pp = STEADY_STEPS * lanes  # postprocessed frames (TTA: the averaged one)
         need = {"grow_into_band": frames_pp * (2 if "split" in name else 1),
-                "erosion_distance": frames_pp if "'dist'" in name else 0}
+                "erosion_distance": frames_pp if "'dist'" in name else 0,
+                "split_markers": frames_pp if "'dist'" in name else 0}
         if any(ran[k] != n for k, n in need.items()) or ran["ccl"] == 0:
             raise AssertionError(f"sync-free step {name}: launches {ran}, expected {need}")
         labels = [out[0] for out in runs["graph"][0]]
         if any(tuple(t.shape) != (lanes, 512, 512) for t in labels):
             raise AssertionError(f"sync-free step {name}: labels {[t.shape for t in labels]}")
         log(f"sync-free step {name}: {STEADY_STEPS} steps, no sync; launches grow "
-            f"{ran['grow_into_band']}, erosion {ran['erosion_distance']}, K3 {ran['ccl']}")
+            f"{ran['grow_into_band']}, erosion {ran['erosion_distance']}, markers "
+            f"{ran['split_markers']}, K3 {ran['ccl']}")
     uploaded = bench.upload(bench.make_frames(2 + STEADY_STEPS, 512), "cuda")
     runs = {}
     for mode in ("eager", "graph"):
@@ -756,17 +825,19 @@ def phase_sync_free(torch):
 
 
 def phase_p(torch):
-    """(p): the loop kernels against their plain versions, not counted; then
-    the sync-free steps counted from 0. Returns (the kernels' summaries, the
-    launches of the steps); fails past ``PHASE_P_BUDGET_S``."""
+    """(p): the loop kernels and the markers kernel against their plain
+    versions, not counted; then the sync-free steps counted from 0. Returns
+    (the kernels' summaries, the launches of the steps); fails past
+    ``PHASE_P_BUDGET_S``."""
     from lstm_unet_tpu_torch.ops import kernels
 
     t0 = time.perf_counter()
     summaries = phase_loop_kernels(torch)
+    summaries["split_markers"] = phase_split_markers(torch)
     kernels.reset_counts()
     phase_sync_free(torch)
     ran = kernels.counts()
-    for k in ("grow_into_band", "erosion_distance", "ccl"):
+    for k in ("grow_into_band", "erosion_distance", "split_markers", "ccl"):
         if ran[k]["kernel"] == 0:
             raise AssertionError(f"phase p: {k} never launched: {ran}")
     if any(v["plain"] for v in ran.values()):
@@ -2717,7 +2788,7 @@ def phase_flagship_tta(torch, work, card):
             want = {"conv2d_int8_wgmma": 24 * steps, "conv2d_int8_wgmma_gates": 4 * steps,
                     "conv2d_int8_smallk": steps, "conv2d_int8": 0, "lstm_gate_update": 0,
                     "fused_convlstm_level_wgmma": 0}
-        want.update(ccl=steps, ccl_grid=0, fused_convlstm_level=0, fused_convlstm_level_tf32x3=0)
+        want.update(ccl=steps, ccl_grid=0, fused_convlstm_level_tf32x3=0)
         got = {k: d[k]["kernel"] for k in want}
         if n != 8 or got != want or any(v["plain"] for v in d.values()):
             raise AssertionError(f"flagship TTA {mode} {dtype}: {n} masks, launches {d}, "
@@ -3785,7 +3856,10 @@ def main() -> int:
                                   "pallas_call)"),
                "erosion_distance": ("lstm_unet_tpu_torch/csrc/postprocess_loops.cu",
                                     "lstm_unet_tpu/ops/postprocess.py:135 (XLA while_loop; "
-                                    "no pallas_call)")}
+                                    "no pallas_call)"),
+               "split_markers": ("lstm_unet_tpu_torch/csrc/postprocess_loops.cu",
+                                 "lstm_unet_tpu/ops/postprocess.py:189-197 (XLA window "
+                                 "maxima; no pallas_call)")}
     log("flagship 512^2 steady ms/frame by dtype and lanes: "
         + ", ".join(f"{d} {n} lanes {v:.3f}" for (d, n), v in tta_ms.items()))
     log(json.dumps({"kernels": [

@@ -1,4 +1,5 @@
-// The postprocess's two data-dependent loops, each in one launch.
+// The postprocess's two data-dependent loops, each in one launch, and the
+// markers of the 'dist' split in two (at the end of this file).
 //
 // Replaces the XLA lax.while_loops of lstm_unet_tpu/ops/postprocess.py (no
 // pallas_call): grow_into_band (:53-79), the simultaneous-BFS growth of
@@ -166,6 +167,84 @@ erosion_distance_kernel(const uint8_t* __restrict__ mask, int* dist, uint8_t* bu
   if (leader) atomicAdd(rounds, static_cast<unsigned long long>(it));
 }
 
+// The markers of the 'dist' split (split_markers). They replace no TPU
+// kernel: the reference computes them in plain XLA
+// (lstm_unet_tpu/ops/postprocess.py:189-197), as rounds of a 3x3 maximum
+// with the border padded 0, `max(window, rel_window)` rounds, and the port
+// took them as one launch a shifted view a round, ~430 a frame at the
+// default radii. What they compute is two window maxima of `dist`, over the
+// (2 window + 1)^2 and the (2 R + 1)^2 square around each pixel clipped to
+// the frame (equal to the rounds because dist >= 0), and a predicate.
+//
+// Bound: latency. A call reads 5 bytes a pixel and writes 1: 1.5 MB at 512^2,
+// which sits in L2, under a microsecond of bytes. The design:
+//
+//  * Separable, two launches: the row pass writes each pixel's maxima over
+//    its row for both radii (int32 scratch in L2), the column pass finishes
+//    them over the column and evaluates the predicate, writing bool markers.
+//    A square maximum is the column maximum of row maxima.
+//  * One thread a pixel, on a flat index over H * W, so any H and W take
+//    the same code. A thread walks its row from the centre out, d = 1 .. R,
+//    and keeps the maximum when d reaches `window`, so one walk gives both
+//    radii; in the column pass it walks each radius's row maxima.
+//  * The clipped window without branches: the neighbour at x - d is read at
+//    max(x - d, 0), which lies inside the clipped window whenever x - d does
+//    not, so the maximum is unchanged. Radii past the frame are cut to it by
+//    the wrapper.
+//  * Neighbouring threads read neighbouring addresses (a row in the row pass,
+//    a row of the row maxima in the column pass), served by L1 and L2; no
+//    shared memory, so no radius or width is too large for a block.
+//  * The predicate is the plain version's: int32 compares, `wmax - slack`
+//    wrapping as torch's int32 does, and float(dist) >= rel * float(wide)
+//    with one f32 multiply rounded once (__fmul_rn: nothing to contract).
+constexpr int kSplitThreads = 256;
+
+__device__ __forceinline__ int window_max(const int* __restrict__ line, int at, int stride,
+                                          int last, int from, int to, int m) {
+  for (int d = from; d <= to; ++d) {
+    const int lo = at - d < 0 ? 0 : at - d;
+    const int hi = at + d > last ? last : at + d;
+    m = max(m, max(__ldg(line + lo * stride), __ldg(line + hi * stride)));
+  }
+  return m;
+}
+
+// Row pass: row_win[p] and (when row_wide is given) row_wide[p], the
+// maxima of dist over x +- window and x +- radius in the pixel's row.
+__global__ void __launch_bounds__(kSplitThreads)
+split_rows_kernel(const int* __restrict__ dist, int* __restrict__ row_win,
+                  int* __restrict__ row_wide, int H, int W, int window, int radius) {
+  const long long p = static_cast<long long>(blockIdx.x) * kSplitThreads + threadIdx.x;
+  if (p >= static_cast<long long>(H) * W) return;
+  const int y = static_cast<int>(p / W), x = static_cast<int>(p - static_cast<long long>(y) * W);
+  const int* row = dist + static_cast<long long>(y) * W;
+  const int m = window_max(row, x, 1, W - 1, 1, window, __ldg(row + x));
+  row_win[p] = m;
+  if (row_wide != nullptr) row_wide[p] = window_max(row, x, 1, W - 1, window + 1, radius, m);
+}
+
+// Column pass: wmax and wide over the pixel's column of the row maxima (wide
+// is wmax when row_wide is null), then the markers.
+__global__ void __launch_bounds__(kSplitThreads)
+split_cols_kernel(const int* __restrict__ dist, const uint8_t* __restrict__ interior,
+                  const int* __restrict__ row_win, const int* __restrict__ row_wide,
+                  bool* __restrict__ markers, int H, int W, int window, int radius,
+                  int slack, int min_dist, int rel_on, float rel) {
+  const long long p = static_cast<long long>(blockIdx.x) * kSplitThreads + threadIdx.x;
+  if (p >= static_cast<long long>(H) * W) return;
+  const int y = static_cast<int>(p / W), x = static_cast<int>(p - static_cast<long long>(y) * W);
+  const int wmax = window_max(row_win + x, y, W, H - 1, 1, window, __ldg(row_win + p));
+  int wide = wmax;
+  if (row_wide != nullptr) {
+    wide = window_max(row_wide + x, y, W, H - 1, 1, radius, __ldg(row_wide + p));
+  }
+  const int v = __ldg(dist + p);
+  const int low = static_cast<int>(static_cast<unsigned>(wmax) - static_cast<unsigned>(slack));
+  bool m = __ldg(interior + p) != 0 && v >= low && v >= min_dist;
+  if (rel_on) m = m && __int2float_rn(v) >= __fmul_rn(rel, __int2float_rn(wide));
+  markers[p] = m;
+}
+
 // Blocks of `kernel` the device holds at once (cached per device), capped at
 // what `n` pixels need; 0 with `err` set when the query fails or nothing fits.
 template <typename K>
@@ -244,5 +323,33 @@ extern "C" int lut_erosion_distance(const void* mask, void* dist, void* scratch,
   err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(erosion_distance_kernel),
                                     dim3(blocks), dim3(kLoopThreads), args, 0, s);
   if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// `dist` int32 [H, W] (>= 0), `interior` bool [H, W], `markers` bool [H, W];
+// `scratch` int32: the row maxima at `window`, then (when radius > window)
+// those at `radius`, H * W each. 0 <= window <= radius; radii past the
+// frame change nothing (the wrapper cuts them to max(H, W)).
+extern "C" int lut_split_markers(const void* dist, const void* interior, void* markers,
+                                 void* scratch, int H, int W, int window, int radius,
+                                 int slack, int min_dist, int rel_on, float rel,
+                                 void* stream) {
+  using namespace lut;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long n = static_cast<long long>(H) * W;
+  const int blocks = static_cast<int>((n + kSplitThreads - 1) / kSplitThreads);
+  const int* d = static_cast<const int*>(dist);
+  int* row_win = static_cast<int*>(scratch);
+  int* row_wide = radius > window ? row_win + n : nullptr;
+  const int last_x = W - 1, last_y = H - 1;
+  split_rows_kernel<<<blocks, kSplitThreads, 0, s>>>(
+      d, row_win, row_wide, H, W, window < last_x ? window : last_x,
+      radius < last_x ? radius : last_x);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  split_cols_kernel<<<blocks, kSplitThreads, 0, s>>>(
+      d, static_cast<const uint8_t*>(interior), row_win, row_wide, static_cast<bool*>(markers),
+      H, W, window < last_y ? window : last_y, radius < last_y ? radius : last_y, slack,
+      min_dist, rel_on, rel);
   return static_cast<int>(cudaGetLastError());
 }

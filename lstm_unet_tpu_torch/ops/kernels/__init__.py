@@ -35,6 +35,7 @@ KERNELS = {
     "conv2d_int8_smallk": conv_int8.SMALLK_COUNT,   # the int8 conv, small K, quantize folded in
     "grow_into_band": postprocess_loops.GROW_COUNT,   # the growth loop (no TPU kernel)
     "erosion_distance": postprocess_loops.ERODE_COUNT,  # the erosion loop (no TPU kernel)
+    "split_markers": postprocess_loops.SPLIT_COUNT,   # the 'dist' split's markers (no TPU kernel)
 }
 
 

@@ -41,7 +41,7 @@ NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas"
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 ACTIVATIONS = {"sigmoid": 0, "hard_sigmoid": 1}
 
-_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # argument and result types of every C entry point in csrc/
 _SIGNATURES = {
     "lut_gate_update": ([_P, _P, _P, _P, _LL, _I, _I, _I, _I, _P], _I),
@@ -60,6 +60,7 @@ _SIGNATURES = {
     "lut_ccl_grid": ([_P, _P, _I, _I, _P], _I),
     "lut_grow_into_band": ([_P, _P, _P, _P, _I, _I, _I, _P, _P], _I),
     "lut_erosion_distance": ([_P, _P, _P, _I, _I, _I, _I, _I, _P, _P], _I),
+    "lut_split_markers": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P], _I),
     "lut_conv2d_int8": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
                         _I),
     "lut_conv2d_int8_wgmma": ([_P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,

@@ -1,4 +1,5 @@
-"""The postprocess's data-dependent loops (CUDA kernels + plain versions).
+"""The postprocess's data-dependent loops and the 'dist' split's markers
+(CUDA kernels + plain versions).
 
 Replace the XLA ``lax.while_loop``s of ``lstm_unet_tpu/ops/postprocess.py``
 (no ``pallas_call``): :func:`grow_into_band` (the reference's ``:53-79``) and
@@ -9,6 +10,11 @@ each round to decide whether to go on. The kernels (``csrc/
 postprocess_loops.cu``) run every round of a call in one cooperative launch
 and decide on the card, so a step that calls them never waits for it; each
 is bit-identical to its plain version, round count included.
+
+:func:`split_markers` computes the markers of the distance-ridge split (the
+reference's plain XLA loop of ``_neighbor_max`` rounds, ``:189-197``): two
+window maxima and a predicate, in two launches of a separable kernel on the
+card in place of one launch a shifted view a round.
 
 Rounds are counted two ways. The plain versions add theirs to
 :data:`ROUNDS` on the host. The kernels add theirs to a counter on their
@@ -28,6 +34,7 @@ from .ccl import INT_MAX, pad1
 
 GROW_COUNT = _build.LaunchCount()
 ERODE_COUNT = _build.LaunchCount()
+SPLIT_COUNT = _build.LaunchCount()
 
 # rounds run by the plain loops since the last clear_rounds()
 ROUNDS = {"grow": 0, "erode": 0}
@@ -63,6 +70,24 @@ def _round_counter(device: torch.device) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------- plain versions
+
+
+def _f32(x: float) -> float:
+    """``x`` rounded to float32, as the reference's weakly typed scalars are
+    when they meet a float32 array."""
+    return torch.tensor(x, dtype=torch.float32).item()
+
+
+def _neighbor_max(lbl: torch.Tensor) -> torch.Tensor:
+    """Max over the 8-neighbourhood and the pixel itself, edges padded 0."""
+    h, w = lbl.shape
+    p = pad1(lbl, 0)
+    out = lbl
+    for dy in (-1, 0, 1):
+        for dx in (-1, 0, 1):
+            if dy or dx:
+                out = torch.maximum(out, p[1 + dy:1 + dy + h, 1 + dx:1 + dx + w])
+    return out
 
 
 def _neighbor_min_nonzero(lbl: torch.Tensor) -> torch.Tensor:
@@ -125,6 +150,23 @@ def erosion_distance_plain(mask: torch.Tensor, max_iters: int = 0, octagon: bool
         it += 1
     ROUNDS["erode"] += it
     return dist
+
+
+def split_markers_plain(dist: torch.Tensor, interior: torch.Tensor, window: int,
+                        min_dist: int, slack: int, rel: float, rel_window: int
+                        ) -> torch.Tensor:
+    """Plain PyTorch version of :func:`split_markers`: both window maxima as
+    rounds of a 3x3 maximum, one launch a shifted view a round."""
+    SPLIT_COUNT.plain += 1
+    wmax = wide = dist
+    for i in range(max(window, rel_window if rel > 0 else 0)):
+        wide = _neighbor_max(wide)
+        if i + 1 == window:
+            wmax = wide
+    markers = interior & (dist >= wmax - slack) & (dist >= min_dist)
+    if rel > 0:
+        markers &= dist.float() >= _f32(rel) * wide.float()
+    return markers
 
 
 # ---------------------------------------------------------------- wrappers
@@ -221,3 +263,43 @@ def erosion_distance(mask: torch.Tensor, max_iters: int = 0, octagon: bool = Fal
              _round_counter(mask.device).data_ptr() + 8, _build.stream_handle(mask)))
     ERODE_COUNT.kernel += 1
     return dist
+
+
+def split_markers(dist: torch.Tensor, interior: torch.Tensor, window: int, min_dist: int,
+                  slack: int, rel: float, rel_window: int) -> torch.Tensor:
+    """Markers of the distance-ridge split, bool ``[H, W]``: ``interior &
+    (dist >= wmax - slack) & (dist >= min_dist)`` in int32, and with ``rel``
+    > 0 also ``float(dist) >= f32(rel) * float(wide)`` (one float32
+    multiply). ``wmax`` is the maximum of ``dist`` over the ``(2*window+1)``
+    square around each pixel, clipped to the frame (``dist`` itself when
+    ``window`` <= 0); ``wide`` the same over the radius ``max(window,
+    rel_window)``. The reference takes these as rounds of a 3x3 maximum with
+    the border padded 0, which equals the clipped window only because
+    ``dist >= 0``: an int32 distance map, ``>= 0`` everywhere, is the
+    precondition.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel (any
+    other device raises, and so does a refused launch)."""
+    _check("split_markers", dist, interior)
+    if dist.device.type == "cpu":
+        return split_markers_plain(dist, interior, window, min_dist, slack, rel, rel_window)
+    if dist.dtype != torch.int32:
+        raise TypeError(f"split_markers kernel takes an int32 distance map, got {dist.dtype}")
+    _cuda_ok("split_markers", interior, dist)
+    h, w = dist.shape
+    markers = torch.empty((h, w), dtype=torch.bool, device=dist.device)
+    if h * w == 0:
+        return markers
+    # radii past the frame's extent change nothing, and keep int32 in the kernel
+    window = min(max(window, 0), max(h, w))
+    radius = min(max(window, rel_window if rel > 0 else 0), max(h, w))
+    scratch = torch.empty((2 if radius > window else 1) * h * w, dtype=torch.int32,
+                          device=dist.device)
+    # slack and min_dist go as their low 32 bits, as torch takes a Python int
+    # against an int32 tensor
+    _launch("lut_split_markers", dist,
+            (dist.data_ptr(), interior.data_ptr(), markers.data_ptr(), scratch.data_ptr(),
+             h, w, window, radius, slack, min_dist, int(rel > 0), _f32(rel) if rel > 0 else 0.0,
+             _build.stream_handle(dist)))
+    SPLIT_COUNT.kernel += 1
+    return markers

@@ -7,11 +7,11 @@ raster-ordered ids. Labels are bit-identical to the reference for the same
 probabilities.
 
 The growth and erosion-distance loops are one kernel launch each on the
-card (``kernels/postprocess_loops.py``), so nothing here reads the device on
-the host; on the CPU their plain versions count their rounds in
-:data:`ROUNDS`. While the tracer stamps (``utils/trace.py``), the
-components, the split and the growth are stamped ``ccl``, ``split`` and
-``grow``.
+card and the 'dist' split's markers two (``kernels/postprocess_loops.py``),
+so nothing here reads the device on the host; on the CPU the loops' plain
+versions count their rounds in :data:`ROUNDS`. While the tracer stamps
+(``utils/trace.py``), the components, the split and the growth are stamped
+``ccl``, ``split`` and ``grow``.
 """
 
 from __future__ import annotations
@@ -20,29 +20,12 @@ import torch
 
 from ..utils import trace
 from .ccl import bincount, connected_components, relabel_compact
-from .kernels.ccl import INT_MAX, pad1
+from .kernels.ccl import INT_MAX
 from .kernels.postprocess_loops import ROUNDS, erosion_distance, grow_into_band  # noqa: F401
+from .kernels.postprocess_loops import _f32, _neighbor_max, split_markers
 from .kernels.postprocess_loops import erode as _erode
 
 UINT16_MAX = 65535
-
-
-def _f32(x: float) -> float:
-    """``x`` rounded to float32, as the reference's weakly typed scalars are
-    when they meet a float32 array."""
-    return torch.tensor(x, dtype=torch.float32).item()
-
-
-def _neighbor_max(lbl: torch.Tensor) -> torch.Tensor:
-    """Max over the 8-neighbourhood and the pixel itself, edges padded 0."""
-    h, w = lbl.shape
-    p = pad1(lbl, 0)
-    out = lbl
-    for dy in (-1, 0, 1):
-        for dx in (-1, 0, 1):
-            if dy or dx:
-                out = torch.maximum(out, p[1 + dy:1 + dy + h, 1 + dx:1 + dx + w])
-    return out
 
 
 def chebyshev_distance(mask: torch.Tensor, max_iters: int = 0) -> torch.Tensor:
@@ -93,15 +76,9 @@ def split_touching_instances(lbl: torch.Tensor, interior: torch.Tensor,
 
     ``lbl`` is the raw (or compact) labelling of ``interior``; returns int32
     labels of the same support, not compact."""
-    dist = octagon_distance(interior.contiguous())
-    wmax = wide = dist
-    for i in range(max(window, rel_window if rel > 0 else 0)):
-        wide = _neighbor_max(wide)
-        if i + 1 == window:
-            wmax = wide
-    markers = interior & (dist >= wmax - slack) & (dist >= min_dist)
-    if rel > 0:
-        markers &= dist.float() >= _f32(rel) * wide.float()
+    interior = interior.contiguous()
+    dist = octagon_distance(interior)
+    markers = split_markers(dist, interior, window, min_dist, slack, rel, rel_window)
     if min_size > 0:
         # ineligible components get no markers, so they keep their labels
         markers &= _component_sizes(lbl) >= min_size

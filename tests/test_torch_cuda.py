@@ -14,8 +14,8 @@ order than cuDNN's) 2e-5 with f32 state and 1e-5 plus one bf16 ulp with bf16 sta
 to K*K*F = 3200 summed products (flagship level 0), scaled linearly with
 the summation length above that (a sum's worst-case rounding error grows
 with its length: x4 at level 3's 12800); K3 (both routes), the int8 conv (both
-routes), the postprocess's loop kernels (round counts too) and the postprocess
-with the instance split equal; the tiny model's grads
+routes), the postprocess's loop kernels (round counts too), the 'dist'
+split's markers kernel and the postprocess with the instance split equal; the tiny model's grads
 with the kernels against the same model with the plain versions 1e-5
 relative (deterministic cuDNN, same formulas).
 """
@@ -441,7 +441,8 @@ def test_ccl_routes_by_shape(cuda):
 ])
 def test_postprocess_with_split_on_the_card_equals_cpu(cuda, kw, k3):
     """postprocess_frame on cell-like probabilities: the card (K3 once, twice
-    with the split, no plain version) and the CPU give equal labels."""
+    with the split, the markers kernel once with 'dist', no plain version) and
+    the CPU give equal labels."""
     from lstm_unet_tpu_torch.ops.postprocess import postprocess_frame
 
     probs = torch.from_numpy(synthetic.cell_like_probs(256, 320, num_cells=100, seed=4)[0])
@@ -449,6 +450,7 @@ def test_postprocess_with_split_on_the_card_equals_cpu(cuda, kw, k3):
     got = postprocess_frame(probs.to(cuda), **kw)
     ran = counts()
     assert ran["ccl"]["kernel"] == k3 and all(v["plain"] == 0 for v in ran.values())
+    assert ran["split_markers"]["kernel"] == int(kw.get("split_method") == "dist")
     want = postprocess_frame(probs, **kw)
     assert int(want.max()) > 20 and torch.equal(got.cpu(), want)
 
@@ -1150,6 +1152,64 @@ def test_postprocess_loops_equal_plain(cuda, case):
         loops.clear_rounds()
         loops.grow_into_band(lbl, band)
         assert loops.device_rounds(cuda)["grow"] > 30000
+
+
+# the 'dist' split's marker arguments: (window, min_dist, slack, rel, rel_window)
+SPLIT_ARGS = {"defaults": (16, 4, 1, 0.65, 48), "window > rel_window": (24, 3, 1, 0.5, 8),
+              "rel = 0": (16, 4, 1, 0.0, 48), "window = 0": (0, 2, 0, 0.65, 12),
+              "slack 3, rel 0.9": (8, 2, 3, 0.9, 30)}
+
+
+def _split_maps(cuda, maps, h, w):
+    """(dist, interior) on the card: the octagon distance of a cell-like
+    interior, or random distances 0-40 on a random interior."""
+    from lstm_unet_tpu_torch.ops.postprocess import octagon_distance
+
+    if maps == "random":
+        r = np.random.default_rng(h * w)
+        return (torch.from_numpy(r.integers(0, 41, (h, w)).astype(np.int32)).to(cuda),
+                torch.from_numpy(r.random((h, w)) < 0.7).to(cuda))
+    probs = synthetic.cell_like_probs(h, w, num_cells=max(1, h * w // 900), seed=h + w)[0]
+    interior = (torch.from_numpy(probs[..., 1]).to(cuda) > 0.5).contiguous()
+    return octagon_distance(interior), interior
+
+
+@pytest.mark.parametrize("maps", ["random", "cell-like"])
+@pytest.mark.parametrize("h,w", [(512, 512), (1024, 1024), (96, 160), (40, 56), (7, 300),
+                                 (1, 1)])
+def test_split_markers_equal_plain(cuda, h, w, maps):
+    """The markers kernel bit-equal to its plain version on the same CUDA
+    tensors, at every argument case; 40x56, 7x300 and 1x1 lie below the
+    default window (2R+1 = 97)."""
+    from lstm_unet_tpu_torch.ops.kernels import postprocess_loops as loops
+
+    dist, interior = _split_maps(cuda, maps, h, w)
+    for name, args in SPLIT_ARGS.items():
+        reset_counts()
+        got = loops.split_markers(dist, interior, *args)
+        want = loops.split_markers_plain(dist, interior, *args)
+        assert counts()["split_markers"] == {"kernel": 1, "plain": 1}
+        assert got.dtype == torch.bool and torch.equal(got, want), \
+            f"{name}: {int((got != want).sum())} px differ"
+
+
+def test_split_markers_replay_in_a_cuda_graph(cuda):
+    """A CUDA graph that holds the markers kernel: each replay on new
+    distances in the captured input equals the plain version."""
+    from lstm_unet_tpu_torch.ops.kernels import postprocess_loops as loops
+
+    maps = [_split_maps(cuda, "cell-like", 512, 512), _split_maps(cuda, "random", 512, 512)]
+    dist, interior = (t.clone() for t in maps[0])
+    loops.split_markers(dist, interior, *SPLIT_ARGS["defaults"])  # the first launch outside
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = loops.split_markers(dist, interior, *SPLIT_ARGS["defaults"])
+    for d, i in maps * 2:
+        dist.copy_(d)
+        interior.copy_(i)
+        graph.replay()
+        assert torch.equal(out, loops.split_markers_plain(d, i, *SPLIT_ARGS["defaults"]))
 
 
 @pytest.mark.parametrize("dtype,fused", [("bfloat16", True), ("int8", False)])

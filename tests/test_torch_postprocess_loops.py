@@ -148,7 +148,10 @@ def test_wrappers_take_the_plain_version_on_the_cpu_and_count_it():
         torch.zeros(4, 4, dtype=torch.bool, device="meta")),
     lambda: postprocess_loops.erosion_distance(torch.zeros(4, 4, dtype=torch.bool,
                                                            device="meta")),
-], ids=["grow", "erode"])
+    lambda: postprocess_loops.split_markers(
+        torch.zeros(4, 4, dtype=torch.int32, device="meta"),
+        torch.zeros(4, 4, dtype=torch.bool, device="meta"), 2, 1, 0, 0.5, 3),
+], ids=["grow", "erode", "split"])
 def test_wrappers_raise_for_another_device(call):
     reset_counts()
     with pytest.raises(ValueError, match="no .* kernel for device meta"):
@@ -162,3 +165,6 @@ def test_wrappers_refuse_mismatched_inputs():
                                          torch.zeros(4, 5, dtype=torch.bool))
     with pytest.raises(ValueError, match=r"\[H, W\]"):
         postprocess_loops.erosion_distance(torch.zeros(2, 4, 4, dtype=torch.bool))
+    with pytest.raises(ValueError, match="different shapes"):
+        postprocess_loops.split_markers(torch.zeros(4, 4, dtype=torch.int32),
+                                        torch.zeros(5, 4, dtype=torch.bool), 2, 1, 0, 0.5, 3)

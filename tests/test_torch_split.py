@@ -3,7 +3,8 @@ distances, both splitters and ``postprocess_frame(instance_split=True)`` give
 equal labels, exactly, for the same inputs (made from a numpy seed). The
 behavioural cases of ``tests/test_split.py`` (two touching cells split, a
 single cell untouched, ``min_size`` eligibility, a marker-less component keeps
-its label) are held on the port's functions too."""
+its label) are held on the port's functions too, and the split's plain
+markers to a numpy twin of the markers kernel's walk."""
 
 import numpy as np
 import pytest
@@ -15,7 +16,7 @@ import jax.numpy as jnp
 from lstm_unet_tpu.ops import postprocess as jax_pp
 from lstm_unet_tpu_torch.io.synthetic import cell_like_probs
 from lstm_unet_tpu_torch.ops import postprocess as pp
-from lstm_unet_tpu_torch.ops.kernels import ccl
+from lstm_unet_tpu_torch.ops.kernels import ccl, counts, postprocess_loops, reset_counts
 
 
 def _t(x):
@@ -76,6 +77,95 @@ def test_split_equals_jax(seed, window, min_dist, slack, rel, rel_window):
         jnp.asarray(lbl), jnp.asarray(interior), **kw))
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+# the marker cases test_split_equals_jax lacks: (shape, window, min_dist,
+# slack, rel, rel_window); 2R+1 = 97 exceeds the 40x56 frame
+MARKER_CASES = {
+    "window > rel_window": ((64, 64), 12, 3, 1, 0.65, 5),
+    "rel = 0": ((64, 64), 8, 3, 1, 0.0, 48),
+    "window = 0": ((64, 64), 0, 3, 0, 0.65, 10),
+    "frame below 2R+1": ((40, 56), 16, 3, 1, 0.65, 48),
+    "non-square": ((48, 96), 6, 3, 2, 0.5, 20),
+}
+
+
+@pytest.mark.parametrize("case", list(MARKER_CASES))
+def test_split_equals_jax_at_the_marker_edge_cases(case):
+    (h, w), window, min_dist, slack, rel, rel_window = MARKER_CASES[case]
+    interior = _blobs(7, h, w, 50)
+    lbl = _ccl_np(interior)
+    kw = dict(window=window, min_dist=min_dist, slack=slack, rel=rel, rel_window=rel_window)
+    got = pp.split_touching_instances(_t(lbl), _t(interior), **kw)
+    want = np.asarray(jax_pp.split_touching_instances(
+        jnp.asarray(lbl), jnp.asarray(interior), **kw))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def _window_max(a, axis, frm, to, m):
+    """The kernel's walk (``csrc/postprocess_loops.cu::window_max``): ``m``
+    raised by the neighbours at d = frm .. to along ``axis``, their indices
+    clamped to the frame."""
+    n = a.shape[axis]
+    at = np.arange(n)
+    for d in range(frm, to + 1):
+        lo = np.take(a, np.maximum(at - d, 0), axis)
+        hi = np.take(a, np.minimum(at + d, n - 1), axis)
+        m = np.maximum(m, np.maximum(lo, hi))
+    return m
+
+
+def _kernel_markers(dist, interior, window, min_dist, slack, rel, rel_window):
+    """numpy twin of the split kernels with the wrapper's radii: the row pass
+    (both radii in one walk, cut to the width), the column pass (cut to the
+    height) and the predicate with one float32 multiply."""
+    h, w = dist.shape
+    window = min(max(window, 0), max(h, w))
+    radius = min(max(window, rel_window if rel > 0 else 0), max(h, w))
+    wx, rx, wy, ry = min(window, w - 1), min(radius, w - 1), min(window, h - 1), min(radius, h - 1)
+    row_win = _window_max(dist, 1, 1, wx, dist)
+    wmax = _window_max(row_win, 0, 1, wy, row_win)
+    wide = wmax
+    if radius > window:
+        row_wide = _window_max(dist, 1, wx + 1, rx, row_win)
+        wide = _window_max(row_wide, 0, 1, ry, row_wide)
+    markers = interior & (dist >= wmax - slack) & (dist >= min_dist)
+    if rel > 0:
+        markers &= dist.astype(np.float32) >= np.float32(rel) * wide.astype(np.float32)
+    return markers
+
+
+@pytest.mark.parametrize("dist_of", ["octagon distance", "random"])
+@pytest.mark.parametrize("case", ["defaults 96x96", *MARKER_CASES])
+def test_split_markers_plain_equals_the_kernels_twin(case, dist_of):
+    """The plain markers (rounds of a 3x3 maximum) equal a numpy twin of the
+    kernels' separable, clamped walk: what the card tests check bit for bit,
+    checked here on the algorithm."""
+    (h, w), *args = MARKER_CASES.get(case, ((96, 96), 16, 4, 1, 0.65, 48))
+    interior = _blobs(11, h, w, 45)
+    if dist_of == "random":
+        dist = np.random.default_rng(3).integers(0, 24, (h, w)).astype(np.int32)
+    else:
+        dist = pp.octagon_distance(_t(interior)).numpy()
+    got = postprocess_loops.split_markers_plain(_t(dist), _t(interior), *args)
+    want = _kernel_markers(dist, interior, *args)
+    assert got.dtype == torch.bool and want.any() and not want.all()
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_split_markers_takes_the_plain_version_on_the_cpu_and_counts_it():
+    interior = _blobs(2, 48, 64, 50)
+    dist = pp.octagon_distance(_t(interior))
+    reset_counts()
+    got = postprocess_loops.split_markers(dist, _t(interior), 16, 4, 1, 0.65, 48)
+    assert counts()["split_markers"] == {"kernel": 0, "plain": 1}
+    assert torch.equal(got, postprocess_loops.split_markers_plain(dist, _t(interior), 16, 4,
+                                                                   1, 0.65, 48))
+    probs = _t(_cell_probs(0))
+    for method, calls in (("dist", 1), ("prob", 0)):
+        reset_counts()
+        pp.postprocess_frame(probs, instance_split=True, split_method=method)
+        assert counts()["split_markers"] == {"kernel": 0, "plain": calls}
 
 
 def _bumps(seed=5, h=96, w=96, n=6):
